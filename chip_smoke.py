@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (unet_watermark_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing its own line:
+  0  versions, and the card's name and power limit (nvidia-smi)
+  1  build the CUDA kernels (nvcc → .so, ctypes) and report the build time
+  2  hold each kernel bit-exactly against its plain PyTorch version on the
+     card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
+     borders, and blob masks, at the main path's shape (BATCH x SIZE²)
+  3  the main path: WatermarkPredictor(cfg).make_fused_repair_fn("pushpull")
+     with MASK_MODE parity on synthetic watermarked images, Unet/resnet34
+     at full width with the shipped weights, bf16. Checks shapes, finite
+     [0, 1] output, pixels outside the mask unchanged, the mask equal to the
+     plain chain on the same raw mask, and that both kernels were launched
+     by that run; then a float32 reference on a small input against the
+     port on the CPU
+  4  timings with CUDA events: the main path (img/s) and its stages, each
+     kernel beside its plain version and its bound
+
+The line before the last is {"kernels": [...]}, the last
+{"ok": true, "device": {...}}. Any failed check raises, and the script
+exits non-zero without that last line; so does a machine without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+PORT = "unet_watermark_tpu_torch"
+BATCH, SIZE = 8, 512  # the main path's shape: 8 images of 512²
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and single operations
+# outside the tensor cores: the 67 TFLOP/s fp32 peak counts each FMA as two
+# operations, while each of the kernels' taps (an OR or AND), products and
+# sums is one
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_SINGLE_OPS_PER_S = 67e12 / 2
+K1_TAPS = 664  # max-taps per pixel of the watermark chain, centre excluded
+K2_FLOPS = 10  # separable 3-tap blur: 2 x (3 mul + 2 add) per pixel
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_masks(n: int, s: int, seed: int):
+    """name → (n, s, s) float32 masks, made with numpy from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sets = {f"p{p}": (rng.random((n, s, s)) < p) for p in (0.2, 0.35, 0.5)}
+    border = np.zeros((n, s, s), bool)
+    for i in range(n):
+        w = 4 + 3 * i
+        border[i, :w, :s // 3] = border[i, -w:, s // 2:] = True
+        border[i, s // 4:s // 2, :w] = border[i, s // 2:, -w:] = True
+        border[i] |= rng.random((s, s)) < 0.02 * i
+    sets["border"] = border
+    yy, xx = np.mgrid[0:s, 0:s]
+    blobs = rng.random((n, s, s)) < 0.03
+    for i in range(n):
+        for _ in range(12):
+            cy, cx = rng.integers(0, s, 2)
+            r = rng.integers(3, s // 6)
+            blobs[i] |= np.hypot(yy - cy, xx - cx) < r
+    sets["blobs"] = blobs
+    return {k: v.astype(np.float32) for k, v in sets.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the GPU "
+              "port and has no CPU mode", file=sys.stderr)
+        return 2
+    if not (REPO / PORT / "csrc" / "morph_chain.cu").is_file():
+        print(f"chip_smoke: {PORT}/ not found beside this script; run it "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from unet_watermark_tpu_torch.configs import get_cfg_defaults
+    from unet_watermark_tpu_torch.inference import maskproc
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.ops import components as cc
+    from unet_watermark_tpu_torch.ops.inpaint import inpaint_pushpull
+    from unet_watermark_tpu_torch.ops.kernels import build
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+    dev = torch.device("cuda")
+    n, s = BATCH, SIZE
+    # full fp32 for the float32 reference's convs and matmuls (the bf16
+    # main path does not use TF32 either way); cuDNN defaults to TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- 0: versions and card ------------------------------------------------
+    card = nvidia_smi_line()
+    log("versions", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+    print(card, flush=True)
+
+    # -- 1: build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib, nvcc_out = build.build(kc.SOURCE)
+    build_s = time.perf_counter() - t0
+    log("build", library=lib.name, seconds=round(build_s, 3),
+        ptxas=[ln.strip() for ln in nvcc_out.splitlines()
+               if "registers" in ln or "smem" in ln or "spill" in ln])
+
+    # -- 2: kernels against their plain versions -----------------------------
+    for name, masks in check_masks(n, s, args.seed).items():
+        x = torch.from_numpy(masks).to(dev)
+        k1, k1_ref = kc.morph_chain_watermark(x), kc.morph_chain_plain(x)
+        k2, k2_ref = (kc.gaussian_smooth_threshold(x),
+                      kc.smooth_threshold_plain(x))
+        torch.cuda.synchronize()
+        k1_err = (k1 - k1_ref).abs().max().item()
+        k2_err = (k2 - k2_ref).abs().max().item()
+        log("kernel_check", masks=name, shape=list(x.shape),
+            k1_mean=round(k1.mean().item(), 6), k1_max_abs_err=k1_err,
+            k2_max_abs_err=k2_err)
+        if not (torch.equal(k1, k1_ref) and torch.equal(k2, k2_ref)):
+            raise AssertionError(f"kernel differs from its plain version on "
+                                 f"{name} masks (K1 {k1_err}, K2 {k2_err})")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    noise = torch.rand(n, s, s, device=dev, generator=gen)
+    if not torch.equal(kc.gaussian_smooth_threshold(noise),
+                       kc.smooth_threshold_plain(noise)):
+        raise AssertionError("K2 differs from its plain version on [0,1) "
+                             "noise")
+    log("kernel_check", masks="uniform noise (K2)", shape=[n, s, s],
+        k2_max_abs_err=0.0)
+
+    # -- 3: the main path ----------------------------------------------------
+    cfg = get_cfg_defaults()
+    cfg.MODEL.NAME, cfg.MODEL.ENCODER_NAME = "Unet", "resnet34"
+    cfg.DATA.IMG_SIZE = s
+    cfg.PREDICT.MASK_MODE = "parity"
+    t0 = time.perf_counter()
+    pred = WatermarkPredictor(cfg, device="cuda")
+    fused = pred.make_fused_repair_fn(inpaint_engine="pushpull",
+                                      smooth_iterations=32)
+    load_s = time.perf_counter() - t0
+    images_np, logos = watermarked_images(n, s, seed=args.seed)
+    images = torch.from_numpy(images_np).to(dev)
+
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    repaired, mask = fused(images)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kc.KERNELS}
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the main path never launched {name}")
+
+    if tuple(repaired.shape) != (n, s, s, 3) or tuple(mask.shape) != (n, s, s):
+        raise AssertionError(f"shapes {tuple(repaired.shape)}, "
+                             f"{tuple(mask.shape)}")
+    if not torch.isfinite(repaired).all():
+        raise AssertionError("non-finite repaired pixels")
+    if repaired.min() < 0 or repaired.max() > 1:
+        raise AssertionError("repaired pixels outside [0, 1]")
+    if not set(mask.unique().tolist()) <= {0.0, 1.0}:
+        raise AssertionError("mask is not binary")
+    keep = (mask == 0)[..., None].expand_as(images)
+    if not torch.equal(repaired[keep], images[keep]):
+        raise AssertionError("pixels outside the mask changed")
+    raw = pred.predict_masks(images)
+    if not torch.equal(raw, pred.predict_masks(images)):
+        raise AssertionError("the network's mask is not deterministic")
+    plain = torch.stack([maskproc.optimize_watermark_mask(mk) for mk in raw])
+    if not torch.equal(mask, plain):
+        raise AssertionError("main-path mask differs from the plain chain "
+                             "on the same raw mask")
+    logos_t = torch.from_numpy(logos).to(dev) > 0.5
+    raw_b = raw > 0.5
+    iou = ((raw_b & logos_t).sum() / (raw_b | logos_t).sum().clamp(min=1))
+    if iou < 0.5:  # the shipped Unet finds 0.66-0.91 of these logos (CPU)
+        raise AssertionError(f"raw mask IoU with the drawn logos is "
+                             f"{iou.item():.3f}")
+    log("main_path", images=[n, s, s, 3], dtype=cfg.MODEL.DTYPE,
+        mask_mode=fused.mask_mode, engine=fused.engine_used,
+        weights=Path(pred.weights_path).name, weights_used=pred.n_weights,
+        load_s=round(load_s, 3), first_call_s=round(first_call_s, 3),
+        launches=launches, raw_mask_fraction=round(raw.mean().item(), 6),
+        mask_fraction=round(mask.mean().item(), 6),
+        raw_mask_iou_vs_logo=round(iou.item(), 4),
+        mask_equals_plain_chain=True, outside_mask_unchanged=True)
+
+    # float32 reference: the bf16 main path's raw mask against float32 on the
+    # card, and float32 on the card against the port on the CPU at 64²
+    cfg32 = get_cfg_defaults()
+    cfg32.MODEL.NAME, cfg32.MODEL.DTYPE = "Unet", "float32"
+    cfg32.PREDICT.MASK_MODE = "parity"
+    pred32 = WatermarkPredictor(cfg32, device="cuda")
+    agree_bf16 = (pred32.predict_masks(images) == raw).float().mean().item()
+    if agree_bf16 < 0.99:
+        raise AssertionError(f"bf16 and float32 raw masks agree on only "
+                             f"{agree_bf16:.4%} of pixels")
+    small_np, _ = watermarked_images(2, 64, seed=args.seed + 1)
+    small = torch.from_numpy(small_np)
+    pred_cpu = WatermarkPredictor(cfg32, device="cpu")
+    with torch.inference_mode():
+        logits_gpu = pred32.model(
+            ((small.to(dev) - pred32._mean) / pred32._std)).cpu()
+        logits_cpu = pred_cpu.model((small - pred_cpu._mean) / pred_cpu._std)
+    logit_err = (logits_gpu - logits_cpu).abs().max().item()
+    if logit_err > 1e-3:  # the tolerance of tests/test_torch_models.py
+        raise AssertionError(f"float32 logits on the card differ from the "
+                             f"CPU's by {logit_err}")
+    raw_cpu = pred_cpu.predict_masks(small)
+    mask_gpu = maskproc.optimize_watermark_mask_batch(raw_cpu.to(dev))
+    mask_cpu = maskproc.optimize_watermark_mask_batch(raw_cpu)
+    if not torch.equal(mask_gpu.cpu(), mask_cpu):
+        raise AssertionError("mask chain on the card differs from the CPU's")
+    fill_err = (inpaint_pushpull(small.to(dev), mask_gpu[..., None], 32).cpu()
+                - inpaint_pushpull(small, mask_cpu[..., None], 32)
+                ).abs().max().item()
+    if fill_err > 1e-4:
+        raise AssertionError(f"push-pull fill on the card differs from the "
+                             f"CPU's by {fill_err}")
+    log("reference", bf16_vs_fp32_raw_mask_agreement=round(agree_bf16, 6),
+        fp32_logits_gpu_vs_cpu_max_abs=logit_err,
+        mask_chain_gpu_equals_cpu=True, fill_gpu_vs_cpu_max_abs=fill_err)
+    del pred32, pred_cpu
+
+    # -- 4: timings ----------------------------------------------------------
+    for _ in range(3):
+        fused(images)
+    calls = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused(images)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append(start.elapsed_time(end))
+    e2e = np.percentile(calls, [50, 90])
+    k1_out = kc.morph_chain_watermark(raw)
+    cc_out = cc.keep_largest_component(k1_out)
+    with torch.inference_mode():
+        stages = {
+            "network_ms": cuda_ms(lambda: pred.predict_masks(images), 10),
+            "k1_ms": cuda_ms(lambda: kc.morph_chain_watermark(raw), 10),
+            "components_ms": cuda_ms(
+                lambda: cc.keep_largest_component(k1_out), 10),
+            "k2_ms": cuda_ms(lambda: kc.gaussian_smooth_threshold(cc_out), 10),
+            "mask_stage_ms": cuda_ms(
+                lambda: maskproc.optimize_watermark_mask_batch(raw), 10),
+            "fill_ms": cuda_ms(
+                lambda: inpaint_pushpull(images, mask[..., None], 32), 10)}
+    log("timing_main_path", batch=n, size=s, dtype=cfg.MODEL.DTYPE,
+        calls=len(calls), e2e_median_ms=e2e[0], e2e_p90_ms=e2e[1],
+        e2e_min_ms=min(calls), e2e_max_ms=max(calls),
+        img_per_s=n / (e2e[0] / 1e3), **stages, card=card)
+
+    # device busy share and time by kernel over a window of 3 calls; the
+    # profiler's overhead makes this window slower than the timings above
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fused(images)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    device_ms = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    log("profile", calls=3, window_ms=window_ms, device_ms=device_ms,
+        device_busy_share=device_ms / window_ms if device_ms else None,
+        top=[{"name": k[:90], "count": c, "ms": round(ms, 4)}
+             for k, c, ms in rows[:15]])
+
+    # each kernel on the inputs the main path gave it
+    k1_in, k2_in = raw, cc_out
+    px = k1_in.numel()
+    kernels = []
+    for fn, plain, x, ops, line in (
+            (kc.morph_chain_watermark, kc.morph_chain_plain, k1_in,
+             K1_TAPS * px, 158),
+            (kc.gaussian_smooth_threshold, kc.smooth_threshold_plain, k2_in,
+             K2_FLOPS * px, 167)):
+        ms = cuda_ms(lambda: fn(x), 50)
+        plain_ms = cuda_ms(lambda: plain(x), 10)
+        err = (fn(x) - plain(x)).abs().max().item()
+        bytes_ms = 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_SINGLE_OPS_PER_S * 1e3
+        kernels.append({
+            "name": fn.__name__, "route": "cuda",
+            "source": f"{PORT}/csrc/morph_chain.cu",
+            "replaces": f"unet_watermark_tpu/ops/pallas/morph_chain.py:{line}",
+            "launches": launches[fn.__name__], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+        if err != 0.0:
+            raise AssertionError(f"{fn.__name__} differs from its plain "
+                                 f"version by {err}")
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

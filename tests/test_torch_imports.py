@@ -1,0 +1,58 @@
+"""The port and chip_smoke.py import with jax, flax, yaml, PIL, cv2 and the
+JAX package blocked (the GPU machine has none of them), and chip_smoke.py
+gives no result without a card."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ["jax", "flax", "yaml", "PIL", "cv2", "unet_watermark_tpu"]
+OK_LINE = '{"ok": true'
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import unet_watermark_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert callable(chip_smoke.main)
+leaked = sorted(n for n in {blocked!r} if sys.modules.get(n) is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def _run(code_or_args, cwd, timeout=120):
+    path = os.pathsep.join(filter(None, [str(cwd),
+                                         os.environ.get("PYTHONPATH")]))
+    env = dict(os.environ, PYTHONPATH=path, CUDA_VISIBLE_DEVICES="")
+    args = code_or_args if isinstance(code_or_args, list) else \
+        [sys.executable, "-c", code_or_args]
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_port_imports_nothing_of_jax():
+    proc = _run(IMPORT_ALL.format(blocked=BLOCKED), REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 18  # every module was imported
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run([sys.executable, "chip_smoke.py"], REPO)
+    assert proc.returncode != 0
+    assert OK_LINE not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run([sys.executable, "chip_smoke.py"], tmp_path)
+    assert proc.returncode != 0
+    assert OK_LINE not in proc.stdout

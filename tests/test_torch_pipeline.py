@@ -1,0 +1,124 @@
+"""The port's fused detect→repair fn against the JAX package's
+WatermarkPredictor.make_fused_repair_fn at 64², float32, push-pull fill."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unet_watermark_tpu.configs import get_cfg_defaults as jax_cfg_defaults
+from unet_watermark_tpu.inference import maskproc as jmp
+from unet_watermark_tpu.inference.predict import \
+    WatermarkPredictor as JaxPredictor
+from unet_watermark_tpu.models import create_model_from_config as jax_model
+from unet_watermark_tpu.utils.shipping import load_params_npz
+from unet_watermark_tpu_torch.configs import get_cfg_defaults
+from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+from unet_watermark_tpu_torch.utils.shipping import seg_weights_path
+from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+torch.set_num_threads(2)
+
+UNET = seg_weights_path("Unet", "resnet34")
+# Repaired pixels: push-pull and 32 Jacobi sweeps in float32, summed in
+# another order on each side; observed differences are ~1e-7.
+REPAIR_ATOL = 1e-5
+
+
+def _jax_predictor(mask_mode):
+    """The JAX predictor with the shipped weights. Its __init__ runs an
+    eager init_model (~19 s on the CPU) only to get a template, so the
+    object is assembled from the attributes make_fused_repair_fn reads.
+    FUSED_DECODER is off: the fused fn captures the weights as constants,
+    and XLA's constant folding of the fused up-conv kernels alone takes
+    ~25 s; the plain decoder is the same function
+    (tests/test_fused_decoder.py holds the two equal)."""
+    cfg = jax_cfg_defaults()
+    cfg.MODEL.NAME, cfg.MODEL.DTYPE = "Unet", "float32"
+    cfg.MODEL.FUSED_DECODER = False
+    cfg.DATA.IMG_SIZE = 64
+    cfg.PREDICT.MASK_MODE = mask_mode
+    tree = {}
+    with np.load(UNET) as z:
+        for k in z.files:
+            parts = k.split("::", 1)[-1].split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.zeros(z[k].shape, np.float32)
+    pred = JaxPredictor.__new__(JaxPredictor)
+    pred.cfg = cfg
+    pred.model = jax_model(cfg)
+    pred.variables = load_params_npz(str(UNET), tree)
+    pred._quant_scales = None
+    return pred
+
+
+def _port_predictor(mask_mode):
+    cfg = get_cfg_defaults()
+    cfg.MODEL.NAME, cfg.MODEL.DTYPE = "Unet", "float32"
+    cfg.PREDICT.MASK_MODE = mask_mode
+    return WatermarkPredictor(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def images():
+    return watermarked_images(3, 64, seed=7)[0]
+
+
+@pytest.fixture(scope="module", params=["parity", "auto"])
+def runs(request, images):
+    mode = request.param
+    jpred = _jax_predictor(mode)
+    jrepaired = np.asarray(jpred.make_fused_repair_fn("pushpull")(
+        jnp.asarray(images)))
+    # the JAX fused fn returns only the image: its mask, as it computes it
+    x = (jnp.asarray(images) - jnp.asarray([0.485, 0.456, 0.406])) / \
+        jnp.asarray([0.229, 0.224, 0.225])
+    logits = jpred.model.apply(jpred.variables, x, train=False)
+    raw = jax.nn.sigmoid(logits[..., 0]) > jpred.cfg.PREDICT.THRESHOLD
+    chain = (jmp.optimize_watermark_mask if mode == "parity"
+             else jmp.optimize_watermark_mask_tight)
+    jmask = np.stack([np.asarray(chain(mk.astype(jnp.float32)))
+                      for mk in raw])
+    fused = _port_predictor(mode).make_fused_repair_fn("pushpull")
+    trepaired, tmask = fused(images)
+    return {"mode": mode, "fused": fused, "jrepaired": jrepaired,
+            "jmask": jmask, "trepaired": trepaired.numpy(),
+            "tmask": tmask.numpy()}
+
+
+def test_masks_equal_jax(runs):
+    assert runs["tmask"].shape == (3, 64, 64)
+    assert runs["tmask"].sum() > 0
+    np.testing.assert_array_equal(runs["tmask"], runs["jmask"])
+
+
+def test_repaired_images_match_jax(runs, images):
+    t, j = runs["trepaired"], runs["jrepaired"]
+    assert t.shape == j.shape == images.shape
+    assert np.isfinite(t).all() and t.min() >= 0.0 and t.max() <= 1.0
+    np.testing.assert_allclose(t, j, rtol=0, atol=REPAIR_ATOL)
+    keep = runs["tmask"][..., None] == 0
+    np.testing.assert_array_equal(np.where(keep, t, 0),
+                                  np.where(keep, images, 0))
+    assert (t != images)[~keep.repeat(3, -1)].mean() > 0.5
+
+
+def test_fused_fn_names_its_engine_and_mode(runs):
+    assert runs["fused"].engine_used == "pushpull"
+    assert runs["fused"].mask_mode == {"parity": "parity",
+                                       "auto": "tight"}[runs["mode"]]
+
+
+def test_lama_waits_for_its_slice_and_cuda_never_falls_back():
+    pred = _port_predictor("parity")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pred.make_fused_repair_fn("lama")
+    with pytest.raises(ValueError):
+        pred.make_fused_repair_fn("telea")
+    if not torch.cuda.is_available():
+        cfg = get_cfg_defaults()
+        cfg.MODEL.NAME = "Unet"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            WatermarkPredictor(cfg)

@@ -1,0 +1,45 @@
+"""The part of the JAX package's typed config tree that the port reads.
+
+Field names and defaults are copied from unet_watermark_tpu/configs/config.py
+(which imports yaml and so cannot be imported here). Only the fields the
+detect→repair slice reads are present; YAML loading comes with a later
+slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
+
+
+@dataclass
+class ModelConfig:
+    NAME: str = "UnetPlusPlus"
+    ENCODER_NAME: str = "resnet34"
+    DECODER_CHANNELS: List[int] = field(
+        default_factory=lambda: [256, 128, 64, 32, 16])
+    DTYPE: str = "bfloat16"  # compute dtype of the network; logits are fp32
+
+
+@dataclass
+class DataConfig:
+    IMG_SIZE: int = 512
+
+
+@dataclass
+class PredictConfig:
+    THRESHOLD: float = 0.5  # mask = sigmoid(logit) > THRESHOLD (strict)
+    # "parity" = the reference's cv2 chain, "tight" = the
+    # precision-preserving chain, "auto" = tight for the repair mask
+    # (inference/maskproc.resolve_mask_mode)
+    MASK_MODE: str = "auto"
+
+
+@dataclass
+class Config:
+    MODEL: ModelConfig = field(default_factory=ModelConfig)
+    DATA: DataConfig = field(default_factory=DataConfig)
+    PREDICT: PredictConfig = field(default_factory=PredictConfig)
+
+
+def get_cfg_defaults() -> Config:
+    return Config()

@@ -1,0 +1,99 @@
+"""WatermarkPredictor's fused detect→repair path (inference/predict.py:931-985
+in the JAX package).
+
+The fused fn maps (N, S, S, 3) images in [0, 1] to (repaired, mask):
+ImageNet normalize → Unet → sigmoid → threshold → mask optimization →
+push-pull fill → composite. With PREDICT.MASK_MODE "parity" the repair mask
+goes through the mask-stage kernels (maskproc.optimize_watermark_mask_batch);
+with "tight" (and "auto", which resolves to tight for repair) through the
+plain tight chain, which has no kernel in either package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs import Config, get_cfg_defaults
+from ..models import create_model_from_config
+from ..models.convert import load_flax_weights
+from ..models.factory import torch_dtype
+from ..ops.inpaint import inpaint_pushpull
+from ..utils.shipping import load_npz, seg_weights_path
+from . import maskproc
+
+# ops/augment.py in the JAX package
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def resolve_device(device: str) -> torch.device:
+    """The caller's device; "cuda" without a card raises rather than moving
+    the work to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class WatermarkPredictor:
+    """Holds the segmentation model on `device` with the shipped (or given)
+    .npz weights. A float32 model on the card follows the process's TF32
+    settings (`torch.backends.cudnn.allow_tf32`, default on); the caller
+    chooses them, as chip_smoke.py does."""
+
+    def __init__(self, cfg: Optional[Config] = None,
+                 weights_path: Optional[str] = None, device: str = "cuda"):
+        self.cfg = cfg if cfg is not None else get_cfg_defaults()
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(self.cfg.MODEL.DTYPE)
+        model = create_model_from_config(self.cfg)
+        path = weights_path or seg_weights_path(self.cfg.MODEL.NAME,
+                                                self.cfg.MODEL.ENCODER_NAME)
+        self.weights_path = str(path)
+        self.n_weights = load_flax_weights(model, load_npz(path))
+        model = model.eval().to(self.device, self.dtype)
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        self.model = model
+        self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        self._std = torch.tensor(IMAGENET_STD, device=self.device)
+
+    @torch.inference_mode()
+    def predict_masks(self, images_01: torch.Tensor) -> torch.Tensor:
+        """(N, S, S, 3) [0, 1] → (N, S, S) float32 {0, 1} raw masks."""
+        norm = (images_01 - self._mean) / self._std
+        logits = self.model(norm)
+        probs = torch.sigmoid(logits[..., 0])
+        return (probs > self.cfg.PREDICT.THRESHOLD).float()
+
+    def make_fused_repair_fn(self, inpaint_engine: str = "pushpull",
+                             smooth_iterations: int = 32):
+        """The fused detect→repair callable; `.engine_used` names the fill."""
+        if inpaint_engine in ("lama", "big-lama", "mat"):
+            raise NotImplementedError(
+                f"inpaint engine '{inpaint_engine}' (FFC-LaMa) is the port's "
+                f"next slice (see ROADMAP.md); use 'pushpull'")
+        if inpaint_engine != "pushpull":
+            raise ValueError(f"unknown inpaint engine '{inpaint_engine}'")
+        mode = maskproc.resolve_mask_mode(self.cfg.PREDICT.MASK_MODE,
+                                          "repair")
+
+        @torch.inference_mode()
+        def fused(images_01):
+            images = torch.as_tensor(images_01, dtype=torch.float32,
+                                     device=self.device)
+            masks = self.predict_masks(images)
+            if mode == "parity":
+                opt = maskproc.optimize_watermark_mask_batch(masks)
+            else:
+                opt = torch.stack([maskproc.optimize_watermark_mask_tight(mk)
+                                   for mk in masks])
+            repaired = inpaint_pushpull(images, opt[..., None],
+                                        smooth_iterations=smooth_iterations)
+            return repaired, opt
+
+        fused.engine_used = "pushpull"
+        fused.mask_mode = mode
+        return fused

@@ -1,0 +1,81 @@
+"""ResNet encoder (models/encoders.py in the JAX package), NCHW inside.
+
+Returns the SMP 6-feature pyramid [x, s2, s4, s8, s16, s32]. Module names
+follow the torchvision/SMP state_dict (conv1, bn1, layer1..layer4,
+downsample.0/.1), which is the name map models/convert.py applies.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+def _bn(ch: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(ch, eps=BN_EPS)
+
+
+class BasicBlock(nn.Module):
+    """conv3x3-bn-relu, conv3x3-bn, (+downsample), relu."""
+
+    def __init__(self, cin: int, ch: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, ch, 3, stride, 1, bias=False)
+        self.bn1 = _bn(ch)
+        self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
+        self.bn2 = _bn(ch)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or cin != ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, ch, 1, stride, 0, bias=False), _bn(ch))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + identity)
+
+
+_RESNET_LAYERS = {"resnet34": (3, 4, 6, 3)}
+_WIDTHS = (64, 128, 256, 512)
+
+
+def resnet_out_channels(variant: str) -> Tuple[int, ...]:
+    if variant not in _RESNET_LAYERS:
+        raise NotImplementedError(
+            f"encoder '{variant}' is not ported yet (see ROADMAP.md); "
+            f"ported: {sorted(_RESNET_LAYERS)}")
+    return (3, 64, 64, 128, 256, 512)
+
+
+class ResNetEncoder(nn.Module):
+    def __init__(self, variant: str = "resnet34"):
+        super().__init__()
+        self.out_channels = resnet_out_channels(variant)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)  # pads with -inf
+        cin = 64
+        for i, (blocks, width) in enumerate(zip(_RESNET_LAYERS[variant],
+                                                _WIDTHS)):
+            stride = 1 if i == 0 else 2
+            layer = []
+            for b in range(blocks):
+                layer.append(BasicBlock(cin, width, stride if b == 0 else 1))
+                cin = width
+            setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
+
+    def forward(self, x) -> List[torch.Tensor]:
+        feats = [x]
+        y = self.relu(self.bn1(self.conv1(x)))
+        feats.append(y)
+        y = self.maxpool(y)
+        for i in range(1, 5):
+            y = getattr(self, f"layer{i}")(y)
+            feats.append(y)
+        return feats

@@ -1,0 +1,59 @@
+"""SegmentationModel and create_model_from_config (models/factory.py in
+the JAX package), for arch "Unet"."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from .encoders import ResNetEncoder
+from .unet import SegmentationHead, UnetDecoder
+
+
+class SegmentationModel(nn.Module):
+    """Encoder + decoder + head. NHWC in, (N, H, W, classes) fp32 logits out,
+    as the JAX model. Inside, the convolutions run NCHW (a permuted NHWC
+    tensor is channels-last in memory)."""
+
+    def __init__(self, arch: str = "Unet", encoder_name: str = "resnet34",
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 classes: int = 1):
+        super().__init__()
+        if arch.lower() != "unet":
+            raise NotImplementedError(
+                f"arch '{arch}' is not ported yet; the port has Unet only "
+                f"(see ROADMAP.md for the queue)")
+        self.encoder = ResNetEncoder(encoder_name)
+        self.decoder = UnetDecoder(self.encoder.out_channels,
+                                   decoder_channels)
+        self.segmentation_head = SegmentationHead(decoder_channels[-1],
+                                                  classes)
+
+    def forward(self, x):
+        if x.ndim != 4 or x.shape[-1] != 3:
+            raise ValueError(
+                f"expected NHWC input with 3 channels, got {tuple(x.shape)}")
+        if x.shape[1] % 32 or x.shape[2] % 32:
+            raise ValueError(
+                f"H and W must be multiples of 32 (5 stride-2 stages); got "
+                f"{x.shape[1]}x{x.shape[2]}")
+        dtype = next(self.parameters()).dtype
+        feats = self.encoder(x.permute(0, 3, 1, 2).to(dtype))
+        y = self.segmentation_head(self.decoder(feats))
+        return y.permute(0, 2, 3, 1)
+
+
+def create_model_from_config(cfg) -> SegmentationModel:
+    """The model of cfg.MODEL, in float32 on the CPU; the caller moves it."""
+    return SegmentationModel(arch=cfg.MODEL.NAME,
+                             encoder_name=cfg.MODEL.ENCODER_NAME,
+                             decoder_channels=tuple(
+                                 cfg.MODEL.DECODER_CHANNELS))
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    if name not in dtypes:
+        raise ValueError(f"unsupported MODEL.DTYPE '{name}'")
+    return dtypes[name]

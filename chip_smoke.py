@@ -8,7 +8,10 @@ Phases, each printing its own line:
   1  build the CUDA kernels (nvcc → .so, ctypes) and report the build time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
-     borders, and blob masks, at the main path's shape (BATCH x SIZE²)
+     borders, and blob masks, at the main path's shape (BATCH x SIZE²) and
+     at 33² (a partial last word, an image smaller than K1's 48-row halo)
+     and 100²; K2 also on uniform noise, and on floats with NaN, ±inf, 0.5
+     and its neighbours at SIZE² and 101², where it must equal x > 0.5
   3  the main path: WatermarkPredictor(cfg).make_fused_repair_fn("pushpull")
      with MASK_MODE parity on synthetic watermarked images, Unet/resnet34
      at full width with the shipped weights, bf16. Checks shapes, finite
@@ -17,7 +20,11 @@ Phases, each printing its own line:
      by that run; then a float32 reference on a small input against the
      port on the CPU
   4  timings with CUDA events: the main path (img/s) and its stages, each
-     kernel beside its plain version and its bound
+     kernel per call (median of 5 rounds of 50 back-to-back calls) beside
+     its plain version, its bound and (K2) the one PyTorch expression that
+     computes its function, timed in turns with it; each kernel's own
+     device time from torch.profiler, and the host time of one wrapper
+     call
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -42,8 +49,13 @@ BATCH, SIZE = 8, 512  # the main path's shape: 8 images of 512²
 # sums is one
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SINGLE_OPS_PER_S = 67e12 / 2
-K1_TAPS = 664  # max-taps per pixel of the watermark chain, centre excluded
+# K1: the chain's 664 max-taps a pixel (centre excluded), done 32 pixels to
+# a word operation
+K1_WORD_OPS = 664 / 32
 K2_FLOPS = 10  # separable 3-tap blur: 2 x (3 mul + 2 add) per pixel
+# each kernel's __global__ function, as torch.profiler names it
+DEVICE_NAMES = {"morph_chain_watermark": "morph_chain_kernel",
+                "gaussian_smooth_threshold": "smooth_threshold_kernel"}
 
 
 def log(phase: str, **fields) -> None:
@@ -72,6 +84,60 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host time of one fn() call: the time to enqueue `iters` calls,
+    without waiting for the device (the launch queue does not fill)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def profiled_ms(fn, kernel: str, iters: int) -> float:
+    """Mean device time of one launch of the kernel named `kernel` over
+    `iters` calls of fn(), from torch.profiler's rows of that __global__
+    function (over the launches the profiler recorded, which may miss one
+    at the window's start)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in rows)
+    if not iters // 2 <= launches <= iters:
+        raise AssertionError(f"the profiler saw {launches} launches of "
+                             f"{kernel} in {iters} calls")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+
+
+def special_floats(n: int, s: int, seed: int):
+    """(n, s, s) float32 noise on [-0.25, 1.25) with NaN, ±inf, 0.5 and its
+    two float neighbours spread through it."""
+    import numpy as np
+
+    x = (np.random.default_rng(seed).random((n, s, s)) * 1.5
+         - 0.25).astype(np.float32)
+    half = np.float32(0.5)
+    special = np.array([np.nan, np.inf, -np.inf, half,
+                        np.nextafter(half, np.float32(1)),
+                        np.nextafter(half, np.float32(0))], np.float32)
+    x.reshape(-1)[::5] = np.resize(special, x.size)[::5]
+    return x
 
 
 def check_masks(n: int, s: int, seed: int):
@@ -147,20 +213,22 @@ def main(argv=None) -> int:
                if "registers" in ln or "smem" in ln or "spill" in ln])
 
     # -- 2: kernels against their plain versions -----------------------------
-    for name, masks in check_masks(n, s, args.seed).items():
-        x = torch.from_numpy(masks).to(dev)
-        k1, k1_ref = kc.morph_chain_watermark(x), kc.morph_chain_plain(x)
-        k2, k2_ref = (kc.gaussian_smooth_threshold(x),
-                      kc.smooth_threshold_plain(x))
-        torch.cuda.synchronize()
-        k1_err = (k1 - k1_ref).abs().max().item()
-        k2_err = (k2 - k2_ref).abs().max().item()
-        log("kernel_check", masks=name, shape=list(x.shape),
-            k1_mean=round(k1.mean().item(), 6), k1_max_abs_err=k1_err,
-            k2_max_abs_err=k2_err)
-        if not (torch.equal(k1, k1_ref) and torch.equal(k2, k2_ref)):
-            raise AssertionError(f"kernel differs from its plain version on "
-                                 f"{name} masks (K1 {k1_err}, K2 {k2_err})")
+    for size in (s, 33, 100):
+        for name, masks in check_masks(n, size, args.seed).items():
+            x = torch.from_numpy(masks).to(dev)
+            k1, k1_ref = kc.morph_chain_watermark(x), kc.morph_chain_plain(x)
+            k2, k2_ref = (kc.gaussian_smooth_threshold(x),
+                          kc.smooth_threshold_plain(x))
+            torch.cuda.synchronize()
+            k1_err = (k1 - k1_ref).abs().max().item()
+            k2_err = (k2 - k2_ref).abs().max().item()
+            log("kernel_check", masks=name, shape=list(x.shape),
+                k1_mean=round(k1.mean().item(), 6), k1_max_abs_err=k1_err,
+                k2_max_abs_err=k2_err)
+            if not (torch.equal(k1, k1_ref) and torch.equal(k2, k2_ref)):
+                raise AssertionError(
+                    f"kernel differs from its plain version on {name} masks "
+                    f"at {size}² (K1 {k1_err}, K2 {k2_err})")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     noise = torch.rand(n, s, s, device=dev, generator=gen)
     if not torch.equal(kc.gaussian_smooth_threshold(noise),
@@ -169,6 +237,16 @@ def main(argv=None) -> int:
                              "noise")
     log("kernel_check", masks="uniform noise (K2)", shape=[n, s, s],
         k2_max_abs_err=0.0)
+    for size in (s, 101):
+        x = torch.from_numpy(special_floats(n, size, args.seed)).to(dev)
+        k2 = kc.gaussian_smooth_threshold(x)
+        if not (torch.equal(k2, kc.smooth_threshold_plain(x))
+                and torch.equal(k2, (x > 0.5).float())):
+            raise AssertionError(f"K2 differs from its plain version or from "
+                                 f"x > 0.5 on NaN/inf/0.5 floats at {size}²")
+        log("kernel_check", masks="NaN, ±inf, 0.5 and noise (K2)",
+            shape=[n, size, size], k2_max_abs_err=0.0,
+            k2_equals_threshold=True)
 
     # -- 3: the main path ----------------------------------------------------
     cfg = get_cfg_defaults()
@@ -323,13 +401,28 @@ def main(argv=None) -> int:
     k1_in, k2_in = raw, cc_out
     px = k1_in.numel()
     kernels = []
-    for fn, plain, x, ops, line in (
-            (kc.morph_chain_watermark, kc.morph_chain_plain, k1_in,
-             K1_TAPS * px, 158),
-            (kc.gaussian_smooth_threshold, kc.smooth_threshold_plain, k2_in,
-             K2_FLOPS * px, 167)):
-        ms = cuda_ms(lambda: fn(x), 50)
+    for fn, plain, library, x, ops, line in (
+            (kc.morph_chain_watermark, kc.morph_chain_plain, None, k1_in,
+             K1_WORD_OPS * px, 158),
+            # K2's output is x > 0.5 for every float x (smooth_threshold_plain)
+            (kc.gaussian_smooth_threshold, kc.smooth_threshold_plain,
+             lambda x: (x > 0.5).float(), k2_in, K2_FLOPS * px, 167)):
+        # per call, back to back: the median of 5 rounds of 50 calls, in
+        # turns with the library call where there is one
+        timed = {"ms": lambda: fn(x)}
+        if library is not None:
+            timed["library_ms"] = lambda: library(x)
+        rounds = {key: [] for key in timed}
+        for r in range(5):
+            for key in (list(timed) if r % 2 == 0 else list(timed)[::-1]):
+                rounds[key].append(cuda_ms(timed[key], 50))
+        ms = float(np.median(rounds["ms"]))
+        library_ms = (float(np.median(rounds["library_ms"]))
+                      if library is not None else None)
+        device_ms = profiled_ms(lambda: fn(x), DEVICE_NAMES[fn.__name__], 50)
+        call_host_ms = host_ms(lambda: fn(x), 50)
         plain_ms = cuda_ms(lambda: plain(x), 10)
+        log("kernel_timing", name=fn.__name__, rounds_ms=rounds)
         err = (fn(x) - plain(x)).abs().max().item()
         bytes_ms = 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_SINGLE_OPS_PER_S * 1e3
@@ -338,9 +431,11 @@ def main(argv=None) -> int:
             "source": f"{PORT}/csrc/morph_chain.cu",
             "replaces": f"unet_watermark_tpu/ops/pallas/morph_chain.py:{line}",
             "launches": launches[fn.__name__], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None})
+            "library_ms": library_ms})
         if err != 0.0:
             raise AssertionError(f"{fn.__name__} differs from its plain "
                                  f"version by {err}")

@@ -10,6 +10,7 @@ import torch
 
 from unet_watermark_tpu.inference import maskproc as jmp
 from unet_watermark_tpu.ops import morphology as jm
+from unet_watermark_tpu.ops.pallas import morph_chain as jpc
 from unet_watermark_tpu_torch.inference import maskproc as tmp
 from unet_watermark_tpu_torch.ops import morphology as tm
 from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
@@ -134,6 +135,36 @@ def test_k2_plain_thresholds_its_input_first():
     x = np.random.default_rng(4).random((1, 64, 64)).astype(np.float32)
     ours = kc.gaussian_smooth_threshold(torch.from_numpy(x))
     np.testing.assert_array_equal(ours.numpy(), (x > 0.5).astype(np.float32))
+
+
+def test_k2_is_the_threshold_on_all_3x3_patterns():
+    """Every binary 3x3 neighbourhood, zero-padded: the blur + threshold
+    gives back each pattern's centre (and the whole padded input)."""
+    bits = (np.arange(512)[:, None] >> np.arange(9)) & 1
+    patterns = np.zeros((512, 5, 5), np.float32)
+    patterns[:, 1:4, 1:4] = bits.reshape(512, 3, 3)
+    out = kc.smooth_threshold_plain(torch.from_numpy(patterns)).numpy()
+    np.testing.assert_array_equal(out[:, 2, 2], patterns[:, 2, 2])
+    np.testing.assert_array_equal(out, patterns)
+
+
+def test_k2_is_the_threshold_on_special_floats():
+    """NaN, ±inf, 0.5 and its neighbours, and uniform noise: the JAX
+    kernel (interpret mode), the plain version and (x > 0.5).float() agree
+    exactly, so that expression computes K2's function."""
+    rng = np.random.default_rng(5)
+    x = (rng.random((2, 37, 37)) * 1.5 - 0.25).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 0.5,
+                        np.nextafter(np.float32(0.5), np.float32(1)),
+                        np.nextafter(np.float32(0.5), np.float32(-1)),
+                        0.0, 1.0], np.float32)
+    x.reshape(-1)[::3] = np.resize(special, x.size)[::3]
+    x[1, :, :2] = 0.5
+    ref = np.asarray(jpc.gaussian_smooth_threshold(jnp.asarray(x)))
+    plain = kc.smooth_threshold_plain(torch.from_numpy(x)).numpy()
+    library = (torch.from_numpy(x) > 0.5).float().numpy()
+    np.testing.assert_array_equal(plain, ref)
+    np.testing.assert_array_equal(library, ref)
 
 
 def _cu_chain():

@@ -19,12 +19,26 @@ Phases, each printing its own line:
      plain chain on the same raw mask, and that both kernels were launched
      by that run; then a float32 reference on a small input against the
      port on the CPU
+  3b the default configuration, get_cfg_defaults() as it is: UNet++/resnet34
+     at full width with the shipped weights, bf16, MASK_MODE auto, on 8
+     synthetic images of which the last 2 carry no logo. (a) The repair
+     surface, make_fused_repair_fn("pushpull"), whose mask is the tight
+     chain run once for the batch: phase 3's checks, the mask equal to the
+     plain tight chain image by image, bf16 against float32 raw masks, and
+     float32 UNet++ logits on the card against the CPU's at 64². (b) The
+     artifact surface in step 1's order, predict_artifact_masks: raw
+     masks, each image's type, one strategy per image with the watermark
+     strategy of parity mode; both kernels must be launched by that run
+     and its masks equal plain optimize_mask image by image; then the same
+     partition with codes 0, 1 and 2 fixed, so every strategy runs
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
      computes its function, timed in turns with it; each kernel's own
      device time from torch.profiler, and the host time of one wrapper
-     call
+     call; the default configuration's repair path (img/s) and its stages,
+     the tight chain also as the per-image loop it replaced, type
+     detection and the artifact stage; a profile of each path
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -104,25 +118,84 @@ def host_ms(fn, iters: int) -> float:
 def profiled_ms(fn, kernel: str, iters: int) -> float:
     """Mean device time of one launch of the kernel named `kernel` over
     `iters` calls of fn(), from torch.profiler's rows of that __global__
-    function (over the launches the profiler recorded, which may miss one
-    at the window's start)."""
+    function (over the launches the profiler recorded). A window in which
+    the profiler recorded fewer than half of the launches is measured
+    again, up to 3 windows: on a busy host it has dropped most of a
+    window's kernel records (17 of 50 in one run)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    counts = []
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        launches = sum(e.count for e in rows)
+        if iters // 2 <= launches <= iters:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+        counts.append(launches)
+    raise AssertionError(f"the profiler saw {counts} launches of {kernel} "
+                         f"in 3 windows of {iters} calls")
+
+
+def profile_window(fn, calls: int) -> dict:
+    """Device busy share and time by kernel over `calls` calls of fn();
+    the profiler's overhead makes this window slower than an unprofiled
+    one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in rows)
-    if not iters // 2 <= launches <= iters:
-        raise AssertionError(f"the profiler saw {launches} launches of "
-                             f"{kernel} in {iters} calls")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    device_ms = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    return {"calls": calls, "window_ms": window_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / window_ms if device_ms else None,
+            "top": [{"name": k[:90], "count": c, "ms": round(ms, 4)}
+                    for k, c, ms in rows[:15]]}
+
+
+def check_repair(images, repaired, mask) -> None:
+    """The fused fn's output: shapes, finite pixels in [0, 1], a binary mask,
+    and every pixel outside the mask unchanged."""
+    import torch
+
+    n, s = images.shape[:2]
+    if tuple(repaired.shape) != (n, s, s, 3) or tuple(mask.shape) != (n, s, s):
+        raise AssertionError(f"shapes {tuple(repaired.shape)}, "
+                             f"{tuple(mask.shape)}")
+    if not torch.isfinite(repaired).all():
+        raise AssertionError("non-finite repaired pixels")
+    if repaired.min() < 0 or repaired.max() > 1:
+        raise AssertionError("repaired pixels outside [0, 1]")
+    if not set(mask.unique().tolist()) <= {0.0, 1.0}:
+        raise AssertionError("mask is not binary")
+    keep = (mask == 0)[..., None].expand_as(images)
+    if not torch.equal(repaired[keep], images[keep]):
+        raise AssertionError("pixels outside the mask changed")
+
+
+def iou(raw, logos) -> float:
+    """IoU of the raw masks with the drawn logos, over the batch."""
+    a, b = raw > 0.5, logos > 0.5
+    return ((a & b).sum() / (a | b).sum().clamp(min=1)).item()
 
 
 def special_floats(n: int, s: int, seed: int):
@@ -271,18 +344,7 @@ def main(argv=None) -> int:
         if count < 1:
             raise AssertionError(f"the main path never launched {name}")
 
-    if tuple(repaired.shape) != (n, s, s, 3) or tuple(mask.shape) != (n, s, s):
-        raise AssertionError(f"shapes {tuple(repaired.shape)}, "
-                             f"{tuple(mask.shape)}")
-    if not torch.isfinite(repaired).all():
-        raise AssertionError("non-finite repaired pixels")
-    if repaired.min() < 0 or repaired.max() > 1:
-        raise AssertionError("repaired pixels outside [0, 1]")
-    if not set(mask.unique().tolist()) <= {0.0, 1.0}:
-        raise AssertionError("mask is not binary")
-    keep = (mask == 0)[..., None].expand_as(images)
-    if not torch.equal(repaired[keep], images[keep]):
-        raise AssertionError("pixels outside the mask changed")
+    check_repair(images, repaired, mask)
     raw = pred.predict_masks(images)
     if not torch.equal(raw, pred.predict_masks(images)):
         raise AssertionError("the network's mask is not deterministic")
@@ -290,19 +352,17 @@ def main(argv=None) -> int:
     if not torch.equal(mask, plain):
         raise AssertionError("main-path mask differs from the plain chain "
                              "on the same raw mask")
-    logos_t = torch.from_numpy(logos).to(dev) > 0.5
-    raw_b = raw > 0.5
-    iou = ((raw_b & logos_t).sum() / (raw_b | logos_t).sum().clamp(min=1))
-    if iou < 0.5:  # the shipped Unet finds 0.66-0.91 of these logos (CPU)
+    raw_iou = iou(raw, torch.from_numpy(logos).to(dev))
+    if raw_iou < 0.5:  # the shipped Unet finds 0.66-0.91 of these logos (CPU)
         raise AssertionError(f"raw mask IoU with the drawn logos is "
-                             f"{iou.item():.3f}")
+                             f"{raw_iou:.3f}")
     log("main_path", images=[n, s, s, 3], dtype=cfg.MODEL.DTYPE,
         mask_mode=fused.mask_mode, engine=fused.engine_used,
         weights=Path(pred.weights_path).name, weights_used=pred.n_weights,
         load_s=round(load_s, 3), first_call_s=round(first_call_s, 3),
         launches=launches, raw_mask_fraction=round(raw.mean().item(), 6),
         mask_fraction=round(mask.mean().item(), 6),
-        raw_mask_iou_vs_logo=round(iou.item(), 4),
+        raw_mask_iou_vs_logo=round(raw_iou, 4),
         mask_equals_plain_chain=True, outside_mask_unchanged=True)
 
     # float32 reference: the bf16 main path's raw mask against float32 on the
@@ -342,6 +402,105 @@ def main(argv=None) -> int:
         mask_chain_gpu_equals_cpu=True, fill_gpu_vs_cpu_max_abs=fill_err)
     del pred32, pred_cpu
 
+    # -- 3b: the default configuration ---------------------------------------
+    cfg_d = get_cfg_defaults()
+    got = (cfg_d.MODEL.NAME, cfg_d.MODEL.ENCODER_NAME, cfg_d.MODEL.DTYPE,
+           cfg_d.DATA.IMG_SIZE, cfg_d.PREDICT.MASK_MODE)
+    if got != ("UnetPlusPlus", "resnet34", "bfloat16", 512, "auto"):
+        raise AssertionError(f"the default configuration changed: {got}")
+    t0 = time.perf_counter()
+    pred_d = WatermarkPredictor(cfg_d)
+    fused_d = pred_d.make_fused_repair_fn(inpaint_engine="pushpull",
+                                          smooth_iterations=32)
+    load_d_s = time.perf_counter() - t0
+    # the last 2 images carry no logo; their type is the watermark type, so
+    # the artifact surface's watermark strategy (K1 and K2) has images
+    images_d_np, logos_d = watermarked_images(n, s, seed=args.seed, clean=2)
+    images_d = torch.from_numpy(images_d_np).to(dev)
+
+    # (a) the repair surface
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    repaired_d, mask_d = fused_d(images_d)
+    torch.cuda.synchronize()
+    first_call_d_s = time.perf_counter() - t0
+    repair_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    check_repair(images_d, repaired_d, mask_d)
+    raw_d = pred_d.predict_masks(images_d)
+    if not torch.equal(raw_d, pred_d.predict_masks(images_d)):
+        raise AssertionError("UNet++'s mask is not deterministic")
+    for i, mk in enumerate(raw_d):
+        if not torch.equal(mask_d[i], maskproc.optimize_watermark_mask_tight(mk)):
+            raise AssertionError(f"default-config mask of image {i} differs "
+                                 f"from the plain tight chain")
+    raw_d_iou = iou(raw_d, torch.from_numpy(logos_d).to(dev))
+    if raw_d_iou < 0.5:  # UNet++ finds 0.80-0.94 of these logos (CPU, fp32)
+        raise AssertionError(f"UNet++ raw mask IoU with the drawn logos is "
+                             f"{raw_d_iou:.3f}")
+    cfg_d32 = get_cfg_defaults()
+    cfg_d32.MODEL.DTYPE = "float32"
+    pred_d32 = WatermarkPredictor(cfg_d32)
+    agree_d = (pred_d32.predict_masks(images_d) == raw_d).float().mean().item()
+    if agree_d < 0.99:
+        raise AssertionError(f"UNet++ bf16 and float32 raw masks agree on "
+                             f"only {agree_d:.4%} of pixels")
+    pred_d_cpu = WatermarkPredictor(cfg_d32, device="cpu")
+    with torch.inference_mode():
+        logits_gpu = pred_d32.model(
+            ((small.to(dev) - pred_d32._mean) / pred_d32._std)).cpu()
+        logits_cpu = pred_d_cpu.model(
+            (small - pred_d_cpu._mean) / pred_d_cpu._std)
+    logit_d_err = (logits_gpu - logits_cpu).abs().max().item()
+    if logit_d_err > 1e-3:  # the tolerance of tests/test_torch_models.py
+        raise AssertionError(f"float32 UNet++ logits on the card differ from "
+                             f"the CPU's by {logit_d_err}")
+    del pred_d32, pred_d_cpu
+    log("default_repair", images=[n, s, s, 3], arch=cfg_d.MODEL.NAME,
+        dtype=cfg_d.MODEL.DTYPE, mask_mode=fused_d.mask_mode,
+        engine=fused_d.engine_used, weights=Path(pred_d.weights_path).name,
+        weights_used=pred_d.n_weights, load_s=round(load_d_s, 3),
+        first_call_s=round(first_call_d_s, 3), launches=repair_launches,
+        raw_mask_fraction=round(raw_d.mean().item(), 6),
+        mask_fraction=round(mask_d.mean().item(), 6),
+        raw_mask_iou_vs_logo=round(raw_d_iou, 4),
+        bf16_vs_fp32_raw_mask_agreement=round(agree_d, 6),
+        fp32_logits_gpu_vs_cpu_max_abs=logit_d_err,
+        mask_equals_plain_tight_chain=True, outside_mask_unchanged=True)
+
+    # (b) the artifact surface, in step 1's order
+    art_mode = maskproc.resolve_mask_mode(cfg_d.PREDICT.MASK_MODE, "artifact")
+    kc.reset_launch_counts()
+    art, types = pred_d.predict_artifact_masks(images_d)
+    torch.cuda.synchronize()
+    art_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    for name, count in art_launches.items():
+        if count < 1:
+            raise AssertionError(f"the default config's artifact surface "
+                                 f"never launched {name} (types {types})")
+    fixed_codes = [i % 3 for i in range(n)]
+    kc.reset_launch_counts()
+    art_fixed = maskproc.optimize_mask_batch_partitioned(raw_d, fixed_codes,
+                                                         mode=art_mode)
+    torch.cuda.synchronize()
+    fixed_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    names = {v: k for k, v in maskproc.TYPE_CODES.items()}
+    for out, kinds, what in ((art, types, "detected types"),
+                             (art_fixed, [names[c] for c in fixed_codes],
+                              "codes 0, 1, 2")):
+        for i, (mk, kind) in enumerate(zip(raw_d, kinds)):
+            if not torch.equal(out[i], maskproc.optimize_mask(mk, kind,
+                                                              art_mode)):
+                raise AssertionError(f"artifact mask of image {i} ({what}, "
+                                     f"{kind}) differs from plain "
+                                     f"optimize_mask")
+    if min(fixed_launches.values()) < 1:
+        raise AssertionError(f"codes 0, 1, 2 launched {fixed_launches}")
+    log("default_artifacts", mode=art_mode, types=types,
+        launches=art_launches, fixed_codes=fixed_codes,
+        fixed_codes_launches=fixed_launches,
+        mask_fraction=round(art.mean().item(), 6),
+        equals_plain_optimize_mask=True)
+
     # -- 4: timings ----------------------------------------------------------
     for _ in range(3):
         fused(images)
@@ -373,29 +532,59 @@ def main(argv=None) -> int:
         e2e_min_ms=min(calls), e2e_max_ms=max(calls),
         img_per_s=n / (e2e[0] / 1e3), **stages, card=card)
 
-    # device busy share and time by kernel over a window of 3 calls; the
-    # profiler's overhead makes this window slower than the timings above
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fused(images)
+    for _ in range(3):
+        fused_d(images_d)
+    calls_d = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_d(images_d)
+        end.record()
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    device_ms = sum(r[2] for r in rows)
-    rows.sort(key=lambda r: -r[2])
-    log("profile", calls=3, window_ms=window_ms, device_ms=device_ms,
-        device_busy_share=device_ms / window_ms if device_ms else None,
-        top=[{"name": k[:90], "count": c, "ms": round(ms, 4)}
-             for k, c, ms in rows[:15]])
+        calls_d.append(start.elapsed_time(end))
+    e2e_d = np.percentile(calls_d, [50, 90])
+    rgb_d = torch.round(images_d * 255.0)
+    codes_d = [maskproc.type_code(t) for t in types]
+
+    def tight_loop():
+        return torch.stack([maskproc.optimize_watermark_mask_tight(mk)
+                            for mk in raw_d])
+
+    with torch.inference_mode():
+        # the batched tight chain and the per-image loop it replaced, in
+        # turns: batched, loop, loop, batched
+        tight = [cuda_ms(fn, 10) for fn in (
+            lambda: maskproc.optimize_watermark_mask_tight(raw_d), tight_loop,
+            tight_loop, lambda: maskproc.optimize_watermark_mask_tight(raw_d))]
+        stages_d = {
+            "network_ms": cuda_ms(lambda: pred_d.predict_masks(images_d), 10),
+            "tight_chain_ms": (tight[0] + tight[3]) / 2,
+            "tight_chain_per_image_loop_ms": (tight[1] + tight[2]) / 2,
+            "fill_ms": cuda_ms(
+                lambda: inpaint_pushpull(images_d, mask_d[..., None], 32), 10),
+            "type_detection_ms": cuda_ms(
+                lambda: maskproc.detect_watermark_type_scores(rgb_d, raw_d),
+                10),
+            "artifact_stage_ms": cuda_ms(
+                lambda: maskproc.optimize_mask_batch_partitioned(
+                    raw_d, codes_d, mode=art_mode), 10),
+            "artifact_stage_codes_012_ms": cuda_ms(
+                lambda: maskproc.optimize_mask_batch_partitioned(
+                    raw_d, fixed_codes, mode=art_mode), 10),
+            "artifact_surface_ms": cuda_ms(
+                lambda: pred_d.predict_artifact_masks(images_d), 10)}
+    log("timing_default_config", batch=n, size=s, arch=cfg_d.MODEL.NAME,
+        dtype=cfg_d.MODEL.DTYPE, calls=len(calls_d),
+        e2e_median_ms=e2e_d[0], e2e_p90_ms=e2e_d[1],
+        e2e_min_ms=min(calls_d), e2e_max_ms=max(calls_d),
+        img_per_s=n / (e2e_d[0] / 1e3), types=types,
+        tight_rounds_ms=tight, **stages_d, card=card)
+
+    log("profile", **profile_window(lambda: fused(images), 3))
+    log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
+    log("profile_default_artifacts",
+        **profile_window(lambda: pred_d.predict_artifact_masks(images_d), 3))
 
     # each kernel on the inputs the main path gave it
     k1_in, k2_in = raw, cc_out
@@ -430,7 +619,9 @@ def main(argv=None) -> int:
             "name": fn.__name__, "route": "cuda",
             "source": f"{PORT}/csrc/morph_chain.cu",
             "replaces": f"unet_watermark_tpu/ops/pallas/morph_chain.py:{line}",
-            "launches": launches[fn.__name__], "max_abs_err": err,
+            "launches": launches[fn.__name__],
+            "default_config_launches": art_launches[fn.__name__],
+            "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),

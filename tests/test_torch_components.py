@@ -123,3 +123,46 @@ def test_batched_keep_largest_matches_vmapped_jax():
     ours = tc.keep_largest_component(torch.from_numpy(masks))
     ref = jax.vmap(jc.keep_largest_component)(jnp.asarray(masks))
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def _squares_past_2_24(s, squares):
+    """(1, s, s) zeros with the given (row, col, side) squares, and each
+    square's expected label: its least linear index + 1."""
+    mk = torch.zeros(1, s, s)
+    expected = []
+    for r, c, side in squares:
+        mk[0, r:r + side, c:c + side] = 1
+        expected.append((r, c, side, r * s + c + 1))
+    return mk, expected
+
+
+def test_labels_exact_past_2_24_pixels():
+    """At 4100² (16.81 M pixels) the labels pass 2^24, where float32 stops
+    holding every integer; the corner square's pixels span index 2^24 and
+    the strip lies wholly past it, with an odd least index."""
+    s = 4100
+    squares = [(s - 10, s - 10, 10), (4095, 18, 3), (7, 7, 5)]
+    mk, expected = _squares_past_2_24(s, squares)
+    assert expected[1][3] > 2 ** 24 and expected[1][3] % 2 == 1
+    assert (s - 10) * s + s - 10 < 2 ** 24 < s * s - 1
+    labels = tc.label_components(mk)
+    areas = tc.component_areas(labels)
+    for r, c, side, label in expected:
+        block = labels[0, r:r + side, c:c + side]
+        assert torch.all(block == label), (r, c)
+        assert torch.all(areas[0, r:r + side, c:c + side] == side * side)
+    assert int((labels > 0).sum()) == sum(sd * sd for _, _, sd in squares)
+
+
+def test_watermark_components_stage_at_k1_size_limit():
+    """The components stage of optimize_watermark_mask_batch (the
+    largest-component rule) at S = 4096, the largest size K1 accepts: the
+    largest component, 30 x 30 in the bottom-right corner, is kept alone."""
+    s = 4096
+    mk, expected = _squares_past_2_24(
+        s, [(s - 30, s - 30, 30), (s - 25, 100, 20), (0, 0, 22)])
+    out = tc.keep_largest_component(mk, min_keep_area=500,
+                                    fallback_min_area=200)
+    want = torch.zeros_like(mk)
+    want[0, s - 30:, s - 30:] = 1
+    assert torch.equal(out, want)

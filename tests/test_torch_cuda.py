@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, and
+the port's float ops on the card against the CPU.
 
 Run on a machine with an NVIDIA H100 and nvcc:
     python -m pytest tests/test_torch_cuda.py -q
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from unet_watermark_tpu_torch.inference import maskproc
+from unet_watermark_tpu_torch.ops import components, inpaint, morphology
 from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
 
 pytestmark = pytest.mark.cuda
@@ -77,3 +79,70 @@ def test_batch_chain_on_card_matches_plain_chain(cuda):
     out = maskproc.optimize_watermark_mask_batch(masks.to(cuda)).cpu()
     for i, mk in enumerate(masks):
         assert torch.equal(out[i], maskproc.optimize_watermark_mask(mk))
+
+
+@pytest.fixture
+def default_tf32():
+    """torch's default TF32 flags (cuDNN convolutions may use TF32,
+    matmuls not), restored afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_float_ops_ignore_the_callers_tf32_flag(cuda, default_tf32):
+    """Under the default flags the float ops of the mask and fill stages
+    agree with the CPU at the CPU tests' tolerances: the blur within 1e-6,
+    the push-pull repair (32 Jacobi sweeps) within 1e-5, the type score's
+    Sobel within 1e-4 of values up to 4 * 255, and the scores within the
+    1e-5 of tests/test_torch_maskproc.py with equal classes."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.random((2, 96, 96)).astype(np.float32))
+    blur = morphology.gaussian_blur(img.to(cuda), (3, 3), 0.5).cpu()
+    assert (blur - morphology.gaussian_blur(img, (3, 3), 0.5)).abs().max() \
+        <= 1e-6
+    images = torch.from_numpy(rng.random((2, 64, 64, 3)).astype(np.float32))
+    holes = _masks(5, n=2, s=64, p=0.3)
+    rep = inpaint.inpaint_pushpull(images.to(cuda), holes.to(cuda), 32).cpu()
+    assert (rep - inpaint.inpaint_pushpull(images, holes, 32)).abs().max() \
+        <= 1e-5
+    gray = torch.from_numpy((rng.random((2, 64, 64)) * 255).astype(np.float32))
+    for on_card, on_cpu in zip(maskproc._sobel(gray.to(cuda)),
+                               maskproc._sobel(gray)):
+        assert (on_card.cpu() - on_cpu).abs().max() <= 1e-4
+    rgb = torch.round(images * 255)
+    scores = maskproc.detect_watermark_type_scores(rgb.to(cuda),
+                                                   holes.to(cuda)).cpu()
+    ref = maskproc.detect_watermark_type_scores(rgb, holes)
+    assert (scores - ref).abs().max() <= 1e-5
+    assert [maskproc.classify_type(x) for x in scores.tolist()] == \
+        [maskproc.classify_type(x) for x in ref.tolist()]
+
+
+@pytest.mark.parametrize("mode", ["parity", "tight"])
+def test_partitioned_on_card_matches_cpu(cuda, mode):
+    """All three strategies on the card; code 0 in parity mode launches
+    K1 and K2."""
+    masks = _masks(11, n=6, s=128, p=0.3)
+    codes = [0, 1, 2, 0, 2, 1]
+    before = [k.launches for k in kc.KERNELS]
+    out = maskproc.optimize_mask_batch_partitioned(masks.to(cuda), codes,
+                                                   mode=mode)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kc.KERNELS, before)]
+    assert launched == ([1, 1] if mode == "parity" else [0, 0])
+    assert torch.equal(out.cpu(), maskproc.optimize_mask_batch_partitioned(
+        masks, codes, mode=mode))
+
+
+def test_labels_on_card_past_2_24_pixels(cuda):
+    mk = torch.zeros(1, 4100, 4100, device=cuda)
+    mk[0, -10:, -10:] = 1
+    mk[0, 4095:4098, 18:21] = 1
+    labels = components.label_components(mk)
+    assert int(labels[0, -1, -1]) == 4090 * 4100 + 4090 + 1
+    assert int(labels[0, 4097, 20]) == 4095 * 4100 + 18 + 1

@@ -1,5 +1,8 @@
 """The port's fused detect→repair fn against the JAX package's
-WatermarkPredictor.make_fused_repair_fn at 64², float32, push-pull fill."""
+WatermarkPredictor.make_fused_repair_fn at 64², float32, push-pull fill:
+Unet in parity and auto mode, and the default configuration (UNet++,
+auto). Under the default configuration, also the mask artifacts of step 1
+(type detection and the partitioned strategies) against the JAX steps."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +22,12 @@ from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 
 torch.set_num_threads(2)
 
-UNET = seg_weights_path("Unet", "resnet34")
 # Repaired pixels: push-pull and 32 Jacobi sweeps in float32, summed in
 # another order on each side; observed differences are ~1e-7.
 REPAIR_ATOL = 1e-5
 
 
-def _jax_predictor(mask_mode):
+def _jax_predictor(arch, mask_mode):
     """The JAX predictor with the shipped weights. Its __init__ runs an
     eager init_model (~19 s on the CPU) only to get a template, so the
     object is assembled from the attributes make_fused_repair_fn reads.
@@ -34,12 +36,13 @@ def _jax_predictor(mask_mode):
     ~25 s; the plain decoder is the same function
     (tests/test_fused_decoder.py holds the two equal)."""
     cfg = jax_cfg_defaults()
-    cfg.MODEL.NAME, cfg.MODEL.DTYPE = "Unet", "float32"
+    cfg.MODEL.NAME, cfg.MODEL.DTYPE = arch, "float32"
     cfg.MODEL.FUSED_DECODER = False
     cfg.DATA.IMG_SIZE = 64
     cfg.PREDICT.MASK_MODE = mask_mode
+    path = seg_weights_path(arch, "resnet34")
     tree = {}
-    with np.load(UNET) as z:
+    with np.load(path) as z:
         for k in z.files:
             parts = k.split("::", 1)[-1].split("/")
             node = tree
@@ -49,14 +52,14 @@ def _jax_predictor(mask_mode):
     pred = JaxPredictor.__new__(JaxPredictor)
     pred.cfg = cfg
     pred.model = jax_model(cfg)
-    pred.variables = load_params_npz(str(UNET), tree)
+    pred.variables = load_params_npz(str(path), tree)
     pred._quant_scales = None
     return pred
 
 
-def _port_predictor(mask_mode):
+def _port_predictor(arch, mask_mode):
     cfg = get_cfg_defaults()
-    cfg.MODEL.NAME, cfg.MODEL.DTYPE = "Unet", "float32"
+    cfg.MODEL.NAME, cfg.MODEL.DTYPE = arch, "float32"
     cfg.PREDICT.MASK_MODE = mask_mode
     return WatermarkPredictor(cfg, device="cpu")
 
@@ -66,10 +69,13 @@ def images():
     return watermarked_images(3, 64, seed=7)[0]
 
 
-@pytest.fixture(scope="module", params=["parity", "auto"])
+@pytest.fixture(scope="module", params=[
+    pytest.param(("Unet", "parity"), id="parity"),
+    pytest.param(("Unet", "auto"), id="auto"),
+    pytest.param(("UnetPlusPlus", "auto"), id="default-config")])
 def runs(request, images):
-    mode = request.param
-    jpred = _jax_predictor(mode)
+    arch, mode = request.param
+    jpred = _jax_predictor(arch, mode)
     jrepaired = np.asarray(jpred.make_fused_repair_fn("pushpull")(
         jnp.asarray(images)))
     # the JAX fused fn returns only the image: its mask, as it computes it
@@ -81,9 +87,11 @@ def runs(request, images):
              else jmp.optimize_watermark_mask_tight)
     jmask = np.stack([np.asarray(chain(mk.astype(jnp.float32)))
                       for mk in raw])
-    fused = _port_predictor(mode).make_fused_repair_fn("pushpull")
+    pred = _port_predictor(arch, mode)
+    fused = pred.make_fused_repair_fn("pushpull")
     trepaired, tmask = fused(images)
-    return {"mode": mode, "fused": fused, "jrepaired": jrepaired,
+    return {"mode": mode, "pred": pred, "fused": fused,
+            "jrepaired": jrepaired, "jraw": np.asarray(raw, np.float32),
             "jmask": jmask, "trepaired": trepaired.numpy(),
             "tmask": tmask.numpy()}
 
@@ -111,14 +119,33 @@ def test_fused_fn_names_its_engine_and_mode(runs):
                                        "auto": "tight"}[runs["mode"]]
 
 
+def test_artifact_masks_match_jax_step1(runs, images):
+    """Step 1's order: raw masks → the type of each image from its 8-bit
+    RGB values → one strategy per image, under the artifact surface's
+    mask mode (auto → parity: the watermark strategy runs K1 and K2)."""
+    pred = runs["pred"]
+    tmasks, types = pred.predict_artifact_masks(images)
+    raw = runs["jraw"]
+    np.testing.assert_array_equal(pred.predict_masks(
+        torch.from_numpy(images)).numpy(), raw)
+    rgb = np.round(images * 255.0).astype(np.float32)
+    jtypes = [jmp.classify_type(float(jmp.detect_watermark_type_scores(
+        jnp.asarray(rgb[i]), jnp.asarray(raw[i])))) for i in range(len(raw))]
+    assert types == jtypes
+    jmasks = jmp.optimize_mask_batch_partitioned(
+        raw, [jmp.type_code(t) for t in jtypes],
+        mode=jmp.resolve_mask_mode(pred.cfg.PREDICT.MASK_MODE, "artifact"))
+    assert tmasks.shape == raw.shape and tmasks.dtype == torch.float32
+    np.testing.assert_array_equal(tmasks.numpy(), jmasks)
+
+
 def test_lama_waits_for_its_slice_and_cuda_never_falls_back():
-    pred = _port_predictor("parity")
+    pred = _port_predictor("Unet", "parity")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pred.make_fused_repair_fn("lama")
     with pytest.raises(ValueError):
         pred.make_fused_repair_fn("telea")
     if not torch.cuda.is_available():
         cfg = get_cfg_defaults()
-        cfg.MODEL.NAME = "Unet"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             WatermarkPredictor(cfg)

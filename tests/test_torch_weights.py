@@ -50,8 +50,9 @@ def test_npz_decode_matches_jax_loader(name):
 
 def test_seg_weights_path_names_shipped_files():
     assert UNET.name == "seg_unet_resnet34.npz" and UNET.exists()
-    assert seg_weights_path("UnetPlusPlus", "resnet34").name == \
-        "seg_unetplusplus_resnet34.npz"
+    for name in ("UnetPlusPlus", "unet++"):
+        assert seg_weights_path(name, "resnet34").name == \
+            "seg_unetplusplus_resnet34.npz"
 
 
 def test_torch_name_matches_jax_name_map(flat):
@@ -74,6 +75,33 @@ def test_convert_uses_all_232_keys(flat):
     np.testing.assert_array_equal(
         sd["decoder.blocks.0.conv1.1.running_var"].numpy(),
         flat["batch_stats/decoder/block0/conv1/bn/var"])
+
+
+def test_convert_uses_all_292_unetplusplus_keys():
+    pp = load_npz(seg_weights_path("UnetPlusPlus", "resnet34"))
+    assert len(pp) == 292
+    assert sum(k.split("/")[1] == "decoder" for k in pp) == 110
+    model = SegmentationModel("UnetPlusPlus")
+    assert load_flax_weights(model, pp) == 292
+    sd = model.state_dict()
+    assert sum(not k.endswith("num_batches_tracked") for k in sd) == 292
+    for key, name in (
+            ("params/decoder/x_0_4_conv1/conv/kernel",
+             "decoder.x_0_4_conv1.0.weight"),
+            ("batch_stats/decoder/x_3_1_conv2/bn/var",
+             "decoder.x_3_1_conv2.1.running_var"),
+            ("params/decoder/final_block/conv1/bn/scale",
+             "decoder.final_block.conv1.1.weight")):
+        assert torch_name(key) == name
+        want = pp[key]
+        if want.ndim == 4:  # HWIO → OIHW
+            want = np.transpose(want, (3, 2, 0, 1))
+        np.testing.assert_array_equal(sd[name].numpy(), want)
+    assert tuple(sd["decoder.x_0_4_conv1.0.weight"].shape) == (32, 224, 3, 3)
+    extra = dict(pp)
+    extra["params/decoder/x_0_5_conv1/conv/kernel"] = np.zeros((3, 3, 1, 1))
+    with pytest.raises(KeyError, match="not in the model"):
+        to_state_dict(extra, model)
 
 
 def test_convert_rejects_leftover_missing_and_misshaped(flat):

@@ -18,6 +18,9 @@ class ModelConfig:
     DECODER_CHANNELS: List[int] = field(
         default_factory=lambda: [256, 128, 64, 32, 16])
     DTYPE: str = "bfloat16"  # compute dtype of the network; logits are fp32
+    # UNet++ decoder layout: "canonical" (the Zhou grid of the shipped
+    # weights); "smp" (the layout of reference .pth imports) is not ported
+    DECODER_IMPL: str = "canonical"
 
 
 @dataclass

@@ -1,16 +1,23 @@
-"""WatermarkPredictor's fused detect→repair path (inference/predict.py:931-985
-in the JAX package).
+"""WatermarkPredictor's two batched surfaces (inference/predict.py in the
+JAX package): the fused detect→repair path (:931-985) and step 1's device
+part, the mask artifacts (:357-440).
 
 The fused fn maps (N, S, S, 3) images in [0, 1] to (repaired, mask):
-ImageNet normalize → Unet → sigmoid → threshold → mask optimization →
-push-pull fill → composite. With PREDICT.MASK_MODE "parity" the repair mask
-goes through the mask-stage kernels (maskproc.optimize_watermark_mask_batch);
-with "tight" (and "auto", which resolves to tight for repair) through the
-plain tight chain, which has no kernel in either package.
+ImageNet normalize → segmentation model → sigmoid → threshold → mask
+optimization → push-pull fill → composite. With PREDICT.MASK_MODE "parity"
+the repair mask goes through the mask-stage kernels
+(maskproc.optimize_watermark_mask_batch); with "tight" (and "auto", which
+resolves to tight for repair) through the plain tight chain, once for the
+batch, which has no kernel in either package.
+
+predict_artifact_masks gives step 1's masks: the raw masks, each image's
+watermark type from detect_watermark_type_scores, and one strategy per
+image (maskproc.optimize_mask_batch_partitioned); under "auto" the
+watermark strategy is the parity chain, through K1 and K2.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -68,6 +75,24 @@ class WatermarkPredictor:
         probs = torch.sigmoid(logits[..., 0])
         return (probs > self.cfg.PREDICT.THRESHOLD).float()
 
+    @torch.inference_mode()
+    def predict_artifact_masks(self, images_01: torch.Tensor
+                               ) -> Tuple[torch.Tensor, List[str]]:
+        """(N, S, S, 3) [0, 1] → (optimized masks (N, S, S) float32 {0, 1},
+        each image's type name). Type detection sees the images as 8-bit
+        RGB values, as step 1 gives it the decoded image."""
+        images = torch.as_tensor(images_01, dtype=torch.float32,
+                                 device=self.device)
+        masks = self.predict_masks(images)
+        scores = maskproc.detect_watermark_type_scores(
+            torch.round(images * 255.0), masks)
+        types = [maskproc.classify_type(x) for x in scores.tolist()]
+        mode = maskproc.resolve_mask_mode(self.cfg.PREDICT.MASK_MODE,
+                                          "artifact")
+        opt = maskproc.optimize_mask_batch_partitioned(
+            masks, [maskproc.type_code(t) for t in types], mode=mode)
+        return opt, types
+
     def make_fused_repair_fn(self, inpaint_engine: str = "pushpull",
                              smooth_iterations: int = 32):
         """The fused detect→repair callable; `.engine_used` names the fill."""
@@ -88,8 +113,7 @@ class WatermarkPredictor:
             if mode == "parity":
                 opt = maskproc.optimize_watermark_mask_batch(masks)
             else:
-                opt = torch.stack([maskproc.optimize_watermark_mask_tight(mk)
-                                   for mk in masks])
+                opt = maskproc.optimize_watermark_mask_tight(masks)
             repaired = inpaint_pushpull(images, opt[..., None],
                                         smooth_iterations=smooth_iterations)
             return repaired, opt

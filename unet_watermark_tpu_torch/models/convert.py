@@ -8,6 +8,8 @@ JAX package, copied) → the port's state_dict.
   .../downsample_conv, downsample_bn   → ....downsample.0, .downsample.1
   params/decoder/block{i}/convJ/conv   → decoder.blocks.{i}.convJ.0
   params/decoder/block{i}/convJ/bn     → decoder.blocks.{i}.convJ.1
+  params/decoder/x_{i}_{j}_convJ/conv  → decoder.x_{i}_{j}_convJ.0 (UNet++)
+  params/decoder/final_block/convJ/bn  → decoder.final_block.convJ.1
   params/segmentation_head/conv        → segmentation_head.0
 """
 from __future__ import annotations
@@ -21,6 +23,8 @@ from torch import nn
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+# a ConvBnRelu: convJ of a Unet block or final_block, x_{i}_{j}_convJ of UNet++
+_CONV_BN = re.compile(r"(x_\d+_\d+_)?conv\d+")
 
 
 def torch_name(flax_key: str) -> str:
@@ -41,10 +45,10 @@ def torch_name(flax_key: str) -> str:
             segs.append("downsample.0")
         elif p == "downsample_bn":
             segs.append("downsample.1")
-        elif p == "conv" and segs and (segs[-1].startswith("conv")
+        elif p == "conv" and segs and (_CONV_BN.fullmatch(segs[-1])
                                        or segs[-1] == "segmentation_head"):
             segs[-1] += ".0"
-        elif p == "bn" and segs and segs[-1].startswith("conv"):
+        elif p == "bn" and segs and _CONV_BN.fullmatch(segs[-1]):
             segs[-1] += ".1"
         else:
             segs.append(p)

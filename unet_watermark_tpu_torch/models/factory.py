@@ -1,5 +1,6 @@
 """SegmentationModel and create_model_from_config (models/factory.py in
-the JAX package), for arch "Unet"."""
+the JAX package), for archs "Unet" and "UnetPlusPlus" (alias "unet++",
+canonical decoder)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -8,7 +9,7 @@ import torch
 from torch import nn
 
 from .encoders import ResNetEncoder
-from .unet import SegmentationHead, UnetDecoder
+from .unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder
 
 
 class SegmentationModel(nn.Module):
@@ -18,15 +19,22 @@ class SegmentationModel(nn.Module):
 
     def __init__(self, arch: str = "Unet", encoder_name: str = "resnet34",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 classes: int = 1):
+                 classes: int = 1, decoder_impl: str = "canonical"):
         super().__init__()
-        if arch.lower() != "unet":
+        arch_l = arch.lower()
+        if arch_l in ("unetplusplus", "unet++") and decoder_impl == "smp":
             raise NotImplementedError(
-                f"arch '{arch}' is not ported yet; the port has Unet only "
-                f"(see ROADMAP.md for the queue)")
+                "the SMP-layout UNet++ decoder (MODEL.DECODER_IMPL 'smp') is "
+                "not ported yet (see ROADMAP.md for the queue)")
+        decoders = {"unet": UnetDecoder, "unetplusplus": UnetPlusPlusDecoder,
+                    "unet++": UnetPlusPlusDecoder}
+        if arch_l not in decoders:
+            raise NotImplementedError(
+                f"arch '{arch}' is not ported yet; the port has Unet and "
+                f"UnetPlusPlus (see ROADMAP.md for the queue)")
         self.encoder = ResNetEncoder(encoder_name)
-        self.decoder = UnetDecoder(self.encoder.out_channels,
-                                   decoder_channels)
+        self.decoder = decoders[arch_l](self.encoder.out_channels,
+                                        decoder_channels)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
                                                   classes)
 
@@ -49,7 +57,8 @@ def create_model_from_config(cfg) -> SegmentationModel:
     return SegmentationModel(arch=cfg.MODEL.NAME,
                              encoder_name=cfg.MODEL.ENCODER_NAME,
                              decoder_channels=tuple(
-                                 cfg.MODEL.DECODER_CHANNELS))
+                                 cfg.MODEL.DECODER_CHANNELS),
+                             decoder_impl=cfg.MODEL.DECODER_IMPL)
 
 
 def torch_dtype(name: str) -> torch.dtype:

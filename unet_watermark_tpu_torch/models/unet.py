@@ -1,8 +1,11 @@
-"""Unet decoder and segmentation head (models/unet.py in the JAX package).
+"""Unet and UNet++ decoders and the segmentation head (models/unet.py in
+the JAX package).
 
-This is the plain form: nearest up2x → concat [up, skip] → conv. The JAX
-package's default FusedUpConvBnRelu is an exact rewrite of it on the same
-parameters (kernel channel order [up | skip]).
+These are the plain forms: nearest up2x → concat → conv. The JAX package's
+default FusedUpConvBnRelu is an exact rewrite of them on the same
+parameters. The two decoders concatenate in opposite orders, which the
+kernels' input channels follow: the Unet block [up | skip], a UNet++ cell
+[skips... | up].
 """
 from __future__ import annotations
 
@@ -55,6 +58,45 @@ class UnetDecoder(nn.Module):
         for block, skip in zip(self.blocks, skips):
             x = block(x, skip)
         return x
+
+
+class UnetPlusPlusDecoder(nn.Module):
+    """The canonical UNet++ grid (Zhou et al. 2018), not SMP's variant.
+
+    X[i][0] is the encoder feature at stride 2^(i+1) (feats[i + 1]) and
+    X[i][j] = conv2(conv1(concat(X[i][0..j-1], up2x(X[i+1][j-1])))) for
+    i + j <= 4, with row widths decoder_channels[3], [2], [1], [0] for rows
+    0-3; a skip-less final_block takes X[0][4] to stride 1 with
+    decoder_channels[4] channels. Cells are attributes x_{i}_{j}_conv{1,2},
+    the JAX package's names.
+    """
+
+    def __init__(self, encoder_channels: Sequence[int],
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+        super().__init__()
+        row_ch = [decoder_channels[3], decoder_channels[2],
+                  decoder_channels[1], decoder_channels[0]]
+        width = {(i, 0): encoder_channels[i + 1] for i in range(5)}
+        for j in range(1, 5):
+            for i in range(5 - j):
+                cin = sum(width[(i, k)] for k in range(j)) + width[(i + 1,
+                                                                   j - 1)]
+                setattr(self, f"x_{i}_{j}_conv1", conv_bn_relu(cin, row_ch[i]))
+                setattr(self, f"x_{i}_{j}_conv2",
+                        conv_bn_relu(row_ch[i], row_ch[i]))
+                width[(i, j)] = row_ch[i]
+        self.final_block = DecoderBlock(width[(0, 4)], 0, decoder_channels[4])
+
+    def forward(self, feats: List[torch.Tensor]):
+        grid = {(i, 0): feats[i + 1] for i in range(5)}
+        for j in range(1, 5):
+            for i in range(5 - j):
+                up = F.interpolate(grid[(i + 1, j - 1)], scale_factor=2,
+                                   mode="nearest")
+                x = torch.cat([grid[(i, k)] for k in range(j)] + [up], dim=1)
+                x = getattr(self, f"x_{i}_{j}_conv1")(x)
+                grid[(i, j)] = getattr(self, f"x_{i}_{j}_conv2")(x)
+        return self.final_block(grid[(0, 4)])
 
 
 class SegmentationHead(nn.Sequential):

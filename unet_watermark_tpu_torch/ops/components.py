@@ -12,21 +12,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_EXACT = 2 ** 24  # labels below this are exact in float32
-
 
 def _neighbor_min(labels: torch.Tensor, connectivity: int) -> torch.Tensor:
     """Min positive label over the 3x3 (8-conn) or cross (4-conn) window;
-    background stays 0. labels: (N, H, W) int64."""
-    big = float(_EXACT)
-    x = torch.where(labels > 0, labels.float(), big)[:, None]
-    # 3x3 min as -max_pool(-x): max_pool pads with -inf, i.e. +inf for min
+    background stays 0. labels: (N, H, W) int64, exact at any size: the
+    min is taken over shifted views, with a sentinel above every label
+    beyond the border and on background."""
+    h, w = labels.shape[-2:]
+    big = h * w + 1
+    x = F.pad(torch.where(labels > 0, labels, big), (1, 1, 1, 1), value=big)
+    row = torch.minimum(torch.minimum(x[:, :, :-2], x[:, :, 1:-1]),
+                        x[:, :, 2:])  # (N, H+2, W): min over dx
     if connectivity == 8:
-        y = -F.max_pool2d(-x, 3, 1, 1)
+        y = torch.minimum(torch.minimum(row[:, :-2], row[:, 1:-1]), row[:, 2:])
     else:
-        y = torch.minimum(-F.max_pool2d(-x, (1, 3), 1, (0, 1)),
-                          -F.max_pool2d(-x, (3, 1), 1, (1, 0)))
-    y = y[:, 0].long()
+        y = torch.minimum(torch.minimum(row[:, 1:-1], x[:, :-2, 1:-1]),
+                          x[:, 2:, 1:-1])
     return torch.where(labels > 0, y, 0)
 
 
@@ -54,8 +55,6 @@ def label_components(mask: torch.Tensor, connectivity: int = 8,
     max_rounds, default H*W). int64 labels of mask's shape."""
     m, unbatch = _batched(mask)
     h, w = m.shape[-2:]
-    if h * w >= _EXACT:
-        raise ValueError(f"{h}x{w} masks exceed exact float32 labels")
     max_rounds = max_rounds if max_rounds > 0 else h * w
     idx = torch.arange(1, h * w + 1, device=m.device).reshape(h, w)
     labels = torch.where(m > 0.5, idx, 0)
@@ -112,3 +111,42 @@ def filter_components_by_area(mask: torch.Tensor, min_area: int,
     """Keep components with area > min_area."""
     labels = label_components(mask, connectivity)
     return (component_areas(labels) > min_area).float()
+
+
+def component_stats(labels: torch.Tensor) -> dict:
+    """Per-label stats over linear-index labels: "area", "width", "height"
+    (int64) and "exists" (bool), each (H*W+1,) for (H, W) labels or
+    (N, H*W+1) for a batch, indexed by label id; slot 0 is background."""
+    lab, unbatch = _batched(labels)
+    n, h, w = lab.shape
+    size = h * w + 1
+    flat = lab.reshape(n, -1)
+    fg = flat > 0
+    ys = torch.arange(h, device=lab.device).repeat_interleave(w)
+    xs = torch.arange(w, device=lab.device).repeat(h)
+
+    def reduce(values, how, fill):
+        out = torch.full((n, size), fill, dtype=torch.int64,
+                         device=lab.device)
+        vals = torch.where(fg, values.expand(n, -1), fill)
+        return out.scatter_reduce_(1, flat, vals, how, include_self=True)
+
+    big = h * w + 1
+    area = _segment_areas(lab)
+    exists = area > 0
+    width = reduce(xs, "amax", -1) - reduce(xs, "amin", big) + 1
+    height = reduce(ys, "amax", -1) - reduce(ys, "amin", big) + 1
+    stats = {"area": area, "width": torch.where(exists, width, 0),
+             "height": torch.where(exists, height, 0), "exists": exists}
+    return {k: unbatch(v) for k, v in stats.items()}
+
+
+def count_components(mask: torch.Tensor, connectivity: int = 8
+                     ) -> torch.Tensor:
+    """Number of components (background excluded), each counted at its
+    root pixel, where label == linear index + 1; (N,) for a batch."""
+    m, unbatch = _batched(mask)
+    labels = label_components(m, connectivity)
+    flat = labels.reshape(labels.shape[0], -1)
+    idx = torch.arange(1, flat.shape[1] + 1, device=flat.device)
+    return unbatch((flat == idx).sum(dim=1))

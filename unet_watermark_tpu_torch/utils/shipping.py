@@ -16,8 +16,10 @@ WEIGHTS_DIR = Path(__file__).resolve().parents[2] / "unet_watermark_tpu" / "weig
 
 def seg_weights_path(model_name: str, encoder_name: str) -> Path:
     """The shipped segmentation weights of one arch/encoder pair, named as
-    the JAX package's seg_weights_filename names them."""
-    return WEIGHTS_DIR / f"seg_{model_name.lower()}_{encoder_name.lower()}.npz"
+    the JAX package's seg_weights_filename names them (the alias "unet++"
+    finds UnetPlusPlus's file)."""
+    name = model_name.lower().replace("unet++", "unetplusplus")
+    return WEIGHTS_DIR / f"seg_{name}_{encoder_name.lower()}.npz"
 
 
 def decode_bf16(u16: np.ndarray) -> np.ndarray:

@@ -31,6 +31,15 @@ Phases, each printing its own line:
      strategy of parity mode; both kernels must be launched by that run
      and its masks equal plain optimize_mask image by image; then the same
      partition with codes 0, 1 and 2 fixed, so every strategy runs
+  3c the learned fill: the default configuration's make_fused_repair_fn()
+     with no argument, whose fill is the FFC-LaMa generator in bf16 with
+     the shipped weights/lama_ffc.npz (PREDICT_INPAINT_WEIGHTS cleared), on
+     3b's batch. Checks: engine "ffc-lama" (a push-pull fallback fails), the
+     mask equal to the plain tight chain image by image, phase 3's output
+     checks, the bf16 generator against a float32 one on the card (mean
+     over hole pixels ≤ 2e-2), and the float32 generator on the card
+     against the CPU's at 2 x 128² (max ≤ 1e-3); prints, without a gate,
+     the hole pixels' error against the clean images for LaMa and push-pull
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -38,7 +47,9 @@ Phases, each printing its own line:
      device time from torch.profiler, and the host time of one wrapper
      call; the default configuration's repair path (img/s) and its stages,
      the tight chain also as the per-image loop it replaced, type
-     detection and the artifact stage; a profile of each path
+     detection and the artifact stage; the default fn with LaMa (img/s),
+     the generator alone and its share of the bf16 tensor-core peak; a
+     profile of each path and of the generator alone
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -67,6 +79,9 @@ PEAK_SINGLE_OPS_PER_S = 67e12 / 2
 # a word operation
 K1_WORD_OPS = 664 / 32
 K2_FLOPS = 10  # separable 3-tap blur: 2 x (3 mul + 2 add) per pixel
+# dense bf16 tensor-core peak (the data sheet's 989.4 TFLOP/s, an FMA
+# counted as two operations): the yardstick of the LaMa generator's convs
+PEAK_BF16_FLOPS_PER_S = 989.4e12
 # each kernel's __global__ function, as torch.profiler names it
 DEVICE_NAMES = {"morph_chain_watermark": "morph_chain_kernel",
                 "gaussian_smooth_threshold": "smooth_threshold_kernel"}
@@ -172,6 +187,88 @@ def profile_window(fn, calls: int) -> dict:
                     for k, c, ms in rows[:15]]}
 
 
+# the LaMa generator's segments, each named by the module that starts it
+# (None: the call's start); a segment ends where the next one starts
+LAMA_SEGMENTS = (("input", None), ("stem_down", "stem"),
+                 ("ffc_blocks", "blocks.0"), ("up", "up0"),
+                 ("head_composite", "head"))
+
+
+def lama_segment(name: str) -> str:
+    """The segment of LAMA_SEGMENTS that the generator's module `name` is in."""
+    for prefix, seg in (("stem", "stem_down"), ("down", "stem_down"),
+                        ("blocks", "ffc_blocks"), ("up", "up"),
+                        ("head", "head_composite")):
+        if name.startswith(prefix):
+            return seg
+    raise KeyError(name)
+
+
+def conv_flops(model, *inputs) -> dict:
+    """Operations (an FMA counts two) of the convolutions of one model(*inputs)
+    call by LaMa segment, from the shapes each conv sees; the FFTs and
+    elementwise ops are not counted."""
+    import torch
+
+    flops = {seg: 0.0 for seg, _ in LAMA_SEGMENTS}
+
+    def count(name):
+        def hook(mod, args, out):
+            # weight[0] is (cin / groups, kh, kw) of a Conv2d, which every
+            # output element takes once, and (cout, kh, kw) of a
+            # ConvTranspose2d, which every input element is spread by
+            transposed = isinstance(mod, torch.nn.ConvTranspose2d)
+            pixels = args[0] if transposed else out
+            flops[lama_segment(name)] += 2.0 * pixels.numel() * \
+                mod.weight[0].numel()
+        return hook
+
+    hooks = [m.register_forward_hook(count(name))
+             for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops
+
+
+def segment_ms(model, inputs, iters: int) -> dict:
+    """Device ms of each LaMa segment of one model(*inputs) call, by CUDA
+    events recorded at the call's ends and in the forward pre-hook of each
+    segment's first module; the mean over `iters` calls after one warm-up."""
+    import torch
+
+    modules = dict(model.named_modules())
+    events = []
+
+    def mark(*_):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    hooks = [modules[first].register_forward_pre_hook(mark)
+             for _, first in LAMA_SEGMENTS if first]
+    totals = [0.0] * len(LAMA_SEGMENTS)
+    try:
+        with torch.inference_mode():
+            for i in range(iters + 1):
+                events.clear()
+                mark()
+                model(*inputs)
+                mark()
+                torch.cuda.synchronize()
+                if i == 0:  # warm-up
+                    continue
+                for j in range(len(totals)):
+                    totals[j] += events[j].elapsed_time(events[j + 1])
+    finally:
+        for h in hooks:
+            h.remove()
+    return {seg: t / iters for (seg, _), t in zip(LAMA_SEGMENTS, totals)}
+
+
 def check_repair(images, repaired, mask) -> None:
     """The fused fn's output: shapes, finite pixels in [0, 1], a binary mask,
     and every pixel outside the mask unchanged."""
@@ -255,7 +352,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from unet_watermark_tpu_torch.configs import get_cfg_defaults
-    from unet_watermark_tpu_torch.inference import maskproc
+    from unet_watermark_tpu_torch.inference import engines, maskproc
     from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
     from unet_watermark_tpu_torch.ops import components as cc
     from unet_watermark_tpu_torch.ops.inpaint import inpaint_pushpull
@@ -501,6 +598,65 @@ def main(argv=None) -> int:
         mask_fraction=round(art.mean().item(), 6),
         equals_plain_optimize_mask=True)
 
+    # -- 3c: the learned fill ------------------------------------------------
+    os.environ.pop("PREDICT_INPAINT_WEIGHTS", None)
+    t0 = time.perf_counter()
+    fused_l = pred_d.make_fused_repair_fn()  # the default engine: "lama"
+    load_l_s = time.perf_counter() - t0
+    if fused_l.engine_used != "ffc-lama":
+        raise AssertionError(f"the default fused fn fills with "
+                             f"{fused_l.engine_used}, not the FFC-LaMa "
+                             f"generator")
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    repaired_l, mask_l = fused_l(images_d)
+    torch.cuda.synchronize()
+    first_call_l_s = time.perf_counter() - t0
+    lama_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    check_repair(images_d, repaired_l, mask_l)
+    for i, mk in enumerate(raw_d):
+        if not torch.equal(mask_l[i],
+                           maskproc.optimize_watermark_mask_tight(mk)):
+            raise AssertionError(f"LaMa path's mask of image {i} differs from "
+                                 f"the plain tight chain")
+    lama_path = engines.resolve_inpaint_weights()
+    lama_bf16, _ = engines.load_lama(lama_path, "lama", dev, torch.bfloat16)
+    lama_32, _ = engines.load_lama(lama_path, "lama", dev, torch.float32)
+    hole_l = (mask_l > 0)[..., None].expand_as(images_d)
+    with torch.inference_mode():
+        diff = (repaired_l
+                - lama_32(images_d, mask_l[..., None])).abs()[hole_l]
+    bf16_mean, bf16_max = diff.mean().item(), diff.max().item()
+    if not bf16_mean <= 2e-2:
+        raise AssertionError(f"bf16 and float32 LaMa differ by {bf16_mean} on "
+                             f"average over hole pixels")
+    small_l_np, logos_l = watermarked_images(2, 128, seed=args.seed + 2)
+    small_l = torch.from_numpy(small_l_np)
+    holes_l = torch.from_numpy(logos_l)[..., None]
+    lama_cpu, _ = engines.load_lama(lama_path, "lama", "cpu", torch.float32)
+    with torch.inference_mode():
+        lama_gpu_cpu = (lama_32(small_l.to(dev), holes_l.to(dev)).cpu()
+                        - lama_cpu(small_l, holes_l)).abs().max().item()
+    if lama_gpu_cpu > 1e-3:
+        raise AssertionError(f"float32 LaMa on the card differs from the "
+                             f"CPU's by {lama_gpu_cpu}")
+    clean_d = torch.from_numpy(watermarked_images(n, s, seed=args.seed,
+                                                  clean=n)[0]).to(dev)
+    hole_d = (mask_d > 0)[..., None].expand_as(images_d)
+    log("default_lama", images=[n, s, s, 3], engine=fused_l.engine_used,
+        weights=Path(lama_path).name, load_s=round(load_l_s, 3),
+        first_call_s=round(first_call_l_s, 3), launches=lama_launches,
+        mask_fraction=round(mask_l.mean().item(), 6),
+        mask_equals_plain_tight_chain=True, outside_mask_unchanged=True,
+        bf16_vs_fp32_hole_mean_abs=bf16_mean,
+        bf16_vs_fp32_hole_max_abs=bf16_max,
+        fp32_gpu_vs_cpu_128_max_abs=lama_gpu_cpu,
+        hole_mae_vs_clean_lama=(repaired_l - clean_d).abs()[hole_l]
+        .mean().item(),
+        hole_mae_vs_clean_pushpull=(repaired_d - clean_d).abs()[hole_d]
+        .mean().item())
+    del lama_32, lama_cpu
+
     # -- 4: timings ----------------------------------------------------------
     for _ in range(3):
         fused(images)
@@ -581,10 +737,49 @@ def main(argv=None) -> int:
         img_per_s=n / (e2e_d[0] / 1e3), types=types,
         tight_rounds_ms=tight, **stages_d, card=card)
 
+    for _ in range(3):
+        fused_l(images_d)
+    calls_l = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_l(images_d)
+        end.record()
+        torch.cuda.synchronize()
+        calls_l.append(start.elapsed_time(end))
+    e2e_l = np.percentile(calls_l, [50, 90])
+    holes_d = mask_l[..., None]
+    with torch.inference_mode():
+        lama_ms = cuda_ms(lambda: lama_bf16(images_d, holes_d), 10)
+    seg_flops = conv_flops(lama_bf16, images_d, holes_d)
+    lama_flops = sum(seg_flops.values())
+    seg_ms = segment_ms(lama_bf16, (images_d, holes_d), 5)
+    log("timing_default_lama", batch=n, size=s, arch=cfg_d.MODEL.NAME,
+        engine=fused_l.engine_used, calls=len(calls_l),
+        e2e_median_ms=e2e_l[0], e2e_p90_ms=e2e_l[1],
+        e2e_min_ms=min(calls_l), e2e_max_ms=max(calls_l),
+        img_per_s=n / (e2e_l[0] / 1e3), network_ms=stages_d["network_ms"],
+        tight_chain_ms=stages_d["tight_chain_ms"], lama_ms=lama_ms,
+        lama_conv_gflop=lama_flops / 1e9,
+        lama_bound_ms=lama_flops / PEAK_BF16_FLOPS_PER_S * 1e3,
+        lama_mfu=lama_flops / (lama_ms * 1e-3 * PEAK_BF16_FLOPS_PER_S),
+        lama_segments=[{
+            "segment": seg, "ms": seg_ms[seg],
+            "conv_gflop": seg_flops[seg] / 1e9,
+            "conv_share_of_peak": seg_flops[seg] / (
+                seg_ms[seg] * 1e-3 * PEAK_BF16_FLOPS_PER_S)}
+            for seg, _ in LAMA_SEGMENTS],
+        card=card)
+
     log("profile", **profile_window(lambda: fused(images), 3))
     log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
     log("profile_default_artifacts",
         **profile_window(lambda: pred_d.predict_artifact_masks(images_d), 3))
+    log("profile_default_lama", **profile_window(lambda: fused_l(images_d), 3))
+    with torch.inference_mode():
+        log("profile_lama_generator",
+            **profile_window(lambda: lama_bf16(images_d, holes_d), 3))
 
     # each kernel on the inputs the main path gave it
     k1_in, k2_in = raw, cc_out

@@ -10,8 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from unet_watermark_tpu_torch.inference import maskproc
+from unet_watermark_tpu_torch.configs import get_cfg_defaults
+from unet_watermark_tpu_torch.inference import engines, maskproc
+from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
 from unet_watermark_tpu_torch.ops import components, inpaint, morphology
+from unet_watermark_tpu_torch.utils.shipping import WEIGHTS_DIR
+from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
 
 pytestmark = pytest.mark.cuda
@@ -146,3 +150,51 @@ def test_labels_on_card_past_2_24_pixels(cuda):
     labels = components.label_components(mk)
     assert int(labels[0, -1, -1]) == 4090 * 4100 + 4090 + 1
     assert int(labels[0, 4097, 20]) == 4095 * 4100 + 18 + 1
+
+
+@pytest.fixture
+def no_tf32():
+    """Full float32 convolutions and matmuls, restored afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_lama_fp32_on_card_matches_cpu(cuda, no_tf32):
+    """The float32 generator with the shipped weights on the card (cuDNN,
+    cuFFT) against the CPU at 2 x 128², TF32 off: max abs 1e-3."""
+    lama_path = WEIGHTS_DIR / "lama_ffc.npz"
+    on_card, _ = engines.load_lama(lama_path, "lama", cuda, torch.float32)
+    on_cpu, _ = engines.load_lama(lama_path, "lama", "cpu", torch.float32)
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
+    mask = torch.zeros(2, 128, 128, 1)
+    mask[:, 30:70, 40:100] = 1
+    with torch.inference_mode():
+        out = on_card(img.to(cuda), mask.to(cuda)).cpu()
+        ref = on_cpu(img, mask)
+    assert (out - ref).abs().max() <= 1e-3
+
+
+def test_default_fused_fn_on_card_runs_lama(cuda, monkeypatch):
+    """The default fused fn on the card fills with the bf16 generator: its
+    engine is "ffc-lama", its mask the plain tight chain, pixels outside
+    the mask exactly the input's, the output finite in [0, 1]."""
+    monkeypatch.delenv("PREDICT_INPAINT_WEIGHTS", raising=False)
+    pred = WatermarkPredictor(get_cfg_defaults(), device="cuda")
+    fused = pred.make_fused_repair_fn()
+    assert fused.engine_used == "ffc-lama"
+    images = torch.from_numpy(watermarked_images(2, 128, seed=3)[0]).to(cuda)
+    repaired, mask = fused(images)
+    raw = pred.predict_masks(images)
+    for i, mk in enumerate(raw):
+        assert torch.equal(mask[i], maskproc.optimize_watermark_mask_tight(mk))
+    assert mask.sum() > 0
+    assert torch.isfinite(repaired).all()
+    assert repaired.min() >= 0 and repaired.max() <= 1
+    keep = (mask == 0)[..., None].expand_as(images)
+    assert torch.equal(repaired[keep], images[keep])

@@ -8,7 +8,7 @@ slice.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -35,6 +35,9 @@ class PredictConfig:
     # precision-preserving chain, "auto" = tight for the repair mask
     # (inference/maskproc.resolve_mask_mode)
     MASK_MODE: str = "auto"
+    # trained FFC-LaMa weights for the repair engines; None = auto-resolve
+    # (env PREDICT_INPAINT_WEIGHTS, then the shipped weights/lama_ffc.npz)
+    INPAINT_WEIGHTS: Optional[str] = None
 
 
 @dataclass

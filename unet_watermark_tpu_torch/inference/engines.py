@@ -1,0 +1,131 @@
+"""Inpainting engine registry (inference/engines.py in the JAX package).
+
+Every engine has one interface:
+
+    engine(images (N,H,W,3) f32 [0,1], masks (N,H,W,1) {0,1}) -> images
+
+  * "pushpull" / "fast" / "telea" — ops/inpaint.py's multiscale fill (no
+    weights needed; the fallback)
+  * "lama" / "big-lama" / "mat" — models/lama.py's FFC generator with
+    the shipped (or given) trained weights; push-pull with a warning when
+    no weights resolve
+  * "diffusion" — not ported yet (ROADMAP.md §A.8)
+"""
+from __future__ import annotations
+
+import logging
+import os
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..models.convert import load_lama_weights
+from ..models.lama import LamaGenerator, create_lama
+from ..ops.inpaint import inpaint_pushpull
+from ..utils.shipping import load_npz, resolve
+
+logger = logging.getLogger(__name__)
+
+Engine = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def load_lama(path, variant: str = "lama", device="cpu",
+              dtype: torch.dtype = torch.bfloat16
+              ) -> Tuple[Optional[LamaGenerator], Optional[str]]:
+    """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping) into
+    whichever variant's parameters it matches: the requested depth first,
+    then 'lama', then 'big-lama' (a checkpoint trained as one variant
+    serves the other engine names too). Returns (model in eval mode on
+    `device` in `dtype`, channels-last on the card, the variant's name),
+    or (None, None) when no variant matches.
+
+    This is the one LaMa loader, shared by get_engine and the fused repair
+    fn, so the two cannot disagree about what loads."""
+    path = str(path)
+    if path.endswith((".pt", ".pth", ".ckpt")):
+        raise NotImplementedError(
+            f"{path}: the public big-lama torch checkpoint goes through the "
+            f"JAX package's models/lama_import.py, which is not ported yet "
+            f"(ROADMAP.md §A.8)")
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: orbax training checkpoints are not ported yet "
+            f"(ROADMAP.md §A.7); export the weights as .npz")
+    flat = load_npz(path)
+    for cand in dict.fromkeys((variant, "lama", "big-lama")):
+        with torch.device("meta"):  # shapes only: the weights replace them
+            model = create_lama(cand, torch.float32)
+        try:
+            load_lama_weights(model, flat)
+        except (KeyError, ValueError):  # another variant's parameter tree
+            continue
+        logger.info("loaded %s weights from %s (as '%s')", variant, path,
+                    cand)
+        model = model.eval().to(device, dtype)
+        if torch.device(device).type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        return model, cand
+    logger.warning("checkpoint %s matches no lama variant", path)
+    return None, None
+
+
+def default_inpaint_weights() -> Optional[str]:
+    """The shipped FFC-LaMa checkpoint (utils/shipping.resolve), or None."""
+    return resolve("inpaint")
+
+
+def resolve_inpaint_weights(explicit: Optional[str] = None,
+                            cfg=None) -> Optional[str]:
+    """Precedence: explicit arg > PREDICT.INPAINT_WEIGHTS config key >
+    PREDICT_INPAINT_WEIGHTS env > shipped default."""
+    return resolve("inpaint", cfg=cfg, explicit=explicit)
+
+
+def _on(device: torch.device, fill) -> Engine:
+    """`fill` as an engine: its inputs (arrays or tensors) go to `device`
+    as float32 first."""
+    @torch.inference_mode()
+    def engine(images, masks):
+        return fill(torch.as_tensor(images, dtype=torch.float32,
+                                    device=device),
+                    torch.as_tensor(masks, dtype=torch.float32,
+                                    device=device))
+    return engine
+
+
+def _pushpull(device: torch.device) -> Engine:
+    return _on(device, lambda images, masks: inpaint_pushpull(
+        images, masks, smooth_iterations=64))
+
+
+def _make_lama_engine(variant: str, weights_path: Optional[str],
+                      device: torch.device) -> Engine:
+    model = None
+    if weights_path and os.path.exists(weights_path):
+        model, _ = load_lama(weights_path, variant, device)
+    if model is None:
+        logger.warning(
+            "no trained weights for inpaint model '%s' — falling back to "
+            "the pushpull engine (set PREDICT_INPAINT_WEIGHTS)", variant)
+        return _pushpull(device)
+    return _on(device, model)
+
+
+def get_engine(name: str = "pushpull", weights_path: Optional[str] = None,
+               cfg=None, device: str = "cuda") -> Engine:
+    """The engine `name` on `device` ("cuda" unless the caller asks for
+    the CPU; without a card "cuda" raises)."""
+    from .predict import resolve_device  # predict imports this module
+
+    name = (name or "pushpull").lower()
+    dev = resolve_device(device)
+    if name in ("pushpull", "fast", "telea"):
+        return _pushpull(dev)
+    if name in ("lama", "big-lama", "mat"):
+        return _make_lama_engine(name, resolve_inpaint_weights(
+            weights_path, cfg), dev)
+    if name in ("diffusion", "latent-diffusion", "ld"):
+        raise NotImplementedError(
+            f"inpaint engine '{name}' (the latent-diffusion inpainter) is "
+            f"not ported yet (ROADMAP.md §A.8)")
+    raise ValueError(f"unknown inpaint engine '{name}'")

@@ -4,7 +4,10 @@ part, the mask artifacts (:357-440).
 
 The fused fn maps (N, S, S, 3) images in [0, 1] to (repaired, mask):
 ImageNet normalize → segmentation model → sigmoid → threshold → mask
-optimization → push-pull fill → composite. With PREDICT.MASK_MODE "parity"
+optimization → fill → composite. The fill is the learned FFC-LaMa
+generator (models/lama.py, bf16, with the shipped weights/lama_ffc.npz)
+by default, push-pull when asked or when no LaMa weights resolve. With
+PREDICT.MASK_MODE "parity"
 the repair mask goes through the mask-stage kernels
 (maskproc.optimize_watermark_mask_batch); with "tight" (and "auto", which
 resolves to tight for repair) through the plain tight chain, once for the
@@ -17,6 +20,8 @@ watermark strategy is the parity chain, through K1 and K2.
 """
 from __future__ import annotations
 
+import logging
+import os
 from typing import List, Optional, Tuple
 
 import torch
@@ -26,8 +31,10 @@ from ..models import create_model_from_config
 from ..models.convert import load_flax_weights
 from ..models.factory import torch_dtype
 from ..ops.inpaint import inpaint_pushpull
-from ..utils.shipping import load_npz, seg_weights_path
-from . import maskproc
+from ..utils.shipping import load_npz, resolve
+from . import engines, maskproc
+
+logger = logging.getLogger(__name__)
 
 # ops/augment.py in the JAX package
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -56,8 +63,12 @@ class WatermarkPredictor:
         self.device = resolve_device(device)
         self.dtype = torch_dtype(self.cfg.MODEL.DTYPE)
         model = create_model_from_config(self.cfg)
-        path = weights_path or seg_weights_path(self.cfg.MODEL.NAME,
-                                                self.cfg.MODEL.ENCODER_NAME)
+        path = resolve("seg", cfg=self.cfg, explicit=weights_path)
+        if path is None:
+            raise FileNotFoundError(
+                f"no segmentation weights for {self.cfg.MODEL.NAME}/"
+                f"{self.cfg.MODEL.ENCODER_NAME}; pass weights_path or set "
+                f"PREDICT_SEG_WEIGHTS")
         self.weights_path = str(path)
         self.n_weights = load_flax_weights(model, load_npz(path))
         model = model.eval().to(self.device, self.dtype)
@@ -93,15 +104,27 @@ class WatermarkPredictor:
             masks, [maskproc.type_code(t) for t in types], mode=mode)
         return opt, types
 
-    def make_fused_repair_fn(self, inpaint_engine: str = "pushpull",
+    def make_fused_repair_fn(self, inpaint_engine: str = "lama",
                              smooth_iterations: int = 32):
-        """The fused detect→repair callable; `.engine_used` names the fill."""
+        """The fused detect→repair callable; `.engine_used` names the fill.
+
+        With inpaint_engine in {lama, big-lama, mat} and weights that
+        resolve (engines.resolve_inpaint_weights), the fill is the FFC
+        generator, built once here on this predictor's device in bf16
+        (whatever MODEL.DTYPE says, as the JAX fn); otherwise, as for every
+        other name, push-pull with `smooth_iterations` Jacobi sweeps."""
+        lama = None
+        engine_used = "pushpull"
         if inpaint_engine in ("lama", "big-lama", "mat"):
-            raise NotImplementedError(
-                f"inpaint engine '{inpaint_engine}' (FFC-LaMa) is the port's "
-                f"next slice (see ROADMAP.md); use 'pushpull'")
-        if inpaint_engine != "pushpull":
-            raise ValueError(f"unknown inpaint engine '{inpaint_engine}'")
+            wp = engines.resolve_inpaint_weights(cfg=self.cfg)
+            if wp and os.path.exists(wp):
+                lama, cand = engines.load_lama(wp, inpaint_engine,
+                                               self.device, torch.bfloat16)
+                if lama is not None:
+                    engine_used = f"ffc-{cand}"
+            if lama is None:
+                logger.warning("fused repair: no trained weights for '%s' "
+                               "— using pushpull fill", inpaint_engine)
         mode = maskproc.resolve_mask_mode(self.cfg.PREDICT.MASK_MODE,
                                           "repair")
 
@@ -114,10 +137,12 @@ class WatermarkPredictor:
                 opt = maskproc.optimize_watermark_mask_batch(masks)
             else:
                 opt = maskproc.optimize_watermark_mask_tight(masks)
+            if lama is not None:
+                return lama(images, opt[..., None]), opt
             repaired = inpaint_pushpull(images, opt[..., None],
                                         smooth_iterations=smooth_iterations)
             return repaired, opt
 
-        fused.engine_used = "pushpull"
+        fused.engine_used = engine_used
         fused.mask_mode = mode
         return fused

@@ -11,11 +11,22 @@ JAX package, copied) → the port's state_dict.
   params/decoder/x_{i}_{j}_convJ/conv  → decoder.x_{i}_{j}_convJ.0 (UNet++)
   params/decoder/final_block/convJ/bn  → decoder.final_block.convJ.1
   params/segmentation_head/conv        → segmentation_head.0
+
+and the FFC-LaMa generator's (models/lama.py; lama_torch_name):
+
+  params/stem/kernel                   → stem.weight
+  params/block{i}/ffc1/g2g/reduce/...  → blocks.{i}.ffc1.g2g.reduce....
+  params/up{i}/kernel                  → up{i}.weight (ConvTranspose2d)
+
+A conv kernel goes HWIO → OIHW. A ConvTranspose2d kernel goes (kh, kw, in,
+out) → (in, out, kh, kw), flipped in both spatial axes: flax's
+ConvTranspose (transpose_kernel=False) convolves the dilated input with
+the kernel as it is, torch's with the kernel flipped.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -27,13 +38,19 @@ _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 _CONV_BN = re.compile(r"(x_\d+_\d+_)?conv\d+")
 
 
-def torch_name(flax_key: str) -> str:
-    """'params/encoder/layer1_0/conv1/kernel' → 'encoder.layer1.0.conv1.weight'."""
+def _path_and_leaf(flax_key: str):
+    """'params/a/b/kernel' → (['a', 'b'], 'weight')."""
     collection, *parts = flax_key.split("/")
     leaf = parts.pop()
     leaf_map = _PARAM_LEAF if collection == "params" else _STAT_LEAF
     if collection not in ("params", "batch_stats") or leaf not in leaf_map:
         raise KeyError(f"no port counterpart for weight '{flax_key}'")
+    return parts, leaf_map[leaf]
+
+
+def torch_name(flax_key: str) -> str:
+    """'params/encoder/layer1_0/conv1/kernel' → 'encoder.layer1.0.conv1.weight'."""
+    parts, leaf = _path_and_leaf(flax_key)
     segs = []
     for p in parts:
         m = re.fullmatch(r"layer(\d+)_(\d+)", p)
@@ -52,26 +69,40 @@ def torch_name(flax_key: str) -> str:
             segs[-1] += ".1"
         else:
             segs.append(p)
-    return ".".join(segs) + "." + leaf_map[leaf]
+    return ".".join(segs) + "." + leaf
 
 
-def to_state_dict(flat: Dict[str, np.ndarray],
-                  model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Map every flax weight onto `model`'s state_dict.
+def lama_torch_name(flax_key: str) -> str:
+    """'params/block3/ffc1/g2g/reduce/kernel' →
+    'blocks.3.ffc1.g2g.reduce.weight'."""
+    parts, leaf = _path_and_leaf(flax_key)
+    segs = [re.sub(r"^block(\d+)$", r"blocks.\1", p) for p in parts]
+    return ".".join(segs) + "." + leaf
+
+
+def to_state_dict(flat: Dict[str, np.ndarray], model: nn.Module,
+                  name_fn: Callable[[str], str] = torch_name
+                  ) -> Dict[str, torch.Tensor]:
+    """Map every flax weight onto `model`'s state_dict (float32 CPU
+    tensors; `model` may live on the meta device).
 
     Raises if a flax weight has no place in the model, if a shape differs,
     or if a parameter or running statistic of the model gets no weight —
     so a successful return means every key was used exactly once.
     """
     target = model.state_dict()
+    transposed = {f"{m}.weight" for m, mod in model.named_modules()
+                  if isinstance(mod, nn.ConvTranspose2d)}
     out = {}
     for key, arr in flat.items():
-        name = torch_name(key)
+        name = name_fn(key)
         if name not in target:
             raise KeyError(f"weight '{key}' → '{name}' is not in the model")
         if name in out:
             raise KeyError(f"two weights map to '{name}'")
-        if arr.ndim == 4:  # conv HWIO → OIHW
+        if name in transposed:  # (kh, kw, in, out) → (in, out, kh, kw)
+            arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        elif arr.ndim == 4:  # conv HWIO → OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
         if tuple(t.shape) != tuple(target[name].shape):
@@ -85,12 +116,20 @@ def to_state_dict(flat: Dict[str, np.ndarray],
                        f"e.g. {missing[:3]}")
     for k in target:
         if k.endswith("num_batches_tracked"):
-            out[k] = target[k]
+            out[k] = torch.zeros((), dtype=torch.long)
     return out
 
 
-def load_flax_weights(model: nn.Module, flat: Dict[str, np.ndarray]) -> int:
-    """Load flat flax weights into `model` in place; returns the number used."""
-    sd = to_state_dict(flat, model)
-    model.load_state_dict(sd, strict=True)
+def load_flax_weights(model: nn.Module, flat: Dict[str, np.ndarray],
+                      name_fn: Callable[[str], str] = torch_name) -> int:
+    """Load flat flax weights into `model` in place (its tensors are
+    replaced, so a model built on the meta device gets real ones); returns
+    the number used."""
+    sd = to_state_dict(flat, model, name_fn)
+    model.load_state_dict(sd, strict=True, assign=True)
     return len(flat)
+
+
+def load_lama_weights(model: nn.Module, flat: Dict[str, np.ndarray]) -> int:
+    """load_flax_weights for models/lama.py's LamaGenerator."""
+    return load_flax_weights(model, flat, lama_torch_name)

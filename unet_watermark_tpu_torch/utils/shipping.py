@@ -1,17 +1,19 @@
-"""Reader of the shipped-weights .npz format (utils/shipping.py in the
-JAX package).
+"""Shipped weights: where they are (resolve, the unified registry of
+utils/shipping.py in the JAX package) and the .npz reader.
 
 A float leaf is stored as a uint16 view of its bfloat16 bits under the key
 "BF16::<flax path>"; every other entry is stored as it is.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
-WEIGHTS_DIR = Path(__file__).resolve().parents[2] / "unet_watermark_tpu" / "weights"
+REPO_ROOT = Path(__file__).resolve().parents[2]
+WEIGHTS_DIR = REPO_ROOT / "unet_watermark_tpu" / "weights"
 
 
 def seg_weights_path(model_name: str, encoder_name: str) -> Path:
@@ -20,6 +22,45 @@ def seg_weights_path(model_name: str, encoder_name: str) -> Path:
     finds UnetPlusPlus's file)."""
     name = model_name.lower().replace("unet++", "unetplusplus")
     return WEIGHTS_DIR / f"seg_{name}_{encoder_name.lower()}.npz"
+
+
+# kind → (env var, cfg attr under PREDICT, shipped file of a config,
+#         legacy fallback paths: "weights:" under WEIGHTS_DIR, "repo:" under
+#         the repository root)
+_KINDS = {
+    "seg": ("PREDICT_SEG_WEIGHTS", "SEG_WEIGHTS",
+            lambda cfg: seg_weights_path(cfg.MODEL.NAME,
+                                         cfg.MODEL.ENCODER_NAME), ()),
+    "inpaint": ("PREDICT_INPAINT_WEIGHTS", "INPAINT_WEIGHTS",
+                lambda cfg: WEIGHTS_DIR / "lama_ffc.npz",
+                ("weights:lama_ffc", "repo:models/lama_ffc")),
+}
+
+
+def resolve(kind: str, cfg=None, explicit: Optional[str] = None
+            ) -> Optional[str]:
+    """The weights path for `kind` in {seg, inpaint}.
+
+    Precedence: explicit arg > cfg.PREDICT.<attr> > env var > shipped file
+    under unet_watermark_tpu/weights/ > legacy locations. Explicit, config
+    and env values come back verbatim (caller errors surface); defaults
+    come back only if they exist on disk. None when nothing is found."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown weights kind '{kind}' "
+                         f"(know {sorted(_KINDS)})")
+    env_var, cfg_attr, shipped, legacy = _KINDS[kind]
+    cfg_val = getattr(getattr(cfg, "PREDICT", None), cfg_attr, None)
+    for cand in (explicit, cfg_val, os.environ.get(env_var)):
+        if cand:
+            return cand
+    cands = [shipped(cfg)] if cfg is not None or kind != "seg" else []
+    for spec in legacy:
+        base, _, rel = spec.partition(":")
+        cands.append((WEIGHTS_DIR if base == "weights" else REPO_ROOT) / rel)
+    for path in cands:
+        if path.exists():
+            return str(path)
+    return None
 
 
 def decode_bf16(u16: np.ndarray) -> np.ndarray:

@@ -40,6 +40,21 @@ Phases, each printing its own line:
      over hole pixels ≤ 2e-2), and the float32 generator on the card
      against the CPU's at 2 x 128² (max ≤ 1e-3); prints, without a gate,
      the hole pixels' error against the clean images for LaMa and push-pull
+  3d the repair entry point: `cli.main(["repair", "--input", D, "--output",
+     O, "--no-ocr"])` in this process, every other flag at its default
+     (the default configuration, bf16, the LaMa engine 3 times), on a
+     folder the port's encoder writes: 12 images of 512² (the last 2 with
+     no logo), 2 of 720 x 1280, 2 of 1080 x 1920 and one 1080 x 1920 file
+     with Paeth rows (its decode time printed). Checks: rc 0, status
+     "success" and no engine failure in repair_summary.json, K1 and K2
+     launched by the run, the 512² images' step-1 masks equal to
+     predict_artifact_masks on the same decoded batches, every mask at its
+     image's size, repaired pixels outside the step-1 mask equal to the
+     input's bytes, merged masks for every detected image. Then the CLI
+     again with each stage timed, and the tiled path (TILED, tiles of 512
+     with overlap 64) on a 1536 x 2048 image: bf16 against float32 raw
+     masks agree on >= 99.9 % of pixels, probabilities within 1e-2 on
+     average, the mask at 1536 x 2048
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -48,7 +63,8 @@ Phases, each printing its own line:
      call; the default configuration's repair path (img/s) and its stages,
      the tight chain also as the per-image loop it replaced, type
      detection and the artifact stage; the default fn with LaMa (img/s),
-     the generator alone and its share of the bf16 tensor-core peak; a
+     the generator alone and its share of the bf16 tensor-core peak; the
+     repair CLI's img/s and its split by stage beside the fused fn's; a
      profile of each path and of the generator alone
 
 The line before the last is {"kernels": [...]}, the last
@@ -60,8 +76,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -332,6 +350,241 @@ def check_masks(n: int, s: int, seed: int):
             blobs[i] |= np.hypot(yy - cy, xx - cx) < r
     sets["blobs"] = blobs
     return {k: v.astype(np.float32) for k, v in sets.items()}
+
+
+# phase 3d's folder: (name prefix, count, height, width); the first 12 are
+# 512², the last 2 of them without a logo; the Paeth file is one more
+# 1080 x 1920 image
+CLI_FOLDER = (("a", 12, 512, 512), ("b", 2, 720, 1280), ("c", 2, 1080, 1920))
+PAETH_SHAPE = (1080, 1920)
+TILED_SHAPE, TILE, OVERLAP = (1536, 2048), 512, 64  # 20 tiles
+STAGES = ("predictor_init", "decode", "upload_resize", "step1_device",
+          "engine_load", "step2_device", "step5", "encode")
+
+
+def cropped_images(n: int, h: int, w: int, seed: int, clean: int = 0):
+    """n synthetic (h, w, 3) uint8 images: the middle rows of square ones."""
+    import numpy as np
+    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+    side = max(h, w)
+    imgs, _ = watermarked_images(n, side, seed=seed, clean=clean)
+    y0, x0 = (side - h) // 2, (side - w) // 2
+    return (imgs[:, y0:y0 + h, x0:x0 + w] * 255).astype(np.uint8)
+
+
+def write_cli_folder(folder: Path, seed: int, spec=CLI_FOLDER,
+                     paeth_shape=PAETH_SHAPE) -> dict:
+    """Phase 3d's input folder, written by the port's encoder; returns
+    {stem: (h, w)}. Every file has Sub rows (filter 1), as cv2.imwrite
+    writes them by default, but p0.png, which has Paeth rows (filter 4)
+    only, as an adaptive writer's files mostly do."""
+    from unet_watermark_tpu_torch.utils import image_io
+
+    folder.mkdir(parents=True)
+    sizes = {}
+    for k, (prefix, count, h, w) in enumerate(spec):
+        imgs = cropped_images(count, h, w, seed + k,
+                              clean=2 if prefix == "a" else 0)
+        for i, img in enumerate(imgs):
+            sizes[f"{prefix}{i:02d}"] = (h, w)
+            image_io.write_png(folder / f"{prefix}{i:02d}.png", img,
+                               filters=(1,))
+    img = cropped_images(1, *paeth_shape, seed + len(spec))[0]
+    image_io.write_png(folder / "p0.png", img, filters=(4,))
+    sizes["p0"] = paeth_shape
+    return sizes
+
+
+def run_cli(argv, dev, timer: bool):
+    """cli.main(argv) in this process; (rc, wall seconds, the stage seconds
+    of the pipeline's StageTimer, or None without a timer)."""
+    from unet_watermark_tpu_torch import cli
+    from unet_watermark_tpu_torch.inference import predict as P
+
+    P.STAGE_TIMER = P.StageTimer(dev) if timer else None
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        return rc, wall, (dict(P.STAGE_TIMER.seconds) if timer else None)
+    finally:
+        P.STAGE_TIMER = None
+
+
+def check_cli_outputs(folder: Path, out: Path, sizes: dict, pred, dev
+                      ) -> dict:
+    """Phase 3d's file checks; returns counts for its log line. `pred` is a
+    predictor of the same configuration, for predict_artifact_masks."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.ops.resize import resize_linear_u8
+    from unet_watermark_tpu_torch.utils import image_io
+
+    summary = json.loads((out / "repair_summary.json").read_text())
+    if summary.get("status") != "success" or summary["engine_failures"] \
+            or summary["engine_used"] != "ffc-lama":
+        raise AssertionError(f"repair summary (step 2 must run the FFC-LaMa "
+                             f"fill without failures): {summary}")
+    names = sorted(sizes)
+    masks = {n: image_io.read_gray(out / "step1_masks" / f"{n}_mask.png")
+             for n in names}
+    for n in names:
+        if masks[n].shape != sizes[n]:
+            raise AssertionError(f"{n}'s mask is {masks[n].shape}, its image "
+                                 f"{sizes[n]}")
+    # step 1's batches, in its order: the same decoded images through
+    # predict_artifact_masks give the same masks
+    s, bs = pred.img_size, pred.cfg.PREDICT.BATCH_SIZE
+    compared = 0
+    for i in range(0, len(names), bs):
+        chunk = names[i:i + bs]
+        batch = torch.stack([resize_linear_u8(torch.from_numpy(
+            image_io.read_rgb(folder / f"{n}.png")).to(dev), (s, s))
+            for n in chunk]).float() / 255.0
+        opt, _ = pred.predict_artifact_masks(batch)
+        ref = (opt * 255).to(torch.uint8).cpu().numpy()
+        for j, n in enumerate(chunk):
+            if sizes[n] == (s, s):
+                if not np.array_equal(ref[j], masks[n]):
+                    raise AssertionError(f"{n}: the CLI's step-1 mask "
+                                         f"differs from "
+                                         f"predict_artifact_masks")
+                compared += 1
+    detected = [n for n in names if masks[n].any()]
+    for n in detected:
+        src = image_io.read_rgb(folder / f"{n}.png")
+        rep = image_io.read_rgb(out / "step2_watermark_repaired" / f"{n}.png")
+        keep = masks[n] <= 127
+        if not np.array_equal(rep[keep], src[keep]):
+            raise AssertionError(f"{n}: repaired pixels outside the step-1 "
+                                 f"mask changed")
+        for path in (out / "masks" / f"{n}.png", out / f"{n}.png"):
+            if not path.is_file():
+                raise AssertionError(f"missing {path.name} for {n}")
+    return {"images": len(names), "detected": len(detected),
+            "masks_equal_predict_artifact_masks": compared,
+            "summary": {k: summary[k] for k in (
+                "total_images", "successful_images", "avg_watermark_ratio",
+                "steps_completed", "engine_failures", "engine_used")}}
+
+
+def repair_cli_phase(work: Path, pred, seed: int, dev, spec=CLI_FOLDER,
+                     paeth_shape=PAETH_SHAPE, tiled_shape=TILED_SHAPE,
+                     tile=TILE, overlap=OVERLAP, device="cuda"):
+    """Phase 3d: the `repair` CLI on a folder of PNGs, then the tiled path;
+    logs the checks of each and returns the CLI's timing fields and kernel
+    launches for phase 4's line."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.configs import get_cfg_defaults
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.inference.tiled import plan_tiles
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.utils import image_io
+
+    folder = work / "in"
+    t0 = time.perf_counter()
+    sizes = write_cli_folder(folder, seed, spec, paeth_shape)
+    write_s = time.perf_counter() - t0
+    decode_ms = {}  # 1080 x 1920: Paeth rows, and Sub rows as cv2 writes
+    for key, name in (("paeth", "p0"), ("sub", f"{spec[-1][0]}00")):
+        data = (folder / f"{name}.png").read_bytes()
+        decode_ms[key] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = image_io.decode_png(data)
+            decode_ms[key].append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    image_io.encode_png(img)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    # one decode of every file of the folder: as written (Sub rows; p0
+    # Paeth), and with every file's rows Paeth, as an adaptive writer's
+    # files mostly are
+    folder_decode_s = {"as_written": 0.0, "all_paeth": 0.0}
+    for path in sorted(folder.iterdir()):
+        data = path.read_bytes()
+        t0 = time.perf_counter()
+        img = image_io.decode_png(data)
+        folder_decode_s["as_written"] += time.perf_counter() - t0
+        data = image_io.encode_png(img, filters=(4,))
+        t0 = time.perf_counter()
+        image_io.decode_png(data)
+        folder_decode_s["all_paeth"] += time.perf_counter() - t0
+    argv = ["repair", "--input", str(folder), "--no-ocr"]
+    if device != "cuda":  # the flag's default
+        argv += ["--device", device]
+
+    # (a) the CLI as a user runs it, every other flag at its default
+    kc.reset_launch_counts()
+    rc, wall_cold, _ = run_cli(argv + ["--output", str(work / "out")], dev,
+                               timer=False)
+    launches = {k.__name__: k.launches for k in kc.KERNELS}
+    if rc != 0:
+        raise AssertionError(f"repair exited {rc}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the CLI's step 1 never launched {name}")
+    checks = check_cli_outputs(folder, work / "out", sizes, pred, dev)
+    log("repair_cli", argv=argv[:1] + argv[3:], rc=rc, launches=launches,
+        step1_batches=-(-len(sizes) // pred.cfg.PREDICT.BATCH_SIZE),
+        write_folder_s=round(write_s, 3),
+        paeth_1080x1920_decode_ms=decode_ms["paeth"],
+        sub_1080x1920_decode_ms=decode_ms["sub"],
+        up_1080x1920_encode_ms=encode_ms, folder_decode_s=folder_decode_s,
+        **checks,
+        repaired_keep_unmasked_bytes=True, merged_masks_for_detected=True)
+    # (b) again in this process, with each stage timed (a sync at the end of
+    # each stage)
+    rc, wall_warm, split = run_cli(argv + ["--output", str(work / "out2")],
+                                   dev, timer=True)
+    if rc != 0:
+        raise AssertionError(f"repair (timed) exited {rc}")
+    n = len(sizes)
+    timing = {"images": n, "wall_cold_s": wall_cold,
+              "img_per_s_cold": n / wall_cold, "wall_timed_s": wall_warm,
+              "img_per_s_timed": n / wall_warm,
+              "split_s": {k: split.get(k, 0.0) for k in STAGES},
+              "other_s": wall_warm - sum(split.values()),
+              "paeth_1080x1920_decode_ms": float(np.median(
+                  decode_ms["paeth"])),
+              "sub_1080x1920_decode_ms": float(np.median(decode_ms["sub"])),
+              "folder_decode_s": folder_decode_s,
+              "launches": launches}
+
+    # (c) the tiled path on one high-res image, bf16 against float32
+    cfgs = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_cfg_defaults()
+        cfg.MODEL.DTYPE = dtype
+        cfg.PREDICT.TILED = True
+        cfg.PREDICT.TILE_SIZE, cfg.PREDICT.TILE_OVERLAP = tile, overlap
+        cfgs.append(cfg)
+    tiled = [WatermarkPredictor(cfg, device=device) for cfg in cfgs]
+    rgb = cropped_images(1, *tiled_shape, seed + 7)[0]
+    tdir = work / "tiled"
+    tdir.mkdir()
+    image_io.write_png(tdir / "t0.png", rgb)
+    rgb_d = torch.from_numpy(rgb).to(dev)
+    p16, p32 = (p._infer_prob_map(rgb_d) for p in tiled)
+    agree = ((p16 > 0.5) == (p32 > 0.5)).float().mean().item()
+    mad = (p16 - p32).abs().mean().item()
+    recs = tiled[0].step1_batch_predict_watermark_masks(str(tdir),
+                                                        str(work / "tm"))
+    mask = image_io.read_gray(work / "tm" / "t0_mask.png")
+    n_tiles = len(plan_tiles(*tiled_shape, tile, overlap))
+    log("repair_tiled", shape=list(tiled_shape), tile=tile, overlap=overlap,
+        tiles=n_tiles, bf16_vs_fp32_raw_mask_agreement=agree,
+        bf16_vs_fp32_prob_mean_abs=mad, mask_shape=list(mask.shape),
+        mask_fraction=float((mask > 0).mean()),
+        found=[r["mask_type"] for r in recs])
+    if agree < 0.999 or mad > 1e-2:
+        raise AssertionError(f"tiled bf16 vs float32: masks agree on "
+                             f"{agree:.5f}, probabilities differ by {mad} on "
+                             f"average")
+    if tuple(mask.shape) != tuple(tiled_shape):
+        raise AssertionError(f"tiled mask decodes at {mask.shape}")
+    return timing
 
 
 def main(argv=None) -> int:
@@ -657,6 +910,13 @@ def main(argv=None) -> int:
         .mean().item())
     del lama_32, lama_cpu
 
+    # -- 3d: the repair entry point ------------------------------------------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        cli_timing = repair_cli_phase(work, pred_d, args.seed, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     # -- 4: timings ----------------------------------------------------------
     for _ in range(3):
         fused(images)
@@ -772,6 +1032,11 @@ def main(argv=None) -> int:
             for seg, _ in LAMA_SEGMENTS],
         card=card)
 
+    # the repair entry point beside the fused fn it wraps, on this run
+    log("timing_repair_cli", **cli_timing,
+        fused_lama_img_per_s=n / (e2e_l[0] / 1e3),
+        fused_lama_batch=[n, s, s, 3], card=card)
+
     log("profile", **profile_window(lambda: fused(images), 3))
     log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
     log("profile_default_artifacts",
@@ -816,6 +1081,7 @@ def main(argv=None) -> int:
             "replaces": f"unet_watermark_tpu/ops/pallas/morph_chain.py:{line}",
             "launches": launches[fn.__name__],
             "default_config_launches": art_launches[fn.__name__],
+            "repair_cli_launches": cli_timing["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

@@ -198,3 +198,25 @@ def test_default_fused_fn_on_card_runs_lama(cuda, monkeypatch):
     assert repaired.min() >= 0 and repaired.max() <= 1
     keep = (mask == 0)[..., None].expand_as(images)
     assert torch.equal(repaired[keep], images[keep])
+
+
+@pytest.mark.parametrize("src, dst", [((1080, 1920), (512, 512)),
+                                      ((720, 1280), (512, 512)),
+                                      ((512, 512), (1080, 1920)),
+                                      ((100, 70), (64, 64)),
+                                      ((37, 53), (120, 90))], ids=str)
+def test_resizes_on_card_equal_cpu(cuda, src, dst):
+    """The cv2-parity resizes (ops/resize.py) give the same bits on the card
+    as on the CPU, where tests/test_torch_image_io.py holds them to cv2."""
+    from unet_watermark_tpu_torch.ops import resize as rs
+
+    rng = np.random.default_rng(sum(src))
+    img = torch.from_numpy(rng.integers(0, 256, (2,) + src + (3,),
+                                        dtype=np.uint8))
+    prob = torch.from_numpy(rng.random((2,) + src).astype(np.float32))
+    mask = (prob > 0.7).to(torch.uint8) * 255
+    for fn, x in ((rs.resize_linear_u8, img), (rs.resize_linear_f32, prob),
+                  (rs.resize_nearest, mask), (rs.resize_nearest, prob)):
+        out = fn(x.to(cuda), dst)
+        assert out.device.type == "cuda"
+        assert torch.equal(out.cpu(), fn(x, dst)), fn.__name__

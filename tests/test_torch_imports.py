@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py import with jax, flax, yaml, PIL, cv2 and the
-JAX package blocked (the GPU machine has none of them), and chip_smoke.py
-gives no result without a card."""
+"""The port and chip_smoke.py import with jax, flax, yaml, PIL, cv2, tqdm,
+torchvision and the JAX package blocked (the GPU machine has none of
+them), and chip_smoke.py gives no result without a card."""
 import os
 import shutil
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ["jax", "flax", "yaml", "PIL", "cv2", "unet_watermark_tpu"]
+BLOCKED = ["jax", "flax", "yaml", "PIL", "cv2", "tqdm", "torchvision",
+           "unet_watermark_tpu"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

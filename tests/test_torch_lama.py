@@ -347,18 +347,31 @@ def test_load_lama_finds_the_matching_variant(variant):
 def test_load_lama_returns_none_on_foreign_weights(caplog):
     seg = WEIGHTS_DIR / "seg_unet_resnet34.npz"
     with caplog.at_level(logging.WARNING):
-        assert engines.load_lama(seg) == (None, None)
+        assert engines.load_lama(seg, device="cpu") == (None, None)
     assert "matches no lama variant" in caplog.text
+
+
+def test_load_lama_defaults_to_the_card():
+    """load_lama(path) with no device builds on "cuda", as every other entry
+    point does: without a card it raises instead of building on the CPU
+    (the parent defaulted to "cpu", ROADMAP.md §C.4)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engines.load_lama(LAMA)
 
 
 def test_get_engine_lama_and_pushpull(generator32, monkeypatch):
     """'lama' runs the bf16 generator (its output within the bf16
     tolerance of the float32 one on hole pixels: observed max 8.6e-4);
     'pushpull', 'fast' and 'telea' are push-pull with 64 sweeps, and
-    'lama' falls back to it, with a warning, when no weights exist."""
+    'lama' falls back to it, with a warning, when no weights exist; each
+    engine's .name says which fill it runs."""
     monkeypatch.delenv("PREDICT_INPAINT_WEIGHTS", raising=False)
     img, mask = _batch(np.random.default_rng(3), 2, 64)
-    out = engines.get_engine("lama", device="cpu")(img, mask)
+    lama = engines.get_engine("lama", device="cpu")
+    assert lama.name == "ffc-lama"
+    out = lama(img, mask)
     with torch.inference_mode():
         ref = generator32(torch.from_numpy(img), torch.from_numpy(mask))
     assert out.dtype == torch.float32
@@ -368,11 +381,13 @@ def test_get_engine_lama_and_pushpull(generator32, monkeypatch):
     pushpull = inpaint_pushpull(torch.from_numpy(img), torch.from_numpy(mask),
                                 smooth_iterations=64)
     for name in ("pushpull", "fast", "telea", "PushPull", None):
-        np.testing.assert_array_equal(
-            engines.get_engine(name, device="cpu")(img, mask).numpy(),
-            pushpull.numpy())
+        engine = engines.get_engine(name, device="cpu")
+        assert engine.name == "pushpull"
+        np.testing.assert_array_equal(engine(img, mask).numpy(),
+                                      pushpull.numpy())
     fallback = engines.get_engine("lama", "/no/such/weights.npz",
                                   device="cpu")
+    assert fallback.name == "pushpull"
     np.testing.assert_array_equal(fallback(img, mask).numpy(),
                                   pushpull.numpy())
 

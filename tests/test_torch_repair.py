@@ -1,0 +1,385 @@
+"""The port's repair entry point against the JAX package's, on the CPU:
+WatermarkPredictor.process_folder_batch(use_ocr=False) (steps 1, 2 and 5)
+and the `repair` CLI, on one folder of PNGs written by cv2, with the
+default configuration's UNet++/resnet34 shipped weights in float32 at
+IMG_SIZE 64 and the push-pull engine ("telea"). Also the tiled high-res
+path and the predict flags (EDGE_REFINEMENT, CONNECTIVITY_CHECK,
+MULTI_SCALE_TEST), predict_mask, and what raises until a later slice."""
+import json
+import os
+import struct
+import zlib
+from pathlib import Path
+
+import cv2
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_pipeline import _jax_predictor
+from unet_watermark_tpu import cli as jax_cli
+from unet_watermark_tpu_torch import cli
+from unet_watermark_tpu_torch.configs import get_cfg_defaults
+from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+torch.set_num_threads(2)
+
+# (name, height, width, seed of the synthetic image; None: no logo): 64²,
+# 80x96, 100x70, a clean one, and two more with logos. Of the found logos,
+# b and f type as "watermark" (the parity chain; K1/K2 on the card) and the
+# rest as "text"
+FOLDER = (("a", 64, 64, 20), ("b", 80, 96, 106), ("c", 100, 70, 22),
+          ("d", 72, 72, None), ("e", 64, 64, 24), ("f", 90, 120, 30))
+# Repaired pixels: push-pull with 64 Jacobi sweeps, run 3 times, in float32
+# on each side (sums in another order), then truncated to 8 bits; observed:
+# all 101 016 channel values of the 5 repaired images equal.
+REPAIR_LSB = 1
+# The tiled path's blended probabilities: float32 convs in each package's
+# own order, the same blend order; observed max difference 2.4e-6 (mean
+# 8.6e-9).
+TILED_PROB_ATOL = 1e-5
+TIME_KEYS = ("processing_time", "avg_processing_time_per_image")
+
+
+def _write_folder(folder: Path, spec) -> None:
+    """Synthetic images, each cut from the middle of a square one, written
+    by cv2 (so libpng's adaptive row filters, Paeth among them, are what
+    the decoders read)."""
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, h, w, seed in spec:
+        side = max(h, w)
+        img, _ = watermarked_images(1, side, seed=seed or 0,
+                                    clean=int(seed is None))
+        y0, x0 = (side - h) // 2, (side - w) // 2
+        rgb = (img[0, y0:y0 + h, x0:x0 + w] * 255).astype(np.uint8)
+        cv2.imwrite(str(folder / f"{name}.png"),
+                    cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+
+
+def _jax(mask_mode="auto"):
+    pred = _jax_predictor("UnetPlusPlus", mask_mode)
+    pred._forward = jax.jit(pred._apply_model)
+    pred.img_size = pred.cfg.DATA.IMG_SIZE
+    pred._engine_name = None
+    pred.device = "cpu"
+    return pred
+
+
+def _port():
+    cfg = get_cfg_defaults()
+    cfg.MODEL.DTYPE = "float32"
+    cfg.DATA.IMG_SIZE = 64
+    return WatermarkPredictor(cfg, device="cpu")
+
+
+def _record_step1(pred):
+    """Keep what step 1 returns (each image's type and ratio)."""
+    seen = {}
+    step1 = pred.step1_batch_predict_watermark_masks
+
+    def recording(*args, **kwargs):
+        seen["step1"] = step1(*args, **kwargs)
+        return seen["step1"]
+
+    pred.step1_batch_predict_watermark_masks = recording
+    return seen
+
+
+def _gray(path) -> np.ndarray:
+    out = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    assert out is not None, path
+    return out
+
+
+def _rgb(path) -> np.ndarray:
+    out = cv2.imread(str(path))
+    assert out is not None, path
+    return out
+
+
+def _records(results):
+    return [(os.path.basename(r["original_path"]), r.get("mask_type"),
+             r["watermark_ratio"]) for r in results]
+
+
+@pytest.fixture(scope="module")
+def preds():
+    return _jax(), _port()
+
+
+@pytest.fixture(scope="module")
+def folder(tmp_path_factory):
+    d = tmp_path_factory.mktemp("repair") / "in"
+    _write_folder(d, FOLDER)
+    return d
+
+
+@pytest.fixture(scope="module")
+def runs(preds, folder):
+    jpred, pred = preds
+    out = {}
+    for key, p in (("jax", jpred), ("port", pred)):
+        seen = _record_step1(p)
+        o = folder.parent / f"out_{key}"
+        stats = p.process_folder_batch(str(folder), str(o),
+                                       watermark_model="telea",
+                                       use_ocr=False, steps=3)
+        del p.step1_batch_predict_watermark_masks
+        out[key] = {"dir": o, "stats": stats, "step1": seen["step1"]}
+    return out
+
+
+def test_step1_masks_types_and_ratios_equal_jax(runs, folder):
+    j, t = runs["jax"], runs["port"]
+    names = sorted(os.listdir(j["dir"] / "step1_masks"))
+    assert names == sorted(os.listdir(t["dir"] / "step1_masks"))
+    assert len(names) == len(FOLDER)
+    sizes = {n: (h, w) for n, h, w, _ in FOLDER}
+    for name in names:
+        tm = _gray(t["dir"] / "step1_masks" / name)
+        assert tm.shape == sizes[name.split("_mask")[0]]
+        np.testing.assert_array_equal(tm, _gray(j["dir"] / "step1_masks" /
+                                                name))
+    assert _records(t["step1"]) == _records(j["step1"])
+    # some images found, some not; both strategies' types among them
+    assert 0 < len(t["step1"]) < len(FOLDER)
+    assert {r["mask_type"] for r in t["step1"]} == {"watermark", "text"}
+
+
+def test_step2_repaired_images_within_one_lsb(runs):
+    j, t = runs["jax"], runs["port"]
+    for sub in ("step2_watermark_repaired", "."):
+        jn = sorted(n for n in os.listdir(j["dir"] / sub) if
+                    n.endswith(".png"))
+        assert jn == sorted(n for n in os.listdir(t["dir"] / sub)
+                            if n.endswith(".png"))
+        assert jn
+        for name in jn:
+            a = _rgb(j["dir"] / sub / name).astype(int)
+            b = _rgb(t["dir"] / sub / name).astype(int)
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= REPAIR_LSB, name
+
+
+def test_stage_timer_splits_a_run(preds, folder, tmp_path, monkeypatch):
+    """With predict.STAGE_TIMER set, each stage of a predictor's
+    construction and of process_folder_batch reports its own seconds, and
+    their sum stays within the run's wall time."""
+    import time
+
+    from unet_watermark_tpu_torch.inference import predict as P
+
+    timer = P.StageTimer(torch.device("cpu"))
+    monkeypatch.setattr(P, "STAGE_TIMER", timer)
+    t0 = time.perf_counter()
+    pred = _port()
+    stats = pred.process_folder_batch(str(folder), str(tmp_path / "o"),
+                                      watermark_model="telea",
+                                      use_ocr=False, steps=1)
+    wall = time.perf_counter() - t0
+    assert stats["status"] == "success"
+    assert set(timer.seconds) == {
+        "predictor_init", "decode", "upload_resize", "step1_device",
+        "engine_load", "step2_device", "step5", "encode"}
+    assert min(timer.seconds.values()) > 0
+    assert sum(timer.seconds.values()) <= wall
+
+
+def test_repaired_images_keep_the_unmasked_pixels(runs, folder):
+    t = runs["port"]
+    for rec in t["step1"]:
+        name = os.path.basename(rec["original_path"])
+        src = _rgb(folder / name)
+        out = _rgb(t["dir"] / "step2_watermark_repaired" / name)
+        keep = _gray(rec["mask_path"]) <= 127
+        np.testing.assert_array_equal(out[keep], src[keep])
+        assert (out != src).any()
+
+
+def test_step5_merged_masks_equal_jax(runs):
+    j, t = runs["jax"], runs["port"]
+    names = sorted(os.listdir(j["dir"] / "masks"))
+    assert names and names == sorted(os.listdir(t["dir"] / "masks"))
+    for name in names:
+        np.testing.assert_array_equal(_gray(t["dir"] / "masks" / name),
+                                      _gray(j["dir"] / "masks" / name))
+
+
+def test_stats_equal_jax_apart_from_times(runs):
+    js, ts = dict(runs["jax"]["stats"]), dict(runs["port"]["stats"])
+    assert ts.pop("engine_failures") == 0
+    assert ts.pop("engine_used") == "pushpull"
+    for key in TIME_KEYS:
+        assert ts.pop(key) > 0 and js.pop(key) > 0
+    assert ts == js
+    assert ts["status"] == "success"
+
+
+@pytest.mark.parametrize("options", [{"use_unet": False},
+                                     {"save_intermediate": False}],
+                         ids=["no-unet", "temporary-folders"])
+def test_other_options_match_jax(preds, folder, tmp_path, options):
+    """Without the network every image passes through as it is; without
+    intermediate folders steps 1-2 write to a temporary directory and the
+    output holds the final images and the merged masks only."""
+    stats = {}
+    for key, p in zip("jt", preds):
+        stats[key] = dict(p.process_folder_batch(
+            str(folder), str(tmp_path / key), watermark_model="telea",
+            use_ocr=False, steps=1, **options))
+    js, ts = stats["j"], stats["t"]
+    assert ts.pop("engine_failures") == 0
+    assert ts.pop("engine_used") == (None if options.get("use_unet") is False
+                                     else "pushpull")
+    for key in TIME_KEYS:
+        ts.pop(key), js.pop(key)
+    assert ts == js
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert names == sorted(os.listdir(tmp_path / "t"))
+    for name in names:
+        if name.endswith(".png"):
+            a = _rgb(tmp_path / "j" / name).astype(int)
+            b = _rgb(tmp_path / "t" / name).astype(int)
+            assert np.abs(a - b).max() <= REPAIR_LSB, name
+
+
+def test_tiled_path_matches_jax(preds, tmp_path, monkeypatch):
+    """PREDICT.TILED with TILE_SIZE 64 and overlap 16 on a 160x200 image:
+    15 tiles of the padded 160x224 image, blended; probabilities within
+    TILED_PROB_ATOL and the step-1 mask equal."""
+    jpred, pred = preds
+    for p in (jpred, pred):
+        monkeypatch.setattr(p.cfg.PREDICT, "TILED", True)
+        monkeypatch.setattr(p.cfg.PREDICT, "TILE_SIZE", 64)
+        monkeypatch.setattr(p.cfg.PREDICT, "TILE_OVERLAP", 16)
+    d = tmp_path / "in"
+    _write_folder(d, [("big", 160, 200, 26)])
+    rgb = cv2.cvtColor(_rgb(d / "big.png"), cv2.COLOR_BGR2RGB)
+    jp = jpred._infer_prob_map(rgb)
+    tp = pred._infer_prob_map(torch.from_numpy(rgb)).numpy()
+    assert tp.shape == jp.shape == (160, 200)
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=TILED_PROB_ATOL)
+    jr = jpred.step1_batch_predict_watermark_masks(str(d), str(tmp_path / "j"))
+    tr = pred.step1_batch_predict_watermark_masks(str(d), str(tmp_path / "t"))
+    tm = _gray(tmp_path / "t" / "big_mask.png")
+    assert tm.shape == (160, 200) and tm.any()
+    np.testing.assert_array_equal(tm, _gray(tmp_path / "j" / "big_mask.png"))
+    assert _records(tr) == _records(jr)
+
+
+@pytest.mark.parametrize("flag", ["EDGE_REFINEMENT", "CONNECTIVITY_CHECK",
+                                  "MULTI_SCALE_TEST"])
+def test_predict_flags_match_jax(preds, folder, tmp_path, monkeypatch, flag):
+    """Each flag of the text configuration on, alone: the step-1 masks,
+    types and ratios equal JAX's. MULTI_SCALE_TEST runs scales 0.5, 1.0 and
+    1.5 (sides 32, 64 and 96 at IMG_SIZE 64), so both float resizes run."""
+    jpred, pred = preds
+    for p in (jpred, pred):
+        monkeypatch.setattr(p.cfg.PREDICT, flag, True)
+        monkeypatch.setattr(p.cfg.PREDICT, "TEST_SCALES", [0.5, 1.0, 1.5])
+    jr = jpred.step1_batch_predict_watermark_masks(str(folder),
+                                                   str(tmp_path / "j"))
+    tr = pred.step1_batch_predict_watermark_masks(str(folder),
+                                                  str(tmp_path / "t"))
+    for name in sorted(os.listdir(tmp_path / "j")):
+        np.testing.assert_array_equal(_gray(tmp_path / "t" / name),
+                                      _gray(tmp_path / "j" / name))
+    assert _records(tr) == _records(jr)
+
+
+def test_predict_mask_matches_jax(preds, folder):
+    """The single-image API at the image's own size (the probability map
+    resized as float32, the strategy at the padded size), and the types
+    that wait for _enhance_text_features."""
+    jpred, pred = preds
+    for name in ("b.png", "c.png"):
+        path = str(folder / name)
+        np.testing.assert_array_equal(pred.predict_mask(path),
+                                      jpred.predict_mask(path))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pred.predict_mask(str(folder / "a.png"), "text")
+
+
+def _interlaced_png(path: Path) -> None:
+    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)
+    chunk = (struct.pack(">I", 13) + b"IHDR" + ihdr
+             + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr)))
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk)
+
+
+@pytest.mark.parametrize("bad", ["photo.jpg", "interlaced.png"])
+def test_undecodable_files_raise_before_any_work(preds, folder, tmp_path,
+                                                 bad):
+    _, pred = preds
+    d = tmp_path / "in"
+    _write_folder(d, FOLDER[:1])
+    if bad.endswith(".jpg"):
+        (d / bad).write_bytes(b"\xff\xd8\xff")
+    else:
+        _interlaced_png(d / bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        pred.process_folder_batch(str(d), str(tmp_path / "out"),
+                                  use_ocr=False)
+    assert not (tmp_path / "out" / "step1_masks").exists() or \
+        not os.listdir(tmp_path / "out" / "step1_masks")
+
+
+def _repair_args(folder, out):
+    return ["repair", "--input", str(folder), "--output", str(out),
+            "--no-ocr", "--watermark-model", "telea",
+            "--opts", "DATA.IMG_SIZE", "64", "MODEL.DTYPE", "float32"]
+
+
+def test_cli_writes_the_jax_summary_keys(preds, folder, tmp_path,
+                                         monkeypatch):
+    """The port's `repair --device cpu --no-ocr` against the JAX CLI's
+    repair_command on the same folder; the JAX CLI's predictor is the one
+    assembled without its eager init."""
+    jpred, _ = preds
+    monkeypatch.setattr("unet_watermark_tpu.inference.WatermarkPredictor",
+                        lambda model_path=None, config=None: jpred)
+    jargs = jax_cli.build_parser().parse_args(
+        _repair_args(folder, tmp_path / "j") + ["--device", "cpu"])
+    assert jax_cli.repair_command(jargs) == 0
+    assert cli.main(_repair_args(folder, tmp_path / "t")
+                    + ["--device", "cpu"]) == 0
+    j = json.loads((tmp_path / "j" / "repair_summary.json").read_text())
+    t = json.loads((tmp_path / "t" / "repair_summary.json").read_text())
+    assert set(t) == set(j) | {"engine_failures", "engine_used"}
+    assert t["engine_used"] == "pushpull"
+    assert set(t["steps_completed"]) == set(j["steps_completed"])
+    assert t["status"] == j["status"] == "success"
+    for sub in ("step1_masks", "step2_watermark_repaired", "masks"):
+        assert sorted(os.listdir(tmp_path / "t" / sub)) == \
+            sorted(os.listdir(tmp_path / "j" / sub))
+
+
+@pytest.mark.parametrize("extra, error", [
+    (["--device", "cpu", "--no-ocr"], None),
+    (["--device", "cpu"], NotImplementedError),
+    (["--device", "cpu", "--no-ocr", "--quant"], NotImplementedError),
+    (["--device", "cpu", "--no-ocr", "--video"], NotImplementedError),
+    (["--device", "tpu", "--no-ocr"], ValueError)],
+    ids=["ok", "ocr", "quant", "video", "tpu"])
+def test_cli_raises_for_what_is_not_ported(folder, tmp_path, extra, error):
+    args = ["repair", "--input", str(folder), "--output",
+            str(tmp_path / "o"), "--watermark-model", "telea", "--opts",
+            "DATA.IMG_SIZE", "64", "MODEL.DTYPE", "float32"] + extra
+    if error is None:
+        assert cli.main(args) == 0
+        return
+    with pytest.raises(error, match="ROADMAP.md|cuda"):
+        cli.main(args)
+    assert not (tmp_path / "o").exists()
+
+
+def test_cli_cuda_without_a_card_and_training_raise(folder, tmp_path):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["repair", "--input", str(folder), "--output",
+                      str(tmp_path / "o"), "--no-ocr"])
+    for name in ("train", "auto"):
+        with pytest.raises(NotImplementedError, match="§A.7"):
+            cli.main([name])

@@ -1,0 +1,174 @@
+"""The port's command line (cli.py in the JAX package): the `repair`
+subcommand, with the JAX CLI's flags, defaults and repair_summary.json.
+
+    python -m unet_watermark_tpu_torch.cli repair --input D --output O \\
+        --no-ocr [--device cuda|cpu]
+
+--device is "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda");
+"cuda" without a card raises. What the port does not run yet raises
+NotImplementedError naming its ROADMAP.md item: OCR (run with --no-ocr),
+--quant, --video, and the `train` and `auto` subcommands. The LaMa weights
+of --inpaint-weights go into the config (PREDICT.INPAINT_WEIGHTS) where
+the JAX CLI sets the PREDICT_INPAINT_WEIGHTS environment variable.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+from .configs import DEFAULT_CONFIG
+
+logger = logging.getLogger("unet_watermark_tpu_torch.cli")
+
+DEVICES = {"cuda": "cuda", "gpu": "cuda", "auto": "cuda", "": "cuda",
+           "cpu": "cpu"}
+
+
+def setup_device(device_str: str) -> str:
+    """The torch device of --device; anything but cuda/gpu/auto/cpu raises."""
+    if device_str not in DEVICES:
+        raise ValueError(f"--device {device_str!r}: the port runs on 'cuda' "
+                         f"(also 'gpu', 'auto') or 'cpu'")
+    return DEVICES[device_str]
+
+
+def _load_cfg(args):
+    from .configs import get_cfg_defaults, update_config
+
+    cfg = get_cfg_defaults()
+    if getattr(args, "config", None) and os.path.exists(args.config):
+        update_config(cfg, args.config)
+    return cfg
+
+
+def repair_command(args) -> int:
+    """Steps 1, 2 and 5 of WatermarkPredictor.process_folder_batch on the
+    --input folder, then repair_summary.json in --output."""
+    if not args.no_ocr:
+        from .inference.predict import OCR_ITEM
+        raise NotImplementedError(OCR_ITEM)
+    if args.quant:
+        raise NotImplementedError("--quant: the int8 inference tier is not "
+                                  "ported yet (ROADMAP.md §A.6)")
+    if args.video:
+        raise NotImplementedError("--video: the comparison video needs a "
+                                  "video writer, not ported yet (ROADMAP.md "
+                                  "§A.5, --video)")
+    device = setup_device(args.device)
+    cfg = _load_cfg(args)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    if args.inpaint_weights:
+        cfg.PREDICT.INPAINT_WEIGHTS = args.inpaint_weights
+
+    from .inference.predict import WatermarkPredictor
+
+    model_path = args.model if args.model and os.path.exists(args.model) \
+        else None
+    if args.model and model_path is None:
+        logger.warning("model %s not found; using the shipped weights",
+                       args.model)
+    if model_path is not None and not model_path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{model_path}: the port reads .npz weights; .pth imports and "
+            f"orbax checkpoints are not ported yet (ROADMAP.md §A.7, §A.8)")
+    predictor = WatermarkPredictor(cfg, weights_path=model_path,
+                                   device=device)
+    stats = predictor.process_folder_batch(
+        args.input, args.output,
+        watermark_model=args.watermark_model,
+        text_model=args.text_model,
+        use_unet=not args.no_unet,
+        use_ocr=False,
+        ocr_languages=args.ocr_languages,
+        ocr_engine=args.ocr_engine,
+        timeout=args.timeout,
+        save_intermediate=args.save_intermediate,
+        merge_masks=args.merge_masks,
+        limit=args.limit,
+        steps=args.steps,
+    )
+    summary_path = os.path.join(args.output, "repair_summary.json")
+    os.makedirs(args.output, exist_ok=True)
+    with open(summary_path, "w") as f:
+        json.dump(stats, f, indent=2)
+    logger.info("summary written: %s", summary_path)
+    return 0 if stats.get("status") == "success" else 1
+
+
+def _not_ported(name: str):
+    def command(args) -> int:
+        raise NotImplementedError(
+            f"the '{name}' subcommand (training) is not ported yet "
+            f"(ROADMAP.md §A.7)")
+    return command
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="unet-watermark-tpu-torch",
+        description="watermark detection and removal on one NVIDIA GPU "
+                    "(the PyTorch/CUDA port)")
+    sub = parser.add_subparsers(dest="command")
+
+    rp = sub.add_parser("repair", help="detect and repair watermarks")
+    rp.add_argument("--input", type=str, default="data/test")
+    rp.add_argument("--output", type=str, default="data/result")
+    rp.add_argument("--model", type=str,
+                    default="models/unet_watermark.pth")
+    rp.add_argument("--config", "-c", type=str, default=str(DEFAULT_CONFIG))
+    rp.add_argument("--device", type=str, default="cuda")
+    rp.add_argument("--watermark-model", type=str, default="lama")
+    rp.add_argument("--text-model", type=str, default="mat")
+    rp.add_argument("--inpaint-weights", type=str, default=None,
+                    help="FFC-LaMa weights (.npz); falls back to the "
+                         "pushpull engine when none resolve")
+    rp.add_argument("--timeout", type=int, default=300)
+    rp.add_argument("--steps", type=int, default=3)
+    rp.add_argument("--save-intermediate", action="store_true", default=True)
+    rp.add_argument("--merge-masks", action="store_true", default=True)
+    rp.add_argument("--limit", type=int)
+    rp.add_argument("--quant", action="store_true",
+                    help="int8 segmentation forward (not ported yet)")
+    rp.add_argument("--no-unet", action="store_true")
+    rp.add_argument("--no-ocr", action="store_true",
+                    help="skip steps 3-4; needed until OCR is ported")
+    rp.add_argument("--ocr-engine", type=str,
+                    choices=["paddle", "easy", "builtin"], default="easy")
+    rp.add_argument("--ocr-languages", type=str, nargs="+",
+                    default=["en", "ch_sim"])
+    rp.add_argument("--video", action="store_true",
+                    help="comparison video (not ported yet)")
+    rp.add_argument("--video-input", type=str, default=None)
+    rp.add_argument("--video-width", type=int, default=1920)
+    rp.add_argument("--video-height", type=int, default=1080)
+    rp.add_argument("--duration", type=float, default=2.0)
+    rp.add_argument("--fps", type=int, default=30)
+    rp.add_argument("--opts", nargs="*", default=None)
+    rp.set_defaults(func=repair_command)
+
+    for name, text in (("train", "train the segmentation model"),
+                       ("auto", "self-improving train loop")):
+        p = sub.add_parser(name, help=f"{text} (not ported yet)")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+        p.set_defaults(func=_not_ported(name))
+    return parser
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        return 2
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,7 @@
-from .config import (Config, DataConfig, ModelConfig, PredictConfig,
-                     get_cfg_defaults)
+from .config import (DEFAULT_CONFIG, Config, DataConfig, ModelConfig,
+                     PredictConfig, TextWatermarkConfig, get_cfg_defaults,
+                     update_config)
 
-__all__ = ["Config", "DataConfig", "ModelConfig", "PredictConfig",
-           "get_cfg_defaults"]
+__all__ = ["DEFAULT_CONFIG", "Config", "DataConfig", "ModelConfig",
+           "PredictConfig", "TextWatermarkConfig", "get_cfg_defaults",
+           "update_config"]

@@ -1,14 +1,23 @@
-"""The part of the JAX package's typed config tree that the port reads.
+"""The part of the JAX package's typed config tree that the port reads,
+with its YAML loading and override rules.
 
-Field names and defaults are copied from unet_watermark_tpu/configs/config.py
-(which imports yaml and so cannot be imported here). Only the fields the
-detect→repair slice reads are present; YAML loading comes with a later
-slice.
+Field names and defaults are copied from unet_watermark_tpu/configs/config.py.
+That module imports PyYAML, which the GPU machine lacks, so the port reads
+YAML with yaml_subset.load: the subset that the three shipped files use.
+Merging follows the JAX package's _merge_into: keys the tree lacks are
+skipped, and each value is coerced to its field's type. The shipped files
+are copied beside this module (configs/*.yaml).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional
+from dataclasses import dataclass, field, is_dataclass
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+from . import yaml_subset
+
+# the port's copy of the shipped default, which the CLI reads
+DEFAULT_CONFIG = Path(__file__).resolve().parent / "unet_watermark.yaml"
 
 
 @dataclass
@@ -30,14 +39,35 @@ class DataConfig:
 
 @dataclass
 class PredictConfig:
+    INPUT_PATH: str = "data/input"
+    OUTPUT_DIR: str = "data/output"
+    BATCH_SIZE: int = 8
     THRESHOLD: float = 0.5  # mask = sigmoid(logit) > THRESHOLD (strict)
+    POST_PROCESS: bool = True
+    # the text configuration's flags (unet_text_watermark.yaml)
+    MULTI_SCALE_TEST: bool = False
+    TEST_SCALES: List[float] = field(default_factory=lambda: [0.8, 1.0, 1.2])
+    EDGE_REFINEMENT: bool = False
+    CONNECTIVITY_CHECK: bool = False
+    # sliding-window inference at native resolution for high-res inputs
+    TILED: bool = False
+    TILE_SIZE: int = 512
+    TILE_OVERLAP: int = 64
+    # trained FFC-LaMa weights for the repair engines; None = auto-resolve
+    # (env PREDICT_INPAINT_WEIGHTS, then the shipped weights/lama_ffc.npz)
+    INPAINT_WEIGHTS: Optional[str] = None
+    # the int8 tier; not ported (ROADMAP.md §A.6): True raises
+    QUANT: bool = False
     # "parity" = the reference's cv2 chain, "tight" = the
     # precision-preserving chain, "auto" = tight for the repair mask
     # (inference/maskproc.resolve_mask_mode)
     MASK_MODE: str = "auto"
-    # trained FFC-LaMa weights for the repair engines; None = auto-resolve
-    # (env PREDICT_INPAINT_WEIGHTS, then the shipped weights/lama_ffc.npz)
-    INPAINT_WEIGHTS: Optional[str] = None
+
+
+@dataclass
+class TextWatermarkConfig:
+    CONNECTIVITY: int = 8
+    MIN_COMPONENT_AREA: int = 30
 
 
 @dataclass
@@ -45,7 +75,83 @@ class Config:
     MODEL: ModelConfig = field(default_factory=ModelConfig)
     DATA: DataConfig = field(default_factory=DataConfig)
     PREDICT: PredictConfig = field(default_factory=PredictConfig)
+    TEXT_WATERMARK: TextWatermarkConfig = field(
+        default_factory=TextWatermarkConfig)
+
+    def merge_from_dict(self, d: Dict[str, Any]) -> "Config":
+        _merge_into(self, d)
+        return self
+
+    def merge_from_file(self, path) -> "Config":
+        with open(path) as f:
+            d = yaml_subset.load(f.read()) or {}
+        return self.merge_from_dict(d)
+
+    def merge_from_list(self, opts: List[str]) -> "Config":
+        """YACS-style pairwise override list: ["PREDICT.THRESHOLD", "0.4",
+        ...]; an unknown key raises AttributeError."""
+        if len(opts) % 2 != 0:
+            raise ValueError(f"override list must have even length, got "
+                             f"{opts}")
+        for key, value in zip(opts[::2], opts[1::2]):
+            self.set_by_path(key, value)
+        return self
+
+    def get_by_path(self, path: str) -> Any:
+        node: Any = self
+        for part in path.split("."):
+            node = getattr(node, part)
+        return node
+
+    def set_by_path(self, path: str, value: Any) -> None:
+        parts = path.split(".")
+        node: Any = self
+        for part in parts[:-1]:
+            node = getattr(node, part)
+        leaf = parts[-1]
+        if not hasattr(node, leaf):
+            raise AttributeError(f"unknown config key: {path}")
+        setattr(node, leaf, _coerce(value, getattr(node, leaf)))
+
+
+def _coerce(value: Any, current: Any) -> Any:
+    """A (possibly string) value converted to the type of the field's
+    current value, as the JAX package's _coerce: a string is first read as
+    a YAML scalar or flow list, and kept as it is where it is none."""
+    if isinstance(value, str):
+        try:
+            value = yaml_subset.load_value(value)
+        except ValueError:
+            pass
+    if current is None or value is None:
+        return value
+    if isinstance(current, bool):
+        if isinstance(value, str):
+            return value.strip().lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, list) and not isinstance(value, list):
+        raise TypeError(f"expected list for override, got {value!r}")
+    return value
+
+
+def _merge_into(node: Any, d: Dict[str, Any]) -> None:
+    for key, value in d.items():
+        if not hasattr(node, key):  # a key the port's tree does not read
+            continue
+        current = getattr(node, key)
+        if is_dataclass(current) and isinstance(value, dict):
+            _merge_into(current, value)
+        else:
+            setattr(node, key, _coerce(value, current))
 
 
 def get_cfg_defaults() -> Config:
     return Config()
+
+
+def update_config(cfg: Config, config_file) -> Config:
+    return cfg.merge_from_file(config_file)

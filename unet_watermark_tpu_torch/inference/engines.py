@@ -29,7 +29,7 @@ logger = logging.getLogger(__name__)
 Engine = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def load_lama(path, variant: str = "lama", device="cpu",
+def load_lama(path, variant: str = "lama", device="cuda",
               dtype: torch.dtype = torch.bfloat16
               ) -> Tuple[Optional[LamaGenerator], Optional[str]]:
     """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping) into
@@ -37,10 +37,14 @@ def load_lama(path, variant: str = "lama", device="cpu",
     then 'lama', then 'big-lama' (a checkpoint trained as one variant
     serves the other engine names too). Returns (model in eval mode on
     `device` in `dtype`, channels-last on the card, the variant's name),
-    or (None, None) when no variant matches.
+    or (None, None) when no variant matches. `device` is "cuda" unless the
+    caller asks for the CPU; without a card "cuda" raises.
 
     This is the one LaMa loader, shared by get_engine and the fused repair
     fn, so the two cannot disagree about what loads."""
+    from .predict import resolve_device  # predict imports this module
+
+    device = resolve_device(device)
     path = str(path)
     if path.endswith((".pt", ".pth", ".ckpt")):
         raise NotImplementedError(
@@ -62,7 +66,7 @@ def load_lama(path, variant: str = "lama", device="cpu",
         logger.info("loaded %s weights from %s (as '%s')", variant, path,
                     cand)
         model = model.eval().to(device, dtype)
-        if torch.device(device).type == "cuda":
+        if device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         return model, cand
     logger.warning("checkpoint %s matches no lama variant", path)
@@ -81,34 +85,35 @@ def resolve_inpaint_weights(explicit: Optional[str] = None,
     return resolve("inpaint", cfg=cfg, explicit=explicit)
 
 
-def _on(device: torch.device, fill) -> Engine:
+def _on(device: torch.device, fill, name: str) -> Engine:
     """`fill` as an engine: its inputs (arrays or tensors) go to `device`
-    as float32 first."""
+    as float32 first. `engine.name` names the fill that runs."""
     @torch.inference_mode()
     def engine(images, masks):
         return fill(torch.as_tensor(images, dtype=torch.float32,
                                     device=device),
                     torch.as_tensor(masks, dtype=torch.float32,
                                     device=device))
+    engine.name = name
     return engine
 
 
 def _pushpull(device: torch.device) -> Engine:
     return _on(device, lambda images, masks: inpaint_pushpull(
-        images, masks, smooth_iterations=64))
+        images, masks, smooth_iterations=64), "pushpull")
 
 
 def _make_lama_engine(variant: str, weights_path: Optional[str],
                       device: torch.device) -> Engine:
     model = None
     if weights_path and os.path.exists(weights_path):
-        model, _ = load_lama(weights_path, variant, device)
+        model, cand = load_lama(weights_path, variant, device)
     if model is None:
         logger.warning(
             "no trained weights for inpaint model '%s' — falling back to "
             "the pushpull engine (set PREDICT_INPAINT_WEIGHTS)", variant)
         return _pushpull(device)
-    return _on(device, model)
+    return _on(device, model, f"ffc-{cand}")
 
 
 def get_engine(name: str = "pushpull", weights_path: Optional[str] = None,

@@ -1,0 +1,267 @@
+"""PNG read and write with numpy and zlib: the port's stand-in for the JAX
+package's cv2.imread / cv2.imwrite (the GPU machine has no cv2 or PIL).
+
+read_rgb(path) returns what cv2.cvtColor(cv2.imread(path), BGR2RGB) returns:
+(H, W, 3) uint8 with alpha dropped (no compositing), gray replicated to
+three channels, palettes expanded, 1/2/4-bit gray scaled to 8 bits and
+16-bit samples reduced to their high byte (as libpng's strip_16 does under
+cv2). read_gray(path) is cv2.imread(path, IMREAD_GRAYSCALE) for files
+stored as gray (with or without alpha): the mask files the pipeline writes.
+A colour file read as gray raises NotImplementedError: cv2 converts it
+inside libpng with a gamma-aware rule that is not ported. Interlaced PNGs
+raise NotImplementedError; a malformed file raises PNGError.
+
+write_png(path, img) stores an (H, W) gray or (H, W, 3) RGB uint8 image as
+cv2.imwrite stores it (after RGB2BGR for colour): 8-bit, no interlace.
+`filters` picks the row filters (0 None, 1 Sub, 2 Up, 3 Average,
+4 Paeth), cycled over the rows; the default is Up on every row.
+
+Decoding undoes the five row filters in one pass over the anti-diagonals
+of the byte grid: every filter reads only the left, upper and upper-left
+neighbours, so all bytes on one diagonal y + x = d are independent, and
+H + W numpy steps decode any mix of row filters. A file of None, Sub and
+Up rows only (what write_png and cv2.imwrite write by default) is undone
+row by row: all Sub rows at once (each a running sum mod 256 at a stride
+of one pixel), then the Up rows from the top.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Optional, Sequence
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# channels of each colour type: gray, RGB, palette, gray+alpha, RGBA
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+ZLIB_LEVEL = 1  # the deflate level cv2.imwrite uses by default
+
+
+class PNGError(ValueError):
+    """The file is not a well-formed PNG."""
+
+
+def _chunks(data: bytes):
+    if data[:8] != SIGNATURE:
+        raise PNGError("not a PNG file (bad signature)")
+    pos = 8
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise PNGError(f"truncated {kind!r} chunk")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise PNGError(f"CRC mismatch in {kind!r} chunk")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise PNGError("no IEND chunk")
+
+
+def _header(body: bytes):
+    """(width, height, bit depth, colour type) of an IHDR body."""
+    if len(body) != 13:
+        raise PNGError("bad IHDR length")
+    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
+                                                              body)
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
+        raise PNGError(f"bad colour type {ctype} / bit depth {depth}")
+    if comp != 0 or filt != 0 or w == 0 or h == 0:
+        raise PNGError("bad IHDR fields")
+    if interlace != 0:
+        raise NotImplementedError(
+            "interlaced (Adam7) PNGs are not decoded yet (ROADMAP.md §A.5, "
+            "other image formats)")
+    return w, h, depth, ctype
+
+
+def check_png(path) -> None:
+    """Read only the signature and header: raises as the decoder would
+    for a file it cannot decode (not a PNG, interlaced, bad header)."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise PNGError(f"{path}: not a PNG file")
+    _header(head[16:29])
+
+
+def _paeth(a, b, c):
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, h: int, rowbytes: int, bpp: int
+              ) -> np.ndarray:
+    """(h, rowbytes) uint8 reconstructed bytes from the filtered stream."""
+    rows = raw.reshape(h, rowbytes + 1)
+    ftype = rows[:, 0].astype(np.int16)
+    if ftype.max(initial=0) > 4:
+        raise PNGError(f"unknown row filter {int(ftype.max())}")
+    if not ftype.any():
+        return rows[:, 1:].copy()
+    if np.isin(ftype, (0, 1, 2)).all():  # None, Sub and Up: row by row
+        out = rows[:, 1:].copy()
+        sub = np.flatnonzero(ftype == 1)  # each depends on its own row only
+        if sub.size:  # uint8 wraps mod 256
+            out[sub] = np.cumsum(out[sub].reshape(sub.size, -1, bpp), axis=1,
+                                 dtype=np.uint8).reshape(sub.size, rowbytes)
+        for y in np.flatnonzero(ftype[1:] == 2) + 1:  # Up, top to bottom;
+            out[y] += out[y - 1]  # row 0's upper neighbours are zeros
+        return out
+    return _wavefront(rows, ftype, bpp)
+
+
+def _wavefront(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
+    """Any mix of row filters, one anti-diagonal of pixels at a time."""
+    h, rowbytes = rows.shape[0], rows.shape[1] - 1
+    w = rowbytes // bpp  # "pixels" of bpp bytes: a filter's left neighbour
+    filt = rows[:, 1:].reshape(h, w, bpp).astype(np.int16)
+    # skewed layout: diagonal d = y + x is row d + 2 of `rec`, pixel y at
+    # column y + 1; rows 0-1 and column 0 are the zeros beyond the image
+    ys = np.arange(h)[:, None]
+    skew_f = np.zeros((h + w, h, bpp), np.int16)
+    skew_f[ys + np.arange(w), ys] = filt
+    rec = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    kinds = [int(k) for k in np.unique(ftype)]
+    mixed = len(kinds) > 1
+    for d in range(h + w - 1):
+        lo, hi = max(0, d - w + 1), min(h, d + 1)
+        a = rec[d + 1, lo + 1:hi + 1]  # left: (y, x - 1)
+        b = rec[d + 1, lo:hi]          # up: (y - 1, x)
+        pred = 0
+        for k in kinds:  # only the predictors of the filters in use
+            if k == 0:
+                continue
+            p = (a if k == 1 else b if k == 2 else (a + b) >> 1 if k == 3
+                 else _paeth(a, b, rec[d, lo:hi]))  # c: up-left
+            pred = np.where(ftype[lo:hi, None] == k, p, pred) \
+                if mixed else p
+        rec[d + 2, lo + 1:hi + 1] = (skew_f[d, lo:hi] + pred) & 0xFF
+    out = rec[ys + np.arange(w) + 2, ys + 1]
+    return out.astype(np.uint8).reshape(h, rowbytes)
+
+
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
+    """PNG bytes → (H, W, 3) RGB uint8, or (H, W) uint8 with gray=True
+    (see the module docstring for the rules)."""
+    header, palette, idat = None, None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = _header(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None or not idat:
+        raise PNGError("missing IHDR or IDAT")
+    w, h, depth, ctype = header
+    channels = _CHANNELS[ctype]
+    bits = depth * channels
+    rowbytes = (w * bits + 7) // 8
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise PNGError(f"bad image data: {e}") from None
+    if raw.size != h * (rowbytes + 1):
+        raise PNGError(f"image data is {raw.size} bytes, expected "
+                       f"{h * (rowbytes + 1)}")
+    rows = _unfilter(raw, h, rowbytes, max(1, bits // 8))
+    if depth == 16:
+        px = rows.reshape(h, w, channels, 2)[..., 0]  # the high byte
+    elif depth == 8:
+        px = rows.reshape(h, w, channels)
+    else:
+        per = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1))
+        px = px.reshape(h, rowbytes * per)[:, :w, None]
+        if ctype == 0:  # scaled to 8 bits, as libpng's expand does
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:
+        if palette is None:
+            raise PNGError("palette image without PLTE")
+        if px.max(initial=0) >= len(palette):
+            raise PNGError("palette index out of range")
+        if gray:
+            raise NotImplementedError(
+                "a palette PNG read as gray: cv2 converts it with libpng's "
+                "gamma-aware rule, which is not ported")
+        return palette[px[..., 0]]
+    if ctype in (0, 4):
+        g = np.ascontiguousarray(px[..., 0])
+        return g if gray else np.repeat(g[..., None], 3, axis=2)
+    if gray:
+        raise NotImplementedError(
+            "a colour PNG read as gray: cv2 converts it with libpng's "
+            "gamma-aware rule, which is not ported")
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_rgb(path) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def read_gray(path) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read(), gray=True)
+
+
+def _filter_rows(img: np.ndarray, filters: Sequence[int]) -> bytes:
+    """The filtered byte stream: each row's filter type, then its bytes
+    minus the filter's predictor (computed only for the types in use)."""
+    h = img.shape[0]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, -1).astype(np.int16)
+    kinds = np.resize(np.asarray(filters, np.int16), h)
+    out = np.empty((h, x.shape[1] + 1), np.uint8)
+    out[:, 0] = kinds
+    for k in np.unique(kinds):
+        sel = np.flatnonzero(kinds == k)
+        cur = x[sel]
+        a = np.zeros_like(cur)  # left
+        a[:, bpp:] = cur[:, :-bpp]
+        b = np.zeros_like(cur)  # up: the previous row, 0 above the image
+        up = sel > 0
+        b[up] = x[sel[up] - 1]
+        c = np.zeros_like(cur)  # up-left
+        c[:, bpp:] = b[:, :-bpp]
+        pred = (0 if k == 0 else a if k == 1 else b if k == 2
+                else (a + b) >> 1 if k == 3 else _paeth(a, b, c))
+        out[sel, 1:] = (cur - pred) & 0xFF
+    return out.tobytes()
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray, filters: Sequence[int] = (2,)) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 → PNG bytes, rows filtered by
+    `filters` (cycled), deflated at ZLIB_LEVEL."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or
+                                     (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"expected (H, W) or (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    if not len(filters) or not all(0 <= int(f) <= 4 for f in filters):
+        raise ValueError(f"row filters must be in 0..4, got {filters}")
+    h, w = img.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2,
+                       0, 0, 0)
+    data = zlib.compress(_filter_rows(img, filters), ZLIB_LEVEL)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", data)
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, img: np.ndarray, filters: Optional[Sequence[int]] = None
+              ) -> None:
+    data = encode_png(img, filters or (2,))
+    with open(path, "wb") as f:
+        f.write(data)

@@ -55,6 +55,30 @@ Phases, each printing its own line:
      with overlap 64) on a 1536 x 2048 image: bf16 against float32 raw
      masks agree on >= 99.9 % of pixels, probabilities within 1e-2 on
      average, the mask at 1536 x 2048
+  3e the `repair` command as users type it, OCR on:
+     `cli.main(["repair", "--input", D, "--output", O])`, every flag at its
+     default (--ocr-engine easy, which is the builtin detector without
+     easyocr; --text-model mat, the LaMa generator), on 3d's folder plus 4
+     images with lines of block letters (utils/synthetic.text_images): 2 of
+     512² (one over a logo), 1 of 720 x 1280, 1 of 1080 x 1920. Checks: the
+     detector on the card covers >= 90 % of each drawn line's box on the
+     text images as written; then the command: rc 0, "success",
+     ocr_engine_used "builtin", no OCR or engine failure, K1 and K2
+     launched by its step 1, a text mask with text for every text image,
+     every text mask equal to the detector run with device="cpu" on the
+     same step-2 file (filled and dilated as step 3 does), final pixels
+     outside the text mask equal to step 2's bytes, every merged mask equal
+     to the plain tight chain of max(step-1 mask, text mask), and
+     >= GLYPH_COVER of each line's drawn glyph pixels under max(step-1
+     mask, text mask), that is repainted by step 2 or step 4 (step 3 sees
+     step 2's files, in which the LaMa fill has already removed the part
+     of a line that step 1 masked; each line's cover by each mask is
+     logged). Then the command again with each stage timed,
+     _enhance_text_features on a 1080 x 1920 image on the card equal to
+     the CPU's (timed whole, and split into its parts by events in one
+     run whose parts add up to that run's total), and
+     predict_mask(..., "text") in
+     float32 on the card agreeing with the CPU's on >= 99.9 % of pixels
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -64,8 +88,9 @@ Phases, each printing its own line:
      the tight chain also as the per-image loop it replaced, type
      detection and the artifact stage; the default fn with LaMa (img/s),
      the generator alone and its share of the bf16 tensor-core peak; the
-     repair CLI's img/s and its split by stage beside the fused fn's; a
-     profile of each path and of the generator alone
+     repair CLI's img/s and its split by stage beside the fused fn's, with
+     OCR off (3d) and on (3e); a profile of each path and of the generator
+     alone
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -359,7 +384,14 @@ CLI_FOLDER = (("a", 12, 512, 512), ("b", 2, 720, 1280), ("c", 2, 1080, 1920))
 PAETH_SHAPE = (1080, 1920)
 TILED_SHAPE, TILE, OVERLAP = (1536, 2048), 512, 64  # 20 tiles
 STAGES = ("predictor_init", "decode", "upload_resize", "step1_device",
-          "engine_load", "step2_device", "step5", "encode")
+          "engine_load", "step2_device", "step3_detect", "step4_device",
+          "step5", "encode")
+# phase 3e's text images, (height, width), and which carry a logo
+TEXT_SHAPES = ((512, 512), (512, 512), (720, 1280), (1080, 1920))
+TEXT_LOGO = (True, False, False, False)
+# the least share of each drawn line's glyph pixels that the OCR-on
+# command's step-1 and text masks together must cover
+GLYPH_COVER = 0.9
 
 
 def cropped_images(n: int, h: int, w: int, seed: int, clean: int = 0):
@@ -585,6 +617,247 @@ def repair_cli_phase(work: Path, pred, seed: int, dev, spec=CLI_FOLDER,
     if tuple(mask.shape) != tuple(tiled_shape):
         raise AssertionError(f"tiled mask decodes at {mask.shape}")
     return timing
+
+
+def check_ocr_outputs(out: Path, sizes: dict, text_boxes: dict,
+                      text_inks: dict, dev) -> dict:
+    """Phase 3e's file checks; returns counts for its log line."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.inference import maskproc
+    from unet_watermark_tpu_torch.inference.tiled import pad_to_multiple
+    from unet_watermark_tpu_torch.ocr import BuiltinTextDetector
+    from unet_watermark_tpu_torch.ocr.base import rasterize_regions
+    from unet_watermark_tpu_torch.ops import morphology as m
+    from unet_watermark_tpu_torch.utils import image_io
+
+    summary = json.loads((out / "repair_summary.json").read_text())
+    want = {"status": "success", "ocr_engine_used": "builtin",
+            "ocr_failures": 0, "engine_failures": 0,
+            "engine_used": "ffc-lama"}
+    if any(summary.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"repair summary (OCR on) is not {want}: "
+                             f"{summary}")
+    tdir = out / "step3_text_masks"
+    text = {}
+    for n in sorted(sizes):
+        path = tdir / f"{n}_text_mask.png"
+        text[n] = image_io.read_gray(path) if path.is_file() else None
+    # step 3 sees step 2's files: where step 1's mask took part of a line,
+    # the LaMa fill has removed that part, and the detector finds what is
+    # left of it. Each line's cover (of its box, and of its drawn glyph
+    # pixels) by the text mask, the step-1 mask and the two together is
+    # logged; no step repainted a glyph pixel under neither
+    coverage, glyphs = {}, {}
+    for n, lines in text_boxes.items():
+        if text[n] is None or not text[n].any():
+            raise AssertionError(f"no text mask for the text image {n}")
+        wm = image_io.read_gray(out / "step1_masks" / f"{n}_mask.png")
+        both = np.maximum(wm, text[n])
+        boxes = [(slice(y, y + h), slice(x, x + w)) for x, y, w, h in lines]
+        coverage[n] = {k: [float((mk[b] > 127).mean()) for b in boxes]
+                       for k, mk in (("text_mask", text[n]),
+                                     ("step1_mask", wm), ("both", both))}
+        glyphs[n] = {k: [float((mk[b] > 127)[text_inks[n][b]].mean())
+                         for b in boxes]
+                     for k, mk in (("text_mask", text[n]),
+                                   ("step1_mask", wm), ("both", both))}
+    low = min(min(g["both"]) for g in glyphs.values())
+    log("repair_cli_ocr_glyph_cover", line_box_cover=coverage,
+        glyph_cover=glyphs, least_both=low, gate=GLYPH_COVER)
+    if low < GLYPH_COVER:
+        raise AssertionError(f"a drawn line keeps {1 - low:.3f} of its glyph "
+                             f"pixels outside the step-1 and text masks "
+                             f"(gate {GLYPH_COVER}): {glyphs}")
+    # the detector on the CPU on the same step-2 files, filled and dilated
+    # as step 3 does it
+    det_cpu = BuiltinTextDetector(device="cpu")
+    t0 = time.perf_counter()
+    for n, tm in text.items():
+        if tm is None:
+            continue
+        step2 = out / "step2_watermark_repaired" / f"{n}.png"
+        ref = rasterize_regions(det_cpu.detect_text_regions(str(step2)),
+                                *tm.shape)
+        if ref.any():
+            ref = (m.dilate(torch.from_numpy(ref > 0).float(),
+                            m.ellipse_kernel(5, 5), 2) * 255).to(
+                torch.uint8).numpy()
+        if not np.array_equal(tm, ref):
+            raise AssertionError(f"{n}'s text mask differs from the "
+                                 f"detector's on the CPU")
+        if tm.any():
+            keep = tm <= 127
+            if not np.array_equal(image_io.read_rgb(out / f"{n}.png")[keep],
+                                  image_io.read_rgb(step2)[keep]):
+                raise AssertionError(f"{n}: final pixels outside the text "
+                                     f"mask differ from step 2's")
+    cpu_detect_s = time.perf_counter() - t0
+    merged = 0
+    for path in sorted((out / "masks").iterdir()):
+        n = path.stem
+        wm = image_io.read_gray(out / "step1_masks" / f"{n}_mask.png")
+        if text[n] is not None:
+            wm = np.maximum(wm, text[n])
+        padded, (h, w) = pad_to_multiple(
+            (torch.from_numpy(wm).to(dev) > 127).float(), 32)
+        ref = (maskproc.optimize_watermark_mask_tight(padded)[:h, :w]
+               * 255).to(torch.uint8).cpu().numpy()
+        if not np.array_equal(image_io.read_gray(path), ref):
+            raise AssertionError(f"{n}'s merged mask differs from the plain "
+                                 f"tight chain of max(step-1, text mask)")
+        merged += 1
+    with_text = sorted(n for n, tm in text.items()
+                       if tm is not None and tm.any())
+    return {"images": len(sizes), "text_masks": len(
+        [n for n in text if text[n] is not None]),
+        "with_text": with_text, "least_glyph_cover": low,
+        "text_masks_equal_cpu_detector": True,
+        "cpu_detector_s": cpu_detect_s, "merged_masks_equal_plain": merged,
+        "summary": {k: summary[k] for k in (
+            "total_images", "successful_images", "avg_watermark_ratio",
+            "avg_text_pixels", "steps_completed", "engine_failures",
+            "engine_used", "ocr_engine_used", "ocr_failures")}}
+
+
+def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
+                         text_logo=TEXT_LOGO, device="cuda"):
+    """Phase 3e: the `repair` command with OCR on (every flag at its
+    default) on 3d's folder (work / "in") plus the text images, then the
+    text surfaces; logs the checks and returns the timing fields and kernel
+    launches for phase 4's line."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.configs import get_cfg_defaults
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.ocr import BuiltinTextDetector
+    from unet_watermark_tpu_torch.ops import imgproc
+    from unet_watermark_tpu_torch.ops import morphology as m
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.utils import image_io
+    from unet_watermark_tpu_torch.utils.synthetic import text_images
+
+    folder = work / "in_ocr"
+    shutil.copytree(work / "in", folder)
+    sizes = {p.stem: image_io.check_png(p) for p in folder.iterdir()}
+    imgs, boxes, inks = text_images(text_shapes, seed=seed + 20,
+                                    logo=text_logo)
+    text_boxes, text_inks = {}, {}
+    for i, (img, lines, ink) in enumerate(zip(imgs, boxes, inks)):
+        name = f"t{i:02d}"
+        image_io.write_png(folder / f"{name}.png", img, filters=(1,))
+        sizes[name] = img.shape[:2]
+        text_boxes[name] = lines
+        text_inks[name] = ink
+    argv = ["repair", "--input", str(folder)]
+    if device != "cuda":  # the flag's default
+        argv += ["--device", device]
+    # the detector on the card finds each drawn line of the images as
+    # written: its text mask covers >= 90 % of each line's box
+    det = BuiltinTextDetector(device=device)
+    recall = {n: [float((mask[y:y + h, x:x + w] > 0).mean())
+                  for x, y, w, h in text_boxes[n]]
+              for n, mask in ((n, det.generate_text_mask(str(
+                  folder / f"{n}.png"))) for n in text_boxes)}
+    if min(min(v) for v in recall.values()) < 0.9:
+        raise AssertionError(f"the builtin detector on the card covers the "
+                             f"drawn lines {recall}")
+
+    # (a) the command as users type it
+    kc.reset_launch_counts()
+    rc, wall_cold, _ = run_cli(argv + ["--output", str(work / "out_ocr")],
+                               dev, timer=False)
+    launches = {k.__name__: k.launches for k in kc.KERNELS}
+    if rc != 0:
+        raise AssertionError(f"repair (OCR on) exited {rc}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the OCR-on run's step 1 never launched "
+                                 f"{name}")
+    checks = check_ocr_outputs(work / "out_ocr", sizes, text_boxes,
+                               text_inks, dev)
+    log("repair_cli_ocr", argv=argv[:1] + argv[3:], rc=rc, launches=launches,
+        text_shapes=[list(t) for t in text_shapes], text_logo=text_logo,
+        text_lines={k: [list(b) for b in v] for k, v in text_boxes.items()},
+        detector_line_coverage_as_written=recall, **checks,
+        final_keep_step2_outside_text_mask=True)
+    # (b) again, each stage timed
+    rc, wall_timed, split = run_cli(
+        argv + ["--output", str(work / "out_ocr2")], dev, timer=True)
+    if rc != 0:
+        raise AssertionError(f"repair (OCR on, timed) exited {rc}")
+    n = len(sizes)
+
+    # (c) the text surfaces: _enhance_text_features on a 1080 x 1920 image,
+    # and predict_mask's text type in float32, card against CPU
+    cfg = get_cfg_defaults()
+    cfg.MODEL.DTYPE = "float32"
+    pred32 = WatermarkPredictor(cfg, device=device)
+    pred_cpu = WatermarkPredictor(cfg, device="cpu")
+    big = torch.from_numpy(imgs[-1])
+    enh = pred32._enhance_text_features(big.to(dev))
+    if not torch.equal(enh.cpu(), pred_cpu._enhance_text_features(big)):
+        raise AssertionError("_enhance_text_features on the card differs "
+                             "from the CPU's")
+    big_d = big.to(dev)
+    enhance_ms = cuda_ms(lambda: pred32._enhance_text_features(big_d), 5,
+                         warmup=1)
+    # its parts: the method's steps with an event between each two, 5
+    # calls in one run, so that the parts add up to that run's "total"
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    enhance_split_ms = dict.fromkeys(
+        ("gray_clahe", "canny", "dilate_boost_sharpen", "total"), 0.0)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        marks[0].record()
+        eq = imgproc.clahe(imgproc.gray_u8(big_d, "rgb"), 2.0, (8, 8))
+        marks[1].record()
+        edges = imgproc.canny(eq, 50, 150)
+        marks[2].record()
+        on = imgproc.grey_dilate(edges, m.ellipse_kernel(2, 2)) > 0
+        x = big_d.float()
+        x = torch.where(on[..., None],
+                        torch.clamp(x * float(np.float32(1.2)), 0, 255), x)
+        out = imgproc.filter2d_u8(x.to(torch.uint8), imgproc.SHARPEN)
+        marks[3].record()
+        torch.cuda.synchronize()
+        for k, a, b in (("gray_clahe", 0, 1), ("canny", 1, 2),
+                        ("dilate_boost_sharpen", 2, 3), ("total", 0, 3)):
+            enhance_split_ms[k] += marks[a].elapsed_time(marks[b]) / 5
+    if not torch.equal(out, enh):
+        raise AssertionError("the timed parts of _enhance_text_features "
+                             "compute another image than the method")
+    # the detector on the same image (host clock: its labelling loops sync
+    # every round)
+    det_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        det.detect_text_regions(imgs[-1])
+        torch.cuda.synchronize()
+        det_times.append((time.perf_counter() - t0) * 1e3)
+    path = str(folder / "t00.png")
+    mask_gpu = pred32.predict_mask(path, "text")
+    mask_cpu = pred_cpu.predict_mask(path, "text")
+    agree = float((mask_gpu == mask_cpu).mean())
+    log("text_surfaces", enhance_shape=list(big.shape),
+        enhance_gpu_equals_cpu=True, enhance_ms=enhance_ms,
+        enhance_split_ms=enhance_split_ms, detect_ms=det_times,
+        predict_mask_text_shape=list(mask_gpu.shape),
+        predict_mask_text_fp32_gpu_vs_cpu_agreement=agree,
+        predict_mask_text_fraction=float((mask_gpu > 0).mean()))
+    if agree < 0.999:
+        raise AssertionError(f"predict_mask text: card and CPU agree on "
+                             f"{agree:.5f} of pixels")
+    return {"images": n, "text_images": len(text_boxes),
+            "wall_cold_s": wall_cold, "img_per_s_cold": n / wall_cold,
+            "wall_timed_s": wall_timed, "img_per_s_timed": n / wall_timed,
+            "split_s": {k: split.get(k, 0.0) for k in STAGES},
+            "other_s": wall_timed - sum(split.values()),
+            "enhance_1080x1920_ms": enhance_ms,
+            "enhance_split_ms": enhance_split_ms,
+            "detect_1080x1920_ms": float(np.median(det_times)),
+            "launches": launches,
+            "with_text": checks["with_text"]}
 
 
 def main(argv=None) -> int:
@@ -914,6 +1187,8 @@ def main(argv=None) -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         cli_timing = repair_cli_phase(work, pred_d, args.seed, dev)
+        # -- 3e: the repair command with OCR on --------------------------
+        ocr_timing = repair_cli_ocr_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1036,6 +1311,7 @@ def main(argv=None) -> int:
     log("timing_repair_cli", **cli_timing,
         fused_lama_img_per_s=n / (e2e_l[0] / 1e3),
         fused_lama_batch=[n, s, s, 3], card=card)
+    log("timing_repair_cli_ocr", **ocr_timing, card=card)
 
     log("profile", **profile_window(lambda: fused(images), 3))
     log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
@@ -1082,6 +1358,7 @@ def main(argv=None) -> int:
             "launches": launches[fn.__name__],
             "default_config_launches": art_launches[fn.__name__],
             "repair_cli_launches": cli_timing["launches"][fn.__name__],
+            "repair_cli_ocr_launches": ocr_timing["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

@@ -220,3 +220,47 @@ def test_resizes_on_card_equal_cpu(cuda, src, dst):
         out = fn(x.to(cuda), dst)
         assert out.device.type == "cuda"
         assert torch.equal(out.cpu(), fn(x, dst)), fn.__name__
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (720, 1280), (257, 311),
+                                   (1, 17)], ids=str)
+def test_image_ops_on_card_equal_cpu(cuda, shape):
+    """The cv2-parity image ops (ops/imgproc.py) give the same bits on the
+    card as on the CPU, where tests/test_torch_imgproc.py holds them to
+    cv2; the text detector's regions and _enhance_text_features too."""
+    from unet_watermark_tpu_torch.ocr import BuiltinTextDetector
+    from unet_watermark_tpu_torch.ops import imgproc as ip
+    from unet_watermark_tpu_torch.utils.synthetic import text_images
+
+    if min(shape) > 1:
+        rgb = torch.from_numpy(text_images([shape], seed=sum(shape),
+                                           logo=[True])[0][0])
+    else:
+        rng = np.random.default_rng(sum(shape))
+        rgb = torch.from_numpy(rng.integers(0, 256, shape + (3,),
+                                            dtype=np.uint8))
+    gray = ip.gray_u8(rgb)
+    bw = ip.otsu_threshold(ip.morph_gradient(gray, morphology.ellipse_kernel(
+        3, 3)))[1]
+    for name, fn, x in (
+            ("gray", ip.gray_u8, rgb),
+            ("dilate", lambda g: ip.grey_dilate(g, morphology.rect_kernel(
+                9, 3)), gray),
+            ("erode", lambda g: ip.grey_erode(g, morphology.ellipse_kernel(
+                2, 2)), gray),
+            ("gradient", lambda g: ip.morph_gradient(
+                g, morphology.ellipse_kernel(3, 3)), gray),
+            ("otsu", lambda g: ip.otsu_threshold(g)[1], gray),
+            ("clahe", ip.clahe, gray),
+            ("canny", lambda g: ip.canny(ip.clahe(g), 50, 150), gray),
+            ("filter2d", lambda x: ip.filter2d_u8(x, ip.SHARPEN), rgb)):
+        out = fn(x.to(cuda))
+        assert out.device.type == "cuda"
+        assert torch.equal(out.cpu(), fn(x)), name
+    assert ip.external_boxes(bw.to(cuda)) == ip.external_boxes(bw)
+    assert torch.equal(
+        WatermarkPredictor._enhance_text_features(None, rgb.to(cuda)).cpu(),
+        WatermarkPredictor._enhance_text_features(None, rgb))
+    img = rgb.numpy()
+    assert BuiltinTextDetector(device="cuda").detect_text_regions(img) == \
+        BuiltinTextDetector(device="cpu").detect_text_regions(img)

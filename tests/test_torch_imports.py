@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import with jax, flax, yaml, PIL, cv2, tqdm,
-torchvision and the JAX package blocked (the GPU machine has none of
-them), and chip_smoke.py gives no result without a card."""
+torchvision, requests, easyocr and the JAX package blocked (the GPU machine
+has none of them), every module of the port among them (ocr/ and
+ops/imgproc.py too), and chip_smoke.py gives no result without a card."""
 import os
 import shutil
 import subprocess
@@ -11,7 +12,13 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ["jax", "flax", "yaml", "PIL", "cv2", "tqdm", "torchvision",
-           "unet_watermark_tpu"]
+           "requests", "easyocr", "unet_watermark_tpu"]
+# modules that must be among those imported
+MUST = ["unet_watermark_tpu_torch.ops.imgproc",
+        "unet_watermark_tpu_torch.ocr.base",
+        "unet_watermark_tpu_torch.ocr.builtin",
+        "unet_watermark_tpu_torch.ocr.easy_ocr",
+        "unet_watermark_tpu_torch.ocr.paddle_ocr"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """
@@ -26,6 +33,8 @@ import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(n for n in {blocked!r} if sys.modules.get(n) is not None)
 assert not leaked, leaked
+missing = sorted(set({must!r}) - set(names))
+assert not missing, missing
 print(len(names))
 """
 
@@ -41,9 +50,9 @@ def _run(code_or_args, cwd, timeout=120):
 
 
 def test_port_imports_nothing_of_jax():
-    proc = _run(IMPORT_ALL.format(blocked=BLOCKED), REPO)
+    proc = _run(IMPORT_ALL.format(blocked=BLOCKED, must=MUST), REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 18  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 24  # every module was imported
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,10 +1,11 @@
 """The port's repair entry point against the JAX package's, on the CPU:
-WatermarkPredictor.process_folder_batch(use_ocr=False) (steps 1, 2 and 5)
-and the `repair` CLI, on one folder of PNGs written by cv2, with the
-default configuration's UNet++/resnet34 shipped weights in float32 at
-IMG_SIZE 64 and the push-pull engine ("telea"). Also the tiled high-res
-path and the predict flags (EDGE_REFINEMENT, CONNECTIVITY_CHECK,
-MULTI_SCALE_TEST), predict_mask, and what raises until a later slice."""
+WatermarkPredictor.process_folder_batch without OCR (steps 1, 2 and 5) and
+with the builtin OCR detector (steps 1-5), and the `repair` CLI, on folders
+of PNGs written by cv2, with the default configuration's UNet++/resnet34
+shipped weights in float32 at IMG_SIZE 64 and the push-pull engine
+("telea"). Also the tiled high-res path and the predict flags
+(EDGE_REFINEMENT, CONNECTIVITY_CHECK, MULTI_SCALE_TEST), predict_mask for
+the three mask types, and what raises until a later slice."""
 import json
 import os
 import struct
@@ -22,7 +23,8 @@ from unet_watermark_tpu import cli as jax_cli
 from unet_watermark_tpu_torch import cli
 from unet_watermark_tpu_torch.configs import get_cfg_defaults
 from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
-from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+from unet_watermark_tpu_torch.utils.synthetic import (text_images,
+                                                      watermarked_images)
 
 torch.set_num_threads(2)
 
@@ -41,6 +43,11 @@ REPAIR_LSB = 1
 # 8.6e-9).
 TILED_PROB_ATOL = 1e-5
 TIME_KEYS = ("processing_time", "avg_processing_time_per_image")
+# the OCR run's folder: FOLDER's images and two with lines of text (one
+# over a logo), at sizes where the glyphs are 3-4 px
+TEXT_FOLDER = ((128, 160), (96, 200))
+PORT_KEYS = ("engine_failures", "engine_used", "ocr_engine_used",
+             "ocr_failures")
 
 
 def _write_folder(folder: Path, spec) -> None:
@@ -131,6 +138,26 @@ def runs(preds, folder):
     return out
 
 
+@pytest.fixture(scope="module")
+def ocr_runs(preds, folder):
+    """process_folder_batch with OCR on (the builtin detector, push-pull for
+    both engines, 3 steps) on FOLDER plus two text images."""
+    d = folder.parent / "in_ocr"
+    _write_folder(d, FOLDER)
+    imgs, _, _ = text_images(TEXT_FOLDER, seed=11, logo=[True])
+    for i, img in enumerate(imgs):
+        cv2.imwrite(str(d / f"t{i}.png"), cv2.cvtColor(img,
+                                                       cv2.COLOR_RGB2BGR))
+    out = {}
+    for key, p in zip(("jax", "port"), preds):
+        o = folder.parent / f"ocr_{key}"
+        stats = p.process_folder_batch(
+            str(d), str(o), watermark_model="telea", text_model="telea",
+            use_ocr=True, ocr_engine="builtin", steps=3)
+        out[key] = {"dir": o, "stats": stats}
+    return out
+
+
 def test_step1_masks_types_and_ratios_equal_jax(runs, folder):
     j, t = runs["jax"], runs["port"]
     names = sorted(os.listdir(j["dir"] / "step1_masks"))
@@ -209,12 +236,55 @@ def test_step5_merged_masks_equal_jax(runs):
 
 def test_stats_equal_jax_apart_from_times(runs):
     js, ts = dict(runs["jax"]["stats"]), dict(runs["port"]["stats"])
-    assert ts.pop("engine_failures") == 0
-    assert ts.pop("engine_used") == "pushpull"
+    assert [ts.pop(k) for k in PORT_KEYS] == [0, "pushpull", None, 0]
     for key in TIME_KEYS:
         assert ts.pop(key) > 0 and js.pop(key) > 0
     assert ts == js
     assert ts["status"] == "success"
+
+
+def test_ocr_run_text_masks_and_stats_equal_jax(ocr_runs):
+    """Steps 3-4: the same text-mask files (equal after decode), the same
+    stats apart from times, finals within the push-pull tolerance, and the
+    merged masks (step-1 and text masks) equal."""
+    j, t = ocr_runs["jax"], ocr_runs["port"]
+    sub = "step3_text_masks"
+    names = sorted(os.listdir(j["dir"] / sub))
+    assert names == sorted(os.listdir(t["dir"] / sub))
+    # step 3 reads step 2's files: t1's lines type as a watermark in step
+    # 1 and are repaired away there; t0's logo is, and its lines stay
+    assert "t0_text_mask.png" in names
+    for name in names:
+        np.testing.assert_array_equal(_gray(t["dir"] / sub / name),
+                                      _gray(j["dir"] / sub / name))
+    js, ts = dict(j["stats"]), dict(t["stats"])
+    assert [ts.pop(k) for k in PORT_KEYS] == [0, "pushpull", "builtin", 0]
+    for key in TIME_KEYS:
+        assert ts.pop(key) > 0 and js.pop(key) > 0
+    assert ts == js
+    assert ts["status"] == "success" and ts["avg_text_pixels"] > 0
+    assert ts["steps_completed"]["step3_text_extraction"] >= 1
+    for sub in (".", "masks"):
+        jn = sorted(n for n in os.listdir(j["dir"] / sub)
+                    if n.endswith(".png"))
+        assert jn and jn == sorted(n for n in os.listdir(t["dir"] / sub)
+                                   if n.endswith(".png"))
+        for name in jn:
+            a = _rgb(j["dir"] / sub / name).astype(int)
+            b = _rgb(t["dir"] / sub / name).astype(int)
+            assert np.abs(a - b).max() <= (REPAIR_LSB if sub == "." else 0)
+
+
+def test_ocr_finals_keep_step2_outside_the_text_mask(ocr_runs):
+    t = ocr_runs["port"]["dir"]
+    for name in os.listdir(t / "step3_text_masks"):
+        stem = name[:-len("_text_mask.png")]
+        keep = _gray(t / "step3_text_masks" / name) <= 127
+        step2 = _rgb(t / "step2_watermark_repaired" / f"{stem}.png")
+        final = _rgb(t / f"{stem}.png")
+        np.testing.assert_array_equal(final[keep], step2[keep])
+        if not keep.all():
+            assert (final != step2).any()
 
 
 @pytest.mark.parametrize("options", [{"use_unet": False},
@@ -230,9 +300,10 @@ def test_other_options_match_jax(preds, folder, tmp_path, options):
             str(folder), str(tmp_path / key), watermark_model="telea",
             use_ocr=False, steps=1, **options))
     js, ts = stats["j"], stats["t"]
-    assert ts.pop("engine_failures") == 0
+    assert ts.pop("engine_failures") == ts.pop("ocr_failures") == 0
     assert ts.pop("engine_used") == (None if options.get("use_unet") is False
                                      else "pushpull")
+    assert ts.pop("ocr_engine_used") is None
     for key in TIME_KEYS:
         ts.pop(key), js.pop(key)
     assert ts == js
@@ -289,17 +360,17 @@ def test_predict_flags_match_jax(preds, folder, tmp_path, monkeypatch, flag):
     assert _records(tr) == _records(jr)
 
 
-def test_predict_mask_matches_jax(preds, folder):
+@pytest.mark.parametrize("mask_type", ["watermark", "text", "mixed"])
+def test_predict_mask_matches_jax(preds, folder, mask_type):
     """The single-image API at the image's own size (the probability map
-    resized as float32, the strategy at the padded size), and the types
-    that wait for _enhance_text_features."""
+    resized as float32, the strategy at the padded size); the text and
+    mixed types see the image after _enhance_text_features and take their
+    own strategies."""
     jpred, pred = preds
     for name in ("b.png", "c.png"):
         path = str(folder / name)
-        np.testing.assert_array_equal(pred.predict_mask(path),
-                                      jpred.predict_mask(path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pred.predict_mask(str(folder / "a.png"), "text")
+        np.testing.assert_array_equal(pred.predict_mask(path, mask_type),
+                                      jpred.predict_mask(path, mask_type))
 
 
 def _interlaced_png(path: Path) -> None:
@@ -347,7 +418,7 @@ def test_cli_writes_the_jax_summary_keys(preds, folder, tmp_path,
                     + ["--device", "cpu"]) == 0
     j = json.loads((tmp_path / "j" / "repair_summary.json").read_text())
     t = json.loads((tmp_path / "t" / "repair_summary.json").read_text())
-    assert set(t) == set(j) | {"engine_failures", "engine_used"}
+    assert set(t) == set(j) | set(PORT_KEYS)
     assert t["engine_used"] == "pushpull"
     assert set(t["steps_completed"]) == set(j["steps_completed"])
     assert t["status"] == j["status"] == "success"
@@ -358,17 +429,37 @@ def test_cli_writes_the_jax_summary_keys(preds, folder, tmp_path,
 
 @pytest.mark.parametrize("extra, error", [
     (["--device", "cpu", "--no-ocr"], None),
-    (["--device", "cpu"], NotImplementedError),
+    (["--device", "cpu"], None),
     (["--device", "cpu", "--no-ocr", "--quant"], NotImplementedError),
     (["--device", "cpu", "--no-ocr", "--video"], NotImplementedError),
     (["--device", "tpu", "--no-ocr"], ValueError)],
     ids=["ok", "ocr", "quant", "video", "tpu"])
-def test_cli_raises_for_what_is_not_ported(folder, tmp_path, extra, error):
+def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
+                                           monkeypatch, extra, error):
+    """What runs writes the JAX CLI's summary: with OCR (--ocr-engine easy,
+    the builtin detector without easyocr; --text-model telea here) the same
+    values apart from times, and the port's four extra keys."""
+    opts = ["--watermark-model", "telea", "--text-model", "telea", "--opts",
+            "DATA.IMG_SIZE", "64", "MODEL.DTYPE", "float32"]
     args = ["repair", "--input", str(folder), "--output",
-            str(tmp_path / "o"), "--watermark-model", "telea", "--opts",
-            "DATA.IMG_SIZE", "64", "MODEL.DTYPE", "float32"] + extra
+            str(tmp_path / "o")] + opts + extra
     if error is None:
         assert cli.main(args) == 0
+        if "--no-ocr" in extra:
+            return
+        monkeypatch.setattr(
+            "unet_watermark_tpu.inference.WatermarkPredictor",
+            lambda model_path=None, config=None: preds[0])
+        jargs = jax_cli.build_parser().parse_args(
+            ["repair", "--input", str(folder), "--output",
+             str(tmp_path / "j")] + opts + extra)
+        assert jax_cli.repair_command(jargs) == 0
+        j = json.loads((tmp_path / "j" / "repair_summary.json").read_text())
+        t = json.loads((tmp_path / "o" / "repair_summary.json").read_text())
+        assert [t.pop(k) for k in PORT_KEYS] == [0, "pushpull", "builtin", 0]
+        for key in TIME_KEYS:
+            assert t.pop(key) > 0 and j.pop(key) > 0
+        assert t == j
         return
     with pytest.raises(error, match="ROADMAP.md|cuda"):
         cli.main(args)

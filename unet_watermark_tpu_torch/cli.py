@@ -2,14 +2,16 @@
 subcommand, with the JAX CLI's flags, defaults and repair_summary.json.
 
     python -m unet_watermark_tpu_torch.cli repair --input D --output O \\
-        --no-ocr [--device cuda|cpu]
+        [--device cuda|cpu] [--no-ocr] [--ocr-engine easy|builtin|paddle]
 
---device is "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda");
-"cuda" without a card raises. What the port does not run yet raises
-NotImplementedError naming its ROADMAP.md item: OCR (run with --no-ocr),
---quant, --video, and the `train` and `auto` subcommands. The LaMa weights
-of --inpaint-weights go into the config (PREDICT.INPAINT_WEIGHTS) where
-the JAX CLI sets the PREDICT_INPAINT_WEIGHTS environment variable.
+Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
+builtin detector where easyocr is not installed, as there). --device is
+"cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda"); "cuda" without
+a card raises. What the port does not run yet raises NotImplementedError
+naming its ROADMAP.md item: --quant, --video, and the `train` and `auto`
+subcommands. The LaMa weights of --inpaint-weights go into the config
+(PREDICT.INPAINT_WEIGHTS) where the JAX CLI sets the
+PREDICT_INPAINT_WEIGHTS environment variable.
 """
 from __future__ import annotations
 
@@ -45,11 +47,8 @@ def _load_cfg(args):
 
 
 def repair_command(args) -> int:
-    """Steps 1, 2 and 5 of WatermarkPredictor.process_folder_batch on the
-    --input folder, then repair_summary.json in --output."""
-    if not args.no_ocr:
-        from .inference.predict import OCR_ITEM
-        raise NotImplementedError(OCR_ITEM)
+    """WatermarkPredictor.process_folder_batch on the --input folder, then
+    repair_summary.json in --output."""
     if args.quant:
         raise NotImplementedError("--quant: the int8 inference tier is not "
                                   "ported yet (ROADMAP.md §A.6)")
@@ -82,7 +81,7 @@ def repair_command(args) -> int:
         watermark_model=args.watermark_model,
         text_model=args.text_model,
         use_unet=not args.no_unet,
-        use_ocr=False,
+        use_ocr=not args.no_ocr,
         ocr_languages=args.ocr_languages,
         ocr_engine=args.ocr_engine,
         timeout=args.timeout,
@@ -135,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 segmentation forward (not ported yet)")
     rp.add_argument("--no-unet", action="store_true")
     rp.add_argument("--no-ocr", action="store_true",
-                    help="skip steps 3-4; needed until OCR is ported")
+                    help="skip steps 3-4 (the OCR text masks and their "
+                         "repair)")
     rp.add_argument("--ocr-engine", type=str,
                     choices=["paddle", "easy", "builtin"], default="easy")
     rp.add_argument("--ocr-languages", type=str, nargs="+",

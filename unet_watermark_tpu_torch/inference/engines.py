@@ -22,6 +22,7 @@ import torch
 from ..models.convert import load_lama_weights
 from ..models.lama import LamaGenerator, create_lama
 from ..ops.inpaint import inpaint_pushpull
+from ..utils.device import resolve_device
 from ..utils.shipping import load_npz, resolve
 
 logger = logging.getLogger(__name__)
@@ -42,8 +43,6 @@ def load_lama(path, variant: str = "lama", device="cuda",
 
     This is the one LaMa loader, shared by get_engine and the fused repair
     fn, so the two cannot disagree about what loads."""
-    from .predict import resolve_device  # predict imports this module
-
     device = resolve_device(device)
     path = str(path)
     if path.endswith((".pt", ".pth", ".ckpt")):
@@ -120,8 +119,6 @@ def get_engine(name: str = "pushpull", weights_path: Optional[str] = None,
                cfg=None, device: str = "cuda") -> Engine:
     """The engine `name` on `device` ("cuda" unless the caller asks for
     the CPU; without a card "cuda" raises)."""
-    from .predict import resolve_device  # predict imports this module
-
     name = (name or "pushpull").lower()
     dev = resolve_device(device)
     if name in ("pushpull", "fast", "telea"):

@@ -1,8 +1,8 @@
 """WatermarkPredictor (inference/predict.py in the JAX package): the
 folder-level repair pipeline and its batched in-memory surfaces.
 
-process_folder_batch(input, output, use_ocr=False) runs the JAX package's
-steps 1, 2 and 5 with the same folders, file names, skip rules and stats:
+process_folder_batch(input, output) runs the JAX package's steps 1-5 with
+the same folders, file names, skip rules and stats:
 
   step 1  decode each PNG on the host, ship it to the device as uint8,
           resize there (cv2-parity, ops/resize.py), one forward a batch,
@@ -14,16 +14,25 @@ steps 1, 2 and 5 with the same folders, file names, skip rules and stats:
           resolution instead (plain mask ops, no kernel).
   step 2  the inpaint engine, `steps` times, on the images whose mask
           covers at least 0.1 %, batched by padded shape →
-          step2_watermark_repaired/{stem}.png, then copied to the output.
-  step 5  each step-1 mask through the repair surface's chain at its
-          padded original size → masks/{stem}.png.
+          step2_watermark_repaired/{stem}.png.
+  step 3  (use_ocr) the OCR detector (ocr/; the builtin one runs its image
+          ops on this predictor's device) on each step-2 image, its regions
+          filled and dilated (5x5 ellipse, twice) →
+          step3_text_masks/{stem}_text_mask.png; images without text pixels
+          stop here.
+  step 4  (use_ocr) the text engine on the step-2 images under their text
+          masks → {stem}.png in the output; the other images' step-2 files
+          are copied there (without OCR, all of them are).
+  step 5  each step-1 mask, merged with its text mask (the per-pixel
+          maximum), through the repair surface's chain at its padded
+          original size → masks/{stem}.png.
 
-Steps 3-4 (OCR text masks) wait for a port of the builtin detector
-(ROADMAP.md §A.5): use_ocr=True raises NotImplementedError. So do
-predict_mask's text and mixed types, which need _enhance_text_features
-(CLAHE + Canny), and PREDICT.QUANT (§A.6). The port decodes PNG only
-(utils/image_io.py): a folder holding JPEG, BMP, TIFF or WEBP files, or an
-interlaced PNG, raises NotImplementedError before any work starts.
+predict_mask answers for the watermark, text and mixed types; the last two
+first run _enhance_text_features (CLAHE, Canny, sharpen; ops/imgproc.py) on
+the device. PREDICT.QUANT (ROADMAP.md §A.6) raises NotImplementedError. The
+port decodes PNG only (utils/image_io.py): a folder holding JPEG, BMP, TIFF
+or WEBP files, or an interlaced PNG, raises NotImplementedError before any
+work starts.
 
 make_fused_repair_fn is the fused detect→repair path (:931-985), whose
 fill is the learned FFC-LaMa generator by default; predict_artifact_masks
@@ -49,11 +58,15 @@ from ..configs import Config, get_cfg_defaults
 from ..models import create_model_from_config
 from ..models.convert import load_flax_weights
 from ..models.factory import torch_dtype
+from ..ocr import get_ocr_detector
+from ..ocr.base import rasterize_regions
 from ..ops import components as cc
+from ..ops import imgproc
 from ..ops import morphology as m
 from ..ops.inpaint import inpaint_pushpull
 from ..ops.resize import resize_linear_f32, resize_linear_u8, resize_nearest
 from ..utils import image_io
+from ..utils.device import resolve_device
 from ..utils.shipping import load_npz, resolve
 from . import engines, maskproc
 from .tiled import pad_to_multiple, predict_tiled
@@ -64,21 +77,6 @@ logger = logging.getLogger(__name__)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 IMAGE_EXTS = ("jpg", "jpeg", "png", "bmp", "tiff", "webp")
-DECODED_EXTS = ("png",)  # what utils/image_io.py decodes
-
-OCR_ITEM = ("steps 3-4 (OCR text masks) are not ported yet: they wait for "
-            "the builtin OCR detector (ROADMAP.md §A.5); pass use_ocr=False "
-            "(the CLI's --no-ocr)")
-
-
-def resolve_device(device) -> torch.device:
-    """The caller's device; "cuda" without a card raises rather than moving
-    the work to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class StageTimer:
@@ -123,7 +121,10 @@ class WatermarkPredictor:
     .npz weights. A float32 model on the card follows the process's TF32
     settings (`torch.backends.cudnn.allow_tf32`, default on); the caller
     chooses them, as chip_smoke.py does. `engine_used` names the fill
-    that the last repair step ran (None before one ran)."""
+    that the last repair step ran (None before one ran), `ocr_engine_used`
+    the text detector step 3 ran; `engine_failures` and `ocr_failures`
+    count the images of the last process_folder_batch whose repair batch
+    or OCR raised."""
 
     def __init__(self, cfg: Optional[Config] = None,
                  weights_path: Optional[str] = None, device: str = "cuda"):
@@ -153,6 +154,8 @@ class WatermarkPredictor:
             self._std = torch.tensor(IMAGENET_STD, device=self.device)
             self.engine_failures = 0
             self.engine_used: Optional[str] = None
+            self.ocr_failures = 0
+            self.ocr_engine_used: Optional[str] = None
 
     # ------------------------------------------------------------------
     # forward helpers
@@ -219,11 +222,7 @@ class WatermarkPredictor:
             random.shuffle(files)
             files = files[:limit]
         for p in files:
-            if os.path.splitext(p)[1][1:].lower() not in DECODED_EXTS:
-                raise NotImplementedError(
-                    f"{p}: the port decodes PNG only; JPEG, BMP, TIFF and "
-                    f"WEBP decoding is not ported yet (ROADMAP.md §A.5, "
-                    f"other image formats)")
+            image_io.require_decodable(p)
             try:
                 image_io.check_png(p)
             except image_io.PNGError:
@@ -244,21 +243,32 @@ class WatermarkPredictor:
         with _stage("encode"):
             image_io.write_png(path, img)
 
+    @torch.inference_mode()
+    def _enhance_text_features(self, rgb: torch.Tensor) -> torch.Tensor:
+        """CLAHE + Canny-edge boost + sharpen (predict.py:242-260) of an
+        (H, W, 3) uint8 RGB image on the device: the cv2 calls of the JAX
+        package through ops/imgproc.py, bit for bit."""
+        gray = imgproc.gray_u8(rgb, "rgb")
+        edges = imgproc.canny(imgproc.clahe(gray, 2.0, (8, 8)), 50, 150)
+        edges = imgproc.grey_dilate(edges, m.ellipse_kernel(2, 2))
+        out = rgb.float()
+        boosted = torch.clamp(out * float(np.float32(1.2)), 0, 255)
+        out = torch.where((edges > 0)[..., None], boosted, out)
+        return imgproc.filter2d_u8(out.to(torch.uint8), imgproc.SHARPEN)
+
     # ------------------------------------------------------------------
     # single-image API (predict.py:262-338)
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def predict_mask(self, image_path: str,
                      mask_type: str = "watermark") -> np.ndarray:
-        """(H, W) uint8 {0, 255} mask of one image at its own size."""
-        if mask_type in ("text", "mixed"):
-            raise NotImplementedError(
-                f"predict_mask for the '{mask_type}' type needs "
-                f"_enhance_text_features (CLAHE + Canny), not ported yet "
-                f"(ROADMAP.md §A.5)")
-        rgb = image_io.read_rgb(image_path)
+        """(H, W) uint8 {0, 255} mask of one image at its own size; the text
+        and mixed types see the image after _enhance_text_features."""
+        rgb = torch.from_numpy(image_io.read_rgb(image_path)).to(self.device)
         orig_h, orig_w = rgb.shape[:2]
-        probs = self._infer_prob_map(torch.from_numpy(rgb).to(self.device))
+        if mask_type in ("text", "mixed"):
+            rgb = self._enhance_text_features(rgb)
+        probs = self._infer_prob_map(rgb)
         probs = resize_linear_f32(probs, (orig_h, orig_w))
         mask_bin = (probs > self.cfg.PREDICT.THRESHOLD).float()
         if not self.cfg.PREDICT.POST_PROCESS:
@@ -438,13 +448,15 @@ class WatermarkPredictor:
                               model_name: str = "lama",
                               skip_condition: Optional[str] = None,
                               skip_threshold: Optional[float] = None,
-                              steps: int = 1) -> List[dict]:
+                              steps: int = 1,
+                              stage: str = "step2_device") -> List[dict]:
         """Repair each file's image under its mask with the engine, run
         `steps` times, in batches of PREDICT.BATCH_SIZE images that share a
-        padded shape. The JAX package pads each batch to a power of two for
-        its compile cache; eager torch runs it as it is. An engine failure
-        is logged at error level, counted in self.engine_failures, and the
-        originals are copied, as the JAX package copies them."""
+        padded shape; the device work reports to `stage`. The JAX package
+        pads each batch to a power of two for its compile cache; eager torch
+        runs it as it is. An engine failure is logged at error level,
+        counted in self.engine_failures, and the originals are copied, as
+        the JAX package copies them."""
         os.makedirs(output_folder, exist_ok=True)
         successful: List[dict] = []
         to_process: List[dict] = []
@@ -504,7 +516,7 @@ class WatermarkPredictor:
                     imgs = torch.stack(imgs)
                     msks = torch.stack(msks)[..., None]
                 try:
-                    with _stage("step2_device"):
+                    with _stage(stage):
                         out = imgs
                         for _ in range(max(1, steps)):
                             out = engine(out, msks)
@@ -564,17 +576,99 @@ class WatermarkPredictor:
             steps=steps)
 
     # ------------------------------------------------------------------
+    # STEP 3 (predict.py:664-726): OCR text masks
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def step3_batch_extract_text_masks(
+            self, processed_files, text_mask_output_folder,
+            ocr_languages=None, ocr_engine: str = "easy") -> List[dict]:
+        """{stem}_text_mask.png for each image: the detector's regions filled
+        (cv2.rectangle / cv2.fillPoly) and dilated twice with the 5x5
+        ellipse; a record for each image with text pixels. A detector that
+        cannot be built, or an image whose OCR raises, is logged as the JAX
+        package logs it and counted in self.ocr_failures."""
+        os.makedirs(text_mask_output_folder, exist_ok=True)
+        try:
+            detector = get_ocr_detector(ocr_engine, device=self.device)
+        except Exception:  # noqa: BLE001 - the JAX contract: no text masks
+            logger.exception("OCR unavailable")
+            self.ocr_failures += len(processed_files)
+            return []
+        self.ocr_engine_used = detector.name
+        successful = []
+        for fi in processed_files:
+            image_path = fi["image_path"]
+            try:
+                h, w = image_io.check_png(image_path)
+            except (OSError, image_io.PNGError) as e:
+                logger.error("cannot load %s: %s", image_path, e)
+                continue
+            try:
+                with _stage("step3_detect"):
+                    regions = detector.detect_text_regions(
+                        image_path, languages=ocr_languages) \
+                        if ocr_languages else \
+                        detector.detect_text_regions(image_path)
+                    text_mask = rasterize_regions(regions, h, w)
+                    if text_mask.any():
+                        dil = m.dilate(torch.from_numpy(text_mask > 0).to(
+                            self.device).float(), m.ellipse_kernel(5, 5), 2)
+                        text_mask = (dil * 255).to(torch.uint8).cpu().numpy()
+                stem = _stem(fi["original_path"])
+                tm_path = os.path.join(text_mask_output_folder,
+                                       f"{stem}_text_mask.png")
+                self._write_png(tm_path, text_mask)
+            except Exception:  # noqa: BLE001 - one image stops no other
+                logger.exception("OCR failed on %s", image_path)
+                self.ocr_failures += 1
+                continue
+            text_pixels = int((text_mask > 0).sum())
+            if text_pixels == 0:
+                logger.info("no text detected, skipping: %s", stem)
+                continue
+            successful.append({
+                "image_path": image_path,
+                "original_path": fi["original_path"],
+                "text_mask_path": tm_path,
+                "text_pixels": text_pixels,
+                "watermark_ratio": fi.get("watermark_ratio", 0.0),
+            })
+        logger.info("step3 done: %d with text / %d", len(successful),
+                    len(processed_files))
+        return successful
+
+    def step4_batch_iopaint_text_repair(
+            self, processed_files, final_output_folder,
+            model_name: str = "lama", timeout: int = 600,
+            steps: int = 1) -> List[dict]:
+        """`timeout` is accepted as the JAX package accepts it and not
+        used."""
+        logger.info("step4: text repair (%s)", model_name)
+        out = self._batch_inpaint_repair(
+            processed_files, final_output_folder, "text_mask_path",
+            model_name, skip_condition="text_pixels", steps=steps,
+            stage="step4_device")
+        return [{
+            "original_path": fi["original_path"],
+            "final_path": fi["image_path"],
+            "watermark_ratio": fi.get("watermark_ratio", 0.0),
+            "text_pixels": fi.get("text_pixels", 0),
+        } for fi in out]
+
+    # ------------------------------------------------------------------
     # STEP 5 (predict.py:746-797): merge masks
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def merge_masks_for_video(self, step1_results, step3_results,
                               merged_mask_output_folder) -> List[dict]:
-        """Each step-1 mask through the repair surface's watermark chain at
-        its padded original size, with the plain ops (no kernel: the size
-        is not square). Merging in step 3's text masks waits for OCR."""
-        if step3_results:
-            raise NotImplementedError(OCR_ITEM)
+        """Each step-1 mask, with its step-3 text mask merged in (the
+        per-pixel maximum; a text mask of another size is resized as
+        cv2.resize resizes it), through the repair surface's watermark
+        chain at its padded original size, with the plain ops (no kernel:
+        the size is not square)."""
         os.makedirs(merged_mask_output_folder, exist_ok=True)
+        text_by_stem = {_stem(fi["original_path"]): fi["text_mask_path"]
+                        for fi in step3_results or []}
         mode = maskproc.resolve_mask_mode(self.cfg.PREDICT.MASK_MODE,
                                           "repair")
         merged = []
@@ -584,10 +678,18 @@ class WatermarkPredictor:
             mask_path = fi.get("mask_path")
             if not mask_path or not os.path.exists(mask_path):
                 continue  # skipped in step 1 (no watermark detected)
+            tm_path = text_by_stem.get(stem)
             try:
-                wm = torch.from_numpy(image_io.read_gray(mask_path))
-                padded, (h, w) = pad_to_multiple(
-                    (wm.to(self.device) > 127).float(), 32)
+                wm = torch.from_numpy(image_io.read_gray(mask_path)).to(
+                    self.device)
+                tm = self._read_mask(tm_path) if tm_path and \
+                    os.path.exists(tm_path) else None
+                if tm is not None:
+                    tm = torch.from_numpy(tm).to(self.device)
+                    if tm.shape != wm.shape:
+                        tm = resize_linear_u8(tm[..., None], wm.shape)[..., 0]
+                    wm = torch.maximum(wm, tm)
+                padded, (h, w) = pad_to_multiple((wm > 127).float(), 32)
                 opt = maskproc.optimize_mask(padded, "watermark", mode=mode)
                 out_u8 = (opt[:h, :w] * 255).to(torch.uint8).cpu().numpy()
                 merged_path = os.path.join(merged_mask_output_folder,
@@ -600,7 +702,7 @@ class WatermarkPredictor:
             merged.append({
                 "original_path": image_path,
                 "watermark_mask_path": mask_path,
-                "text_mask_path": None,
+                "text_mask_path": tm_path,
                 "merged_mask_path": merged_path,
                 "mask_ratio": px / out_u8.size,
                 "mask_pixels": px,
@@ -620,27 +722,29 @@ class WatermarkPredictor:
                              merge_masks: bool = True,
                              limit: Optional[int] = None,
                              steps: int = 3) -> Dict:
-        """Steps 1, 2 and 5 over a folder; the stats dict has the JAX
-        package's keys and two more: "engine_failures", the images whose
-        repair batch raised and whose originals were copied instead, and
-        "engine_used", the fill step 2 ran (None where it ran none).
-        text_model, ocr_languages and ocr_engine are the JAX signature's
-        and wait for steps 3-4."""
-        if use_ocr:
-            raise NotImplementedError(OCR_ITEM)
+        """Steps 1-5 over a folder (3-4 with use_ocr); the stats dict has the
+        JAX package's keys and four more: "engine_failures", the images
+        whose repair batch raised and whose originals were copied instead,
+        "engine_used", the fill the last repair step ran (None where it ran
+        none), "ocr_engine_used", the text detector step 3 ran (None
+        without OCR), and "ocr_failures", the images whose OCR raised."""
         start = time.time()
-        self.engine_failures = 0
-        self.engine_used = None
+        self.engine_failures = self.ocr_failures = 0
+        self.engine_used = self.ocr_engine_used = None
         os.makedirs(output_folder, exist_ok=True)
         if save_intermediate:
             mask_folder = os.path.join(output_folder, "step1_masks")
             step2_folder = os.path.join(output_folder,
                                         "step2_watermark_repaired")
+            text_mask_folder = os.path.join(output_folder,
+                                            "step3_text_masks")
         else:
             tmp = tempfile.mkdtemp(prefix="batch_watermark_removal_")
             mask_folder = os.path.join(tmp, "masks")
             step2_folder = os.path.join(tmp, "step2")
+            text_mask_folder = os.path.join(tmp, "text_masks")
 
+        step3_results: List[dict] = []
         if use_unet:
             step1_results = self.step1_batch_predict_watermark_masks(
                 input_folder, mask_folder, limit=limit)
@@ -661,21 +765,46 @@ class WatermarkPredictor:
             if not step1_results:
                 return {"status": "error", "message": "no images found"}
 
-        for fi in step2_results:  # without steps 3-4, step 2's are final
-            shutil.copy2(fi["image_path"], os.path.join(
-                output_folder, f"{_stem(fi['original_path'])}.png"))
+        if use_ocr:
+            step3_results = self.step3_batch_extract_text_masks(
+                step2_results, text_mask_folder, ocr_languages, ocr_engine)
+        if step3_results:
+            step4_results = self.step4_batch_iopaint_text_repair(
+                step3_results, output_folder, text_model, timeout, steps)
+            done = {fi["original_path"] for fi in step3_results}
+            for fi in step2_results:  # no text: step 2's file is final
+                if fi["original_path"] not in done:
+                    final = os.path.join(output_folder,
+                                         f"{_stem(fi['original_path'])}.png")
+                    shutil.copy2(fi["image_path"], final)
+                    step4_results.append({
+                        "original_path": fi["original_path"],
+                        "final_path": final,
+                        "watermark_ratio": fi.get("watermark_ratio", 0.0),
+                        "text_pixels": 0,
+                    })
+        else:
+            if use_ocr:
+                logger.warning("step3: no text anywhere; copying step2 out")
+            for fi in step2_results:
+                shutil.copy2(fi["image_path"], os.path.join(
+                    output_folder, f"{_stem(fi['original_path'])}.png"))
+            step4_results = step2_results
 
         merged_results = []
         if merge_masks and step1_results and use_unet:
             with _stage("step5"):
                 merged_results = self.merge_masks_for_video(
-                    step1_results, [], os.path.join(output_folder, "masks"))
+                    step1_results, step3_results,
+                    os.path.join(output_folder, "masks"))
 
         dt = time.time() - start
         total = len(step1_results)
-        ok = len(step2_results)
+        ok = len(step4_results)
         avg_ratio = (sum(f.get("watermark_ratio", 0) for f in step1_results)
                      / total if use_unet and total else 0.0)
+        avg_text = (sum(f["text_pixels"] for f in step3_results) /
+                    len(step3_results) if step3_results else 0.0)
         stats = {
             "status": "success",
             "total_images": total,
@@ -684,16 +813,18 @@ class WatermarkPredictor:
             "processing_time": dt,
             "avg_processing_time_per_image": dt / total if total else 0,
             "avg_watermark_ratio": avg_ratio,
-            "avg_text_pixels": 0.0,
+            "avg_text_pixels": avg_text,
             "steps_completed": {
                 "step1_mask_prediction": len(step1_results),
                 "step2_watermark_repair": len(step2_results),
-                "step3_text_extraction": 0,
-                "step4_text_repair": ok,
+                "step3_text_extraction": len(step3_results),
+                "step4_text_repair": len(step4_results),
                 "merged_masks": len(merged_results),
             },
             "engine_failures": self.engine_failures,
             "engine_used": self.engine_used,
+            "ocr_engine_used": self.ocr_engine_used,
+            "ocr_failures": self.ocr_failures,
         }
         logger.info("batch done: %d/%d ok in %.1fs", ok, total, dt)
         return stats

@@ -114,9 +114,10 @@ def filter_components_by_area(mask: torch.Tensor, min_area: int,
 
 
 def component_stats(labels: torch.Tensor) -> dict:
-    """Per-label stats over linear-index labels: "area", "width", "height"
-    (int64) and "exists" (bool), each (H*W+1,) for (H, W) labels or
-    (N, H*W+1) for a batch, indexed by label id; slot 0 is background."""
+    """Per-label stats over linear-index labels: "area", "width", "height",
+    the bounding box's left column "x0" and top row "y0" (int64) and
+    "exists" (bool), each (H*W+1,) for (H, W) labels or (N, H*W+1) for a
+    batch, indexed by label id; slot 0 is background (0 where no label)."""
     lab, unbatch = _batched(labels)
     n, h, w = lab.shape
     size = h * w + 1
@@ -134,10 +135,13 @@ def component_stats(labels: torch.Tensor) -> dict:
     big = h * w + 1
     area = _segment_areas(lab)
     exists = area > 0
-    width = reduce(xs, "amax", -1) - reduce(xs, "amin", big) + 1
-    height = reduce(ys, "amax", -1) - reduce(ys, "amin", big) + 1
-    stats = {"area": area, "width": torch.where(exists, width, 0),
-             "height": torch.where(exists, height, 0), "exists": exists}
+    x0, y0 = reduce(xs, "amin", big), reduce(ys, "amin", big)
+    width = reduce(xs, "amax", -1) - x0 + 1
+    height = reduce(ys, "amax", -1) - y0 + 1
+    stats = {"area": area, "width": width, "height": height, "x0": x0,
+             "y0": y0}
+    stats = {k: torch.where(exists, v, 0) for k, v in stats.items()}
+    stats["exists"] = exists
     return {k: unbatch(v) for k, v in stats.items()}
 
 

@@ -26,9 +26,10 @@ of one pixel), then the Up rows from the top.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +39,17 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 ZLIB_LEVEL = 1  # the deflate level cv2.imwrite uses by default
+DECODED_EXTS = ("png",)  # the file types this module decodes
+
+
+def require_decodable(path: str) -> None:
+    """Raise NotImplementedError, naming the ROADMAP.md item, for a file
+    type this module does not decode."""
+    if os.path.splitext(path)[1][1:].lower() not in DECODED_EXTS:
+        raise NotImplementedError(
+            f"{path}: the port decodes PNG only; JPEG, BMP, TIFF and WEBP "
+            f"decoding is not ported yet (ROADMAP.md §A.5, other image "
+            f"formats)")
 
 
 class PNGError(ValueError):
@@ -80,14 +92,16 @@ def _header(body: bytes):
     return w, h, depth, ctype
 
 
-def check_png(path) -> None:
-    """Read only the signature and header: raises as the decoder would
-    for a file it cannot decode (not a PNG, interlaced, bad header)."""
+def check_png(path) -> Tuple[int, int]:
+    """(height, width) from the signature and header alone: raises as the
+    decoder would for a file it cannot decode (not a PNG, interlaced, bad
+    header)."""
     with open(path, "rb") as f:
         head = f.read(33)
     if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
         raise PNGError(f"{path}: not a PNG file")
-    _header(head[16:29])
+    w, h, _, _ = _header(head[16:29])
+    return h, w
 
 
 def _paeth(a, b, c):

@@ -79,6 +79,25 @@ Phases, each printing its own line:
      run whose parts add up to that run's total), and
      predict_mask(..., "text") in
      float32 on the card agreeing with the CPU's on >= 99.9 % of pixels
+  3f the `repair` command as users type it (OCR on) on a folder of 16 JPEGs
+     that utils/synthetic.encode_jpeg writes: 8 of 512² (baseline 4:2:0
+     q95, the last 2 with no logo), 720 x 1280 at 4:4:4 q90 with a restart
+     interval of 4 MCUs, 720 x 1280 at 4:2:2 q85, 1080 x 1920 progressive,
+     1080 x 1920 stored turned with EXIF orientation 6, a gray 512², a
+     phone's 3024 x 4032 photo (4032 x 3024 upright, orientation 6), a
+     1080 x 1920 file cut 30 % into its entropy data, and one cut before
+     its first scan (skipped, as cv2 gives None). Checks: every file
+     decoded on the card's route (the C entropy decoder, the pixel stage
+     on the card) equal byte for byte, colour and gray, to the plain route
+     (the Python entropy decoder, the pixel stage on the CPU); rc 0,
+     "success", engine "ffc-lama", no engine or OCR failure, K1 and K2
+     launched by its step 1, masks and finals at each image's upright
+     size, step 2's pixels outside the step-1 mask equal to the decoded
+     input. Then the command again with each stage timed (the decode
+     stage's entropy and pixel parts apart), --no-unet on 4 of the files
+     (steps 3-4 read the JPEGs copied under .png names), and the decode of
+     a 1080 x 1920 baseline, a progressive and the phone file timed by
+     part
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -89,8 +108,8 @@ Phases, each printing its own line:
      detection and the artifact stage; the default fn with LaMa (img/s),
      the generator alone and its share of the bf16 tensor-core peak; the
      repair CLI's img/s and its split by stage beside the fused fn's, with
-     OCR off (3d) and on (3e); a profile of each path and of the generator
-     alone
+     OCR off (3d) and on (3e), and on the JPEG folder (3f); a profile of
+     each path and of the generator alone
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -428,9 +447,11 @@ def write_cli_folder(folder: Path, seed: int, spec=CLI_FOLDER,
     return sizes
 
 
-def run_cli(argv, dev, timer: bool):
+def run_cli(argv, dev, timer: bool, parts: dict = None):
     """cli.main(argv) in this process; (rc, wall seconds, the stage seconds
-    of the pipeline's StageTimer, or None without a timer)."""
+    of the pipeline's StageTimer, or None without a timer). With a timer,
+    `parts` (where given) receives the timer's parts (a JPEG decode's
+    entropy and pixel seconds)."""
     from unet_watermark_tpu_torch import cli
     from unet_watermark_tpu_torch.inference import predict as P
 
@@ -439,6 +460,8 @@ def run_cli(argv, dev, timer: bool):
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
+        if timer and parts is not None:
+            parts.update(P.STAGE_TIMER.parts)
         return rc, wall, (dict(P.STAGE_TIMER.seconds) if timer else None)
     finally:
         P.STAGE_TIMER = None
@@ -739,7 +762,7 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
 
     folder = work / "in_ocr"
     shutil.copytree(work / "in", folder)
-    sizes = {p.stem: image_io.check_png(p) for p in folder.iterdir()}
+    sizes = {p.stem: image_io.check_image(p) for p in folder.iterdir()}
     imgs, boxes, inks = text_images(text_shapes, seed=seed + 20,
                                     logo=text_logo)
     text_boxes, text_inks = {}, {}
@@ -858,6 +881,284 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
             "detect_1080x1920_ms": float(np.median(det_times)),
             "launches": launches,
             "with_text": checks["with_text"]}
+
+
+# phase 3f's JPEG folder, written by utils/synthetic.encode_jpeg: (name,
+# upright height, width, quality, sampling, progressive, restart interval
+# in MCUs, EXIF orientation, what is done to the file); the j* files are
+# cv2's default form, the last 2 without a logo. A file with orientation 6
+# is stored turned a quarter left (its stored height is the upright width)
+JPEG_FOLDER = tuple(
+    (f"j{i:02d}", 512, 512, 95, "420", False, 0, None, None)
+    for i in range(8)) + (
+    ("r0", 720, 1280, 90, "444", False, 4, None, None),
+    ("s0", 720, 1280, 85, "422", False, 0, None, None),
+    ("p0", 1080, 1920, 95, "420", True, 0, None, None),
+    ("o0", 1080, 1920, 95, "420", False, 0, 6, None),
+    ("g0", 512, 512, 95, "gray", False, 0, None, None),
+    ("m0", 4032, 3024, 90, "420", False, 0, 6, None),  # a phone's photo
+    ("t0", 1080, 1920, 95, "420", False, 0, None, "cut 30 %"),
+    ("x0", 512, 512, 95, "420", False, 0, None, "cut before SOS"))
+JPEG_CLEAN = 2  # the last j* files carry no logo
+JPEG_NO_UNET = ("j00", "j06", "o0", "p0")  # the --no-unet run's files
+# the files whose decode is timed: baseline (t0 before its cut),
+# progressive, phone-size
+JPEG_TIMED = {"baseline_1080x1920": "t0", "progressive_1080x1920": "p0",
+              "baseline_3024x4032": "m0"}
+
+
+def write_jpeg_folder(folder: Path, seed: int, spec=JPEG_FOLDER,
+                      clean=JPEG_CLEAN) -> dict:
+    """Phase 3f's folder; returns {name: (file bytes, upright (h, w), the
+    uncut file's bytes)}."""
+    import numpy as np
+    from unet_watermark_tpu_torch.utils import jpeg
+    from unet_watermark_tpu_torch.utils.synthetic import encode_jpeg
+
+    folder.mkdir(parents=True)
+    files = {}
+    n_j = sum(1 for f in spec if f[0].startswith("j"))
+    for k, (name, h, w, q, sampling, prog, rst, orient, cut) in \
+            enumerate(spec):
+        no_logo = name.startswith("j") and int(name[1:]) >= n_j - clean
+        img = cropped_images(1, h, w, seed + 30 + k, clean=int(no_logo))[0]
+        if sampling == "gray":
+            img, sampling = np.ascontiguousarray(img[..., 1]), "444"
+        if orient == 6:  # stored turned left; cv2 turns it back
+            img = np.ascontiguousarray(np.rot90(img, 1))
+        full = encode_jpeg(img, q, sampling, prog, rst, orient)
+        data = full
+        if cut == "cut 30 %":
+            start = jpeg.parse(full, headers_only=True).scans[0].start
+            data = full[:start + (len(full) - start) * 3 // 10]
+        elif cut == "cut before SOS":
+            data = full[:full.index(b"\xff\xda")]
+        (folder / f"{name}.jpg").write_bytes(data)
+        files[name] = (data, (h, w), full)
+    return files
+
+
+def jpeg_routes(files: dict, dev) -> dict:
+    """Every file through the card's route (the C entropy decoder, the
+    pixel stage on the card; image_io.decode_jpeg) and the plain one (the
+    Python entropy decoder, the pixel stage on the CPU), colour and gray:
+    byte for byte equal, or JPEGError from both. Returns each file's
+    decoded RGB (from the card) and the plain entropy decode's seconds."""
+    import torch
+    from unet_watermark_tpu_torch.ops import jpeg as jpeg_pixels
+    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
+    from unet_watermark_tpu_torch.utils import image_io, jpeg
+
+    decoded, plain_s = {}, 0.0
+    for name, (data, hw, _) in sorted(files.items()):
+        try:
+            header = jpeg.parse(data)
+        except jpeg.JPEGError:
+            for device in (dev, "cpu"):
+                try:
+                    image_io.decode_jpeg(data, device)
+                except jpeg.JPEGError:
+                    continue
+                raise AssertionError(f"{name} decodes on {device}")
+            decoded[name] = None
+            continue
+        t0 = time.perf_counter()
+        coefs = jpeg.decode_scans(header, data)
+        plain_s += time.perf_counter() - t0
+        for gray in (False, True):
+            calls = jpeg_entropy.decode_scans_c.calls
+            card = image_io.decode_jpeg(data, dev, gray)
+            if jpeg_entropy.decode_scans_c.calls != calls + 1:
+                raise AssertionError("the card's route did not run the C "
+                                     "entropy decoder")
+            plain = jpeg_pixels.decode(header, [torch.from_numpy(c)
+                                                for c in coefs], gray)
+            if card.device.type != dev.type or \
+                    not torch.equal(card.cpu(), plain):
+                raise AssertionError(f"{name} (gray={gray}): the card's "
+                                     f"route differs from the plain one")
+            if tuple(card.shape[:2]) != hw:
+                raise AssertionError(f"{name} decodes at {card.shape}, "
+                                     f"upright {hw}")
+            if not gray:
+                decoded[name] = card.cpu().numpy()
+    return {"decoded": decoded, "plain_entropy_s": plain_s}
+
+
+def jpeg_decode_ms(files: dict, dev, rounds: int = 5) -> dict:
+    """The timed files' decodes on the card's route, the median of
+    `rounds`: the entropy decode (host clock: parse and C decoder), the
+    pixel stage (CUDA events: upload and pixel stage) and both."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.ops import jpeg as jpeg_pixels
+    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
+    from unet_watermark_tpu_torch.utils import jpeg
+
+    out = {}
+    for key, name in JPEG_TIMED.items():
+        full = files[name][2]
+        entropy, pixels = [], []
+        for _ in range(rounds + 1):  # the first round warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            header = jpeg.parse(full)
+            coefs = jpeg_entropy.decode_scans(header, full, dev)
+            entropy.append((time.perf_counter() - t0) * 1e3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            jpeg_pixels.decode(header, [torch.from_numpy(c).to(dev)
+                                        for c in coefs])
+            end.record()
+            torch.cuda.synchronize()
+            pixels.append(start.elapsed_time(end))
+        e, p = float(np.median(entropy[1:])), float(np.median(pixels[1:]))
+        out[key] = {"file": name, "bytes": len(full), "entropy_ms": e,
+                    "pixels_ms": p, "total_ms": e + p,
+                    "entropy_rounds_ms": entropy[1:],
+                    "pixels_rounds_ms": pixels[1:]}
+    return out
+
+
+def check_jpeg_outputs(out: Path, files: dict, decoded: dict) -> dict:
+    """Phase 3f's file checks; returns counts for its log line."""
+    import numpy as np
+    from unet_watermark_tpu_torch.utils import image_io
+
+    summary = json.loads((out / "repair_summary.json").read_text())
+    want = {"status": "success", "ocr_engine_used": "builtin",
+            "ocr_failures": 0, "engine_failures": 0,
+            "engine_used": "ffc-lama"}
+    if any(summary.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"repair summary (JPEG folder) is not {want}: "
+                             f"{summary}")
+    masks = {}
+    for name, (_, hw, _) in files.items():
+        path = out / "step1_masks" / f"{name}_mask.png"
+        if decoded[name] is None:
+            if path.exists():
+                raise AssertionError(f"a mask for the unreadable {name}")
+            continue
+        masks[name] = image_io.read_gray(path)
+        if masks[name].shape != hw:
+            raise AssertionError(f"{name}'s step-1 mask is "
+                                 f"{masks[name].shape}, its image {hw}")
+    detected = sorted(n for n, mk in masks.items() if mk.any())
+    for name in detected:
+        hw = files[name][1]
+        rep = image_io.read_rgb(out / "step2_watermark_repaired"
+                                f"/{name}.png")
+        keep = masks[name] <= 127
+        if rep.shape[:2] != hw or not np.array_equal(rep[keep],
+                                                     decoded[name][keep]):
+            raise AssertionError(f"{name}: step 2 changed pixels outside "
+                                 f"the step-1 mask (or its size)")
+        for path in (out / f"{name}.png", out / "masks" / f"{name}.png"):
+            got = image_io.check_image(path)
+            if got != hw:
+                raise AssertionError(f"{path.name} is {got}, its image {hw}")
+    text = sorted(p.name for p in (out / "step3_text_masks").iterdir()) \
+        if (out / "step3_text_masks").is_dir() else []
+    for tm in text:
+        hw = files[tm[:-len("_text_mask.png")]][1]
+        if image_io.check_image(out / "step3_text_masks" / tm) != hw:
+            raise AssertionError(f"{tm} is not at its image's size {hw}")
+    return {"images": len(files), "decodable": len(masks),
+            "detected": detected, "text_masks": len(text),
+            "summary": {k: summary[k] for k in (
+                "total_images", "successful_images", "avg_watermark_ratio",
+                "avg_text_pixels", "steps_completed", "engine_failures",
+                "engine_used", "ocr_engine_used", "ocr_failures")}}
+
+
+def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
+                          clean=JPEG_CLEAN, no_unet=JPEG_NO_UNET,
+                          device="cuda"):
+    """Phase 3f: the `repair` command as users type it on a folder of
+    JPEGs, then --no-unet on a few of them; logs the checks and returns the
+    timing fields and kernel launches for phase 4's line."""
+    import torch
+
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.utils import image_io
+
+    folder = work / "in_jpeg"
+    t0 = time.perf_counter()
+    files = write_jpeg_folder(folder, seed, spec, clean)
+    write_s = time.perf_counter() - t0
+    routes = jpeg_routes(files, dev)
+    argv = ["repair", "--input", str(folder)]
+    if device != "cuda":  # the flag's default
+        argv += ["--device", device]
+
+    # (a) the command as users type it
+    kc.reset_launch_counts()
+    rc, wall_cold, _ = run_cli(argv + ["--output", str(work / "out_jpeg")],
+                               dev, timer=False)
+    launches = {k.__name__: k.launches for k in kc.KERNELS}
+    if rc != 0:
+        raise AssertionError(f"repair (JPEG folder) exited {rc}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the JPEG run's step 1 never launched "
+                                 f"{name}")
+    checks = check_jpeg_outputs(work / "out_jpeg", files, routes["decoded"])
+    log("repair_cli_jpeg", argv=argv[:1] + argv[3:], rc=rc,
+        launches=launches,
+        files=[{"name": f[0], "upright": [f[1], f[2]], "quality": f[3],
+                "sampling": f[4], "progressive": f[5], "restart": f[6],
+                "orientation": f[7], "cut": f[8],
+                "bytes": len(files[f[0]][0])} for f in spec],
+        write_folder_s=write_s, card_route_equals_plain=True,
+        plain_entropy_s=routes["plain_entropy_s"], **checks,
+        repaired_keep_unmasked_bytes=True)
+    # (b) again, each stage timed; the decode stage's JPEG parts apart,
+    # and the card's peak allocation over the run
+    parts = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rc, wall_timed, split = run_cli(
+        argv + ["--output", str(work / "out_jpeg2")], dev, timer=True,
+        parts=parts)
+    if rc != 0:
+        raise AssertionError(f"repair (JPEG folder, timed) exited {rc}")
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20 \
+        if dev.type == "cuda" else None
+    # (c) --no-unet: each file copied to step 2's folder as {stem}.png,
+    # which steps 3 and 4 read as the JPEG it is
+    sub = work / "in_jpeg_no_unet"
+    sub.mkdir()
+    for name in no_unet:
+        (sub / f"{name}.jpg").write_bytes(files[name][0])
+    rc = run_cli(argv[:1] + ["--input", str(sub), "--no-unet", "--output",
+                             str(work / "out_jpeg_no_unet")] + argv[3:],
+                 dev, timer=False)[0]
+    out = work / "out_jpeg_no_unet"
+    summary = json.loads((out / "repair_summary.json").read_text())
+    if rc != 0 or summary["status"] != "success" or summary["ocr_failures"]:
+        raise AssertionError(f"repair --no-unet (JPEG) exited {rc}: "
+                             f"{summary}")
+    for name in no_unet:
+        copy = out / "step2_watermark_repaired" / f"{name}.png"
+        if copy.read_bytes()[:3] != b"\xff\xd8\xff":
+            raise AssertionError(f"{copy.name} is not the JPEG copied")
+        if image_io.check_image(out / f"{name}.png") != files[name][1]:
+            raise AssertionError(f"--no-unet final {name} is not upright")
+    text = sorted(p.name for p in (out / "step3_text_masks").iterdir())
+    log("repair_cli_jpeg_no_unet", files=list(no_unet), rc=rc,
+        text_masks=text, summary={k: summary[k] for k in (
+            "total_images", "successful_images", "steps_completed",
+            "ocr_engine_used", "ocr_failures")})
+    n = len(files)
+    return {"images": n, "jpeg_decode_ms": jpeg_decode_ms(files, dev),
+            "wall_cold_s": wall_cold,
+            "img_per_s_cold": n / wall_cold, "wall_timed_s": wall_timed,
+            "img_per_s_timed": n / wall_timed,
+            "split_s": {k: split.get(k, 0.0) for k in STAGES},
+            "decode_parts_s": parts, "peak_alloc_mib": peak_mib,
+            "other_s": wall_timed - sum(split.values()),
+            "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -1189,6 +1490,8 @@ def main(argv=None) -> int:
         cli_timing = repair_cli_phase(work, pred_d, args.seed, dev)
         # -- 3e: the repair command with OCR on --------------------------
         ocr_timing = repair_cli_ocr_phase(work, args.seed, dev)
+        # -- 3f: the repair command on a folder of JPEGs -----------------
+        jpeg_timing = repair_cli_jpeg_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1312,6 +1615,10 @@ def main(argv=None) -> int:
         fused_lama_img_per_s=n / (e2e_l[0] / 1e3),
         fused_lama_batch=[n, s, s, 3], card=card)
     log("timing_repair_cli_ocr", **ocr_timing, card=card)
+    log("timing_repair_cli_jpeg", **jpeg_timing,
+        paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
+        sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
+        card=card)
 
     log("profile", **profile_window(lambda: fused(images), 3))
     log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
@@ -1359,6 +1666,7 @@ def main(argv=None) -> int:
             "default_config_launches": art_launches[fn.__name__],
             "repair_cli_launches": cli_timing["launches"][fn.__name__],
             "repair_cli_ocr_launches": ocr_timing["launches"][fn.__name__],
+            "repair_cli_jpeg_launches": jpeg_timing["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

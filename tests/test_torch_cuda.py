@@ -264,3 +264,41 @@ def test_image_ops_on_card_equal_cpu(cuda, shape):
     img = rgb.numpy()
     assert BuiltinTextDetector(device="cuda").detect_text_regions(img) == \
         BuiltinTextDetector(device="cpu").detect_text_regions(img)
+
+
+# encode_jpeg's forms (the decoder matrix's subset that needs no cv2):
+# (shape, quality, sampling, progressive, restart, orientation)
+JPEG_FORMS = [((512, 512), 95, "420", False, 0, None),
+              ((720, 1280), 90, "444", False, 4, None),
+              ((720, 1280), 85, "422", False, 0, None),
+              ((1080, 1920), 95, "420", True, 0, None),
+              ((1920, 1080), 95, "420", False, 0, 6),
+              ((129, 191), 90, "gray", True, 3, 3)]
+
+
+@pytest.mark.parametrize("form", JPEG_FORMS, ids=lambda f: "x".join(
+    map(str, f[0])) + f"-{f[2]}-{'p' if f[3] else 'b'}")
+def test_jpeg_card_route_equals_cpu(cuda, form):
+    """A JPEG decoded on the card's route (the C entropy decoder, the pixel
+    stage on the card) equals the CPU's (the Python decoder, the pixel
+    stage on the CPU), byte for byte, colour and gray; so does a file cut
+    30 % into its entropy data."""
+    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
+    from unet_watermark_tpu_torch.utils import image_io, jpeg
+    from unet_watermark_tpu_torch.utils.synthetic import encode_jpeg
+
+    shape, q, sampling, prog, rst, orient = form
+    img, _ = watermarked_images(1, max(shape), seed=sum(shape))
+    img = (img[0, :shape[0], :shape[1]] * 255).astype(np.uint8)
+    if sampling == "gray":
+        img, sampling = img[..., 1].copy(), "444"
+    data = encode_jpeg(img, q, sampling, prog, rst, orient)
+    start = jpeg.parse(data, headers_only=True).scans[0].start
+    for body in (data, data[:start + (len(data) - start) * 3 // 10]):
+        for gray in (False, True):
+            before = jpeg_entropy.decode_scans_c.calls
+            card = image_io.decode_jpeg(body, cuda, gray)
+            assert jpeg_entropy.decode_scans_c.calls == before + 1
+            assert card.device.type == "cuda"
+            assert torch.equal(card.cpu(),
+                               image_io.decode_jpeg(body, "cpu", gray))

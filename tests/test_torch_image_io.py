@@ -199,7 +199,7 @@ def test_port_written_files_read_back_by_cv2(tmp_path_factory, h, w, color,
 def test_interlaced_and_malformed_files_raise(tmp_path):
     rows = np.zeros((4, 4), np.uint8)
     (tmp_path / "i.png").write_bytes(_raw_png(rows, 4, 8, 0, interlace=1))
-    for call in (image_io.read_rgb, image_io.check_png):
+    for call in (image_io.read_rgb, image_io.check_image):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call(tmp_path / "i.png")
     good = bytearray(_raw_png(rows, 4, 8, 0))
@@ -207,8 +207,10 @@ def test_interlaced_and_malformed_files_raise(tmp_path):
     (tmp_path / "c.png").write_bytes(bytes(good))
     with pytest.raises(image_io.PNGError, match="CRC"):
         image_io.read_rgb(tmp_path / "c.png")
+    # a JPEG signature and nothing more: cv2.imread gives None
     (tmp_path / "j.jpg").write_bytes(b"\xff\xd8\xff\xe0")
-    with pytest.raises(image_io.PNGError, match="not a PNG"):
+    assert cv2.imread(str(tmp_path / "j.jpg")) is None
+    with pytest.raises(image_io.JPEGError, match="cut off|no frame"):
         image_io.read_rgb(tmp_path / "j.jpg")
     with pytest.raises(ValueError, match="uint8"):
         image_io.encode_png(np.zeros((4, 4), np.float32))

@@ -1,0 +1,418 @@
+"""The port's JPEG decoder (utils/jpeg.py, the C entropy decoder of
+csrc/jpeg_entropy.c, ops/jpeg.py's pixel stage) against cv2.imread (cv2
+5.0.0 with libjpeg-turbo 3.1.2), on files cv2.imencode writes here: every
+byte equal, for colour and gray reads, over qualities, samplings,
+progressive and optimized coding, restart intervals, split luma/chroma
+qualities, gray files, odd sizes, EXIF orientations 1-8 in both byte
+orders, and files cut inside their entropy data. Also the C decoder's
+coefficients against the Python decoder's, utils/synthetic.encode_jpeg's
+files in cv2, and the forms that must raise.
+
+One case is not exact: a progressive file cut before its last scan starts.
+libjpeg then smooths the blocks whose coefficients are incomplete
+(jdcoefct.c's block smoothing), which is not ported; those cuts are stated
+below by their count of differing bytes and largest difference.
+"""
+import itertools
+import os
+import shutil
+import struct
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
+from unet_watermark_tpu_torch.utils import image_io, jpeg
+from unet_watermark_tpu_torch.utils.synthetic import encode_jpeg
+
+torch.set_num_threads(2)
+
+SIZES = [(1, 1), (7, 13), (17, 33), (129, 191)]
+SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+            "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+            "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+            "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+            "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+# (quality, IMWRITE_JPEG_OPTIMIZE, restart interval in MCUs): each file of a
+# matrix case; every quality, both optimize settings and every interval
+CODINGS = [(50, 0, 0), (75, 1, 1), (95, 0, 7), (100, 1, 0)]
+# progressive 129 x 191 q95 4:2:0 files cut at these shares of their
+# entropy data (from the first scan on): {share: (bytes of the colour read,
+# of 73 917, that differ from cv2's, largest difference)}. The 0.3 cut
+# falls in scan 6 of 10, the 0.6 cut in scan 9: libjpeg smooths the blocks
+# of coefficients not yet fully refined (the same happens at clean scan
+# boundaries); the 0.95 cut falls in the last scan, where it does not
+CUT_SHARES = (0.3, 0.6, 0.95)
+PROGRESSIVE_CUT_DIFFER = {0.3: (44950, 67), 0.6: (9229, 4), 0.95: (0, 0)}
+
+
+def photo(h, w, seed, gray=False):
+    """A smooth gradient with noise and a few hard edges: the content of a
+    photo with a logo over it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w, 2)
+    base = np.stack([yy, xx, (yy + xx) / 2], -1) * 190 + 30
+    base += rng.normal(0, 10, base.shape)
+    base[h // 3:h // 2, w // 4:w // 2] = (240, 20, 200)
+    img = np.clip(base, 0, 255).astype(np.uint8)
+    return img[..., 1].copy() if gray else img
+
+
+def encode(img, quality=95, sampling="420", progressive=0, optimize=0,
+           restart=0, luma=None, chroma=None) -> bytes:
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality,
+              cv2.IMWRITE_JPEG_PROGRESSIVE, progressive,
+              cv2.IMWRITE_JPEG_OPTIMIZE, optimize,
+              cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if img.ndim == 3:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+    if luma is not None:
+        params += [cv2.IMWRITE_JPEG_LUMA_QUALITY, luma,
+                   cv2.IMWRITE_JPEG_CHROMA_QUALITY, chroma]
+    ok, buf = cv2.imencode(".jpg", img[..., ::-1] if img.ndim == 3 else img,
+                           params)
+    assert ok
+    return buf.tobytes()
+
+
+def cv2_reads(path):
+    """(RGB, gray) as cv2.imread gives them."""
+    rgb = cv2.imread(str(path))
+    assert rgb is not None, path
+    return (cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB),
+            cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+
+
+def assert_reads_equal_cv2(path):
+    rgb, gray = cv2_reads(path)
+    out = image_io.read_rgb(path)
+    assert out.shape == rgb.shape and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, rgb)
+    np.testing.assert_array_equal(image_io.read_gray(path), gray)
+    assert image_io.check_image(path) == rgb.shape[:2]
+
+
+def matrix_files():
+    """The matrix: (id, bytes) of every size x sampling x progressive case,
+    each coded the CODINGS ways."""
+    for (h, w), s, prog in itertools.product(SIZES, SAMPLING, (0, 1)):
+        img = photo(h, w, h * 7 + w)
+        for q, opt, rst in CODINGS:
+            yield (f"{h}x{w}-{s}-p{prog}-q{q}-o{opt}-r{rst}",
+                   encode(img, q, s, prog, opt, rst))
+
+
+@pytest.fixture
+def c_decoder():
+    if shutil.which("cc") is None:
+        pytest.skip("needs a host C compiler (cc) to build the C decoder")
+    return jpeg_entropy.decode_scans_c
+
+
+@pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("sampling", list(SAMPLING))
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_reads_equal_cv2(tmp_path, size, sampling, prog):
+    """read_rgb and read_gray against cv2.imread: 0 differing bytes, each
+    quality / optimize / restart coding of CODINGS."""
+    img = photo(*size, size[0] * 7 + size[1])
+    for q, opt, rst in CODINGS:
+        path = tmp_path / f"q{q}.jpg"
+        path.write_bytes(encode(img, q, sampling, prog, opt, rst))
+        assert_reads_equal_cv2(path)
+
+
+@pytest.mark.parametrize("luma, chroma", [(90, 40), (40, 95), (100, 60)])
+@pytest.mark.parametrize("sampling", ["444", "420"])
+def test_split_luma_chroma_quality_equals_cv2(tmp_path, sampling, luma,
+                                              chroma):
+    path = tmp_path / "split.jpg"
+    path.write_bytes(encode(photo(129, 191, 3), 95, sampling, luma=luma,
+                            chroma=chroma))
+    assert_reads_equal_cv2(path)
+
+
+@pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gray_files_equal_cv2(tmp_path, size, prog):
+    """One-component files: the plane read as gray, and three times over
+    read as colour."""
+    path = tmp_path / "gray.jpg"
+    img = photo(*size, size[0] + 1, gray=True)
+    for q, opt, rst in CODINGS:
+        path.write_bytes(encode(img, q, progressive=prog, optimize=opt,
+                                restart=rst))
+        assert_reads_equal_cv2(path)
+        assert jpeg.parse(path.read_bytes()).color == "gray"
+
+
+def exif_app1(orientation: int, big_endian: bool) -> bytes:
+    """An APP1 segment: Exif identifier, TIFF header in the given byte
+    order, IFD0 with a make tag before the orientation tag."""
+    e = ">" if big_endian else "<"
+    tiff = (b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42, 8)
+    tiff += struct.pack(e + "H", 2)
+    tiff += struct.pack(e + "HHI4s", 0x010F, 2, 4, b"ABC\0")
+    tiff += struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0)
+    tiff += struct.pack(e + "I", 0)
+    body = b"Exif\0\0" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def splice_exif(data: bytes, orientation: int, big_endian: bool) -> bytes:
+    """The file with an APP1 EXIF segment after its APP0."""
+    app0_end = 4 + struct.unpack(">H", data[4:6])[0]
+    return data[:app0_end] + exif_app1(orientation, big_endian) + \
+        data[app0_end:]
+
+
+@pytest.mark.parametrize("big_endian", [True, False], ids=["MM", "II"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientation_equals_cv2(tmp_path, orientation, big_endian):
+    path = tmp_path / "o.jpg"
+    base = photo(17, 33, 5)
+    for sampling in ("420", "444"):
+        data = splice_exif(encode(base, 90, sampling), orientation,
+                           big_endian)
+        path.write_bytes(data)
+        assert jpeg.parse(data).orientation == orientation
+        assert_reads_equal_cv2(path)
+    if orientation == 6:  # cv2 rotates clockwise, both reads
+        rgb, gray = cv2_reads(path)
+        plain = tmp_path / "plain.jpg"
+        plain.write_bytes(encode(base, 90, "444"))
+        up_rgb, up_gray = cv2_reads(plain)
+        np.testing.assert_array_equal(rgb, np.rot90(up_rgb, -1))
+        np.testing.assert_array_equal(gray, np.rot90(up_gray, -1))
+
+
+def entropy_start(data: bytes) -> int:
+    return jpeg.parse(data, headers_only=True).scans[0].start
+
+
+@pytest.mark.parametrize("share", CUT_SHARES)
+@pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
+def test_truncated_files(tmp_path, prog, share):
+    """A file cut inside its entropy data: cv2 gives the image (a flat gray
+    tail in a baseline file, the earlier scans' detail in a progressive
+    one). Baseline cuts are exact; progressive cuts before the last scan
+    differ by PROGRESSIVE_CUT_DIFFER (libjpeg's block smoothing)."""
+    data = encode(photo(129, 191, 9), 95, "420", prog)
+    start = entropy_start(data)
+    cut = data[:start + int(share * (len(data) - start))]
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(cut)
+    rgb, gray = cv2_reads(path)
+    out = image_io.read_rgb(path)
+    assert out.shape == rgb.shape
+    if not prog:
+        np.testing.assert_array_equal(out, rgb)
+        np.testing.assert_array_equal(image_io.read_gray(path), gray)
+        # the MCUs after the cut are left empty: mid-gray luma
+        assert gray[-1, -1] == 128
+        return
+    diff = np.abs(out.astype(int) - rgb)
+    assert (int((diff > 0).sum()), int(diff.max())) == \
+        PROGRESSIVE_CUT_DIFFER[share]
+
+
+def test_unreadable_files_give_jpeg_error(tmp_path):
+    """Where cv2.imread gives None: no frame, no scan (a file cut before its
+    first SOS), a segment cut off. check_image and require_decodable let
+    the pipeline skip such a file; the readers raise JPEGError."""
+    data = encode(photo(17, 33, 2))
+    sos = data.index(b"\xff\xda")
+    dqt = data.index(b"\xff\xdb")
+    cases = {"soi_only": data[:2] + b"\xff\xd9",
+             "cut_before_sos": data[:sos],
+             "cut_in_a_segment": data[:dqt + 20]}
+    for name, body in cases.items():
+        path = tmp_path / f"{name}.jpg"
+        path.write_bytes(body)
+        assert cv2.imread(str(path)) is None, name
+        for read in (image_io.read_rgb, image_io.read_gray,
+                     image_io.check_image):
+            with pytest.raises(image_io.JPEGError):
+                read(path)
+        image_io.require_decodable(path)  # no raise: skipped later
+
+
+def _framed(h: int, w: int) -> bytes:
+    """A small file whose frame header declares h x w."""
+    data = bytearray(encode(photo(8, 8, 5)))
+    i = data.index(b"\xff\xc0")
+    data[i + 5:i + 9] = struct.pack(">HH", h, w)
+    return bytes(data)
+
+
+@pytest.mark.parametrize("h, w", [(8, 65501), (65501, 8), (65535, 65535),
+                                  (32768, 32769)], ids=str)
+def test_frames_over_cv2_limits_give_jpeg_error(tmp_path, h, w):
+    """A header that declares a frame over cv2.imread's limits (libjpeg's
+    65500 a side, cv2's 2**30 pixels): cv2 refuses the file before it
+    decodes anything (None; cv2 5.0 raises for the pixel limit), and the
+    port raises JPEGError at once, before it allocates the frame."""
+    path = tmp_path / "big.jpg"
+    path.write_bytes(_framed(h, w))
+    try:
+        assert cv2.imread(str(path)) is None
+    except cv2.error as e:
+        assert "CV_IO_MAX_IMAGE_PIXELS" in str(e) and h * w > 1 << 30
+    t0 = time.perf_counter()
+    for read in (image_io.read_rgb, image_io.read_gray,
+                 image_io.check_image):
+        with pytest.raises(image_io.JPEGError, match="limits"):
+            read(path)
+    image_io.require_decodable(path)  # no raise: skipped later
+    assert time.perf_counter() - t0 < 1.0
+
+
+def test_frame_at_libjpeg_side_limit_is_decoded(tmp_path):
+    """A 8 x 65500 frame is within the limits: cv2 decodes it (its data
+    ends at once, so it is flat past the first MCUs), and so does the
+    port, byte for byte."""
+    path = tmp_path / "wide.jpg"
+    path.write_bytes(_framed(8, 65500))
+    assert_reads_equal_cv2(path)
+
+
+def _patched(data: bytes, marker: int, precision=None, ncomp=None) -> bytes:
+    """The file with its SOF marker replaced, its precision or component
+    count changed."""
+    i = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    out[i + 1] = marker
+    if precision is not None:
+        out[i + 4] = precision
+    if ncomp is not None:
+        out[i + 9] = ncomp
+    return bytes(out)
+
+
+@pytest.mark.parametrize("form", ["lossless", "hierarchical", "arithmetic",
+                                  "arithmetic_progressive", "dac",
+                                  "12bit", "cmyk"])
+def test_refused_forms_raise(tmp_path, form):
+    data = encode(photo(17, 33, 4), 90, "444")
+    body = {"lossless": lambda: _patched(data, 0xC3),
+            "hierarchical": lambda: _patched(data, 0xC5),
+            "arithmetic": lambda: _patched(data, 0xC9),
+            "arithmetic_progressive": lambda: _patched(data, 0xCA),
+            "dac": lambda: data[:2] + b"\xff\xcc\x00\x04\x00\x11"
+            + data[2:],
+            "12bit": lambda: _patched(data, 0xC0, precision=12),
+            # a 4-component frame: the count is checked before the
+            # component list
+            "cmyk": lambda: _patched(data, 0xC0, ncomp=4)}[form]()
+    path = tmp_path / f"{form}.jpg"
+    path.write_bytes(body)
+    for call in (image_io.read_rgb, image_io.check_image,
+                 image_io.require_decodable):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A.5"):
+            call(path)
+
+
+def test_decoder_follows_content_not_name(tmp_path):
+    """A JPEG named .png and a PNG named .jpg read as what they are, as
+    cv2.imread reads them."""
+    img = photo(17, 33, 6)
+    (tmp_path / "j.png").write_bytes(encode(img))
+    image_io.write_png(tmp_path / "p.jpg", img)
+    for name in ("j.png", "p.jpg"):
+        assert_reads_equal_cv2(tmp_path / name) if name == "j.png" else \
+            np.testing.assert_array_equal(image_io.read_rgb(tmp_path / name),
+                                          img)
+    t = image_io.read_rgb_tensor(tmp_path / "j.png", "cpu")
+    assert t.dtype == torch.uint8 and t.device.type == "cpu"
+    np.testing.assert_array_equal(t.numpy(),
+                                  image_io.read_rgb(tmp_path / "j.png"))
+
+
+@pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("sampling", list(SAMPLING) + ["gray"])
+def test_c_decoder_equals_python(c_decoder, sampling, prog):
+    """The C entropy decoder's coefficients equal the Python decoder's on
+    the matrix (every size and coding of this sampling and mode; gray
+    files; split luma/chroma qualities), on the truncated files and on
+    encode_jpeg's forms."""
+    if sampling == "gray":
+        files = [encode(photo(*size, size[0] + 1, gray=True), q,
+                        progressive=prog, optimize=opt, restart=rst)
+                 for size in SIZES for q, opt, rst in CODINGS]
+    else:
+        files = [d for name, d in matrix_files()
+                 if f"-{sampling}-p{prog}-" in name]
+        files += [encode(photo(129, 191, 3), 95, sampling, prog, luma=lq,
+                         chroma=cq) for lq, cq in ((90, 40), (40, 95))]
+    full = encode(photo(129, 191, 9), 95, "420", prog)
+    start = entropy_start(full)
+    files += [full[:start + int(s * (len(full) - start))]
+              for s in CUT_SHARES]
+    files += [encode_jpeg(photo(40, 56, 1), 85, s, bool(prog), rst, o)
+              for s, rst, o in (("444", 0, None), ("422", 3, 6),
+                                ("420", 2, 3))]
+    for data in files:
+        header = jpeg.parse(data)
+        for a, b in zip(jpeg.decode_scans(header, data),
+                        c_decoder(header, data)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("prog", [False, True],
+                         ids=["baseline", "progressive"])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "gray"])
+def test_encode_jpeg_files_decode_as_in_cv2(tmp_path, sampling, prog,
+                                            restart):
+    """utils/synthetic.encode_jpeg's files: cv2 decodes each to what the
+    port's decoder gives, near the source image; with orientation 6 both
+    give the rotated image."""
+    gray = sampling == "gray"
+    img = photo(37, 61, 8, gray=gray)
+    for orientation in (None, 6):
+        path = tmp_path / "w.jpg"
+        path.write_bytes(encode_jpeg(img, 90, "444" if gray else sampling,
+                                     prog, restart, orientation))
+        assert_reads_equal_cv2(path)
+        out = image_io.read_gray(path) if gray else image_io.read_rgb(path)
+        src = np.rot90(img, -1) if orientation == 6 else img
+        assert out.shape == src.shape
+        # q90: a few levels on average; subsampled chroma keeps little of
+        # the noise (sigma 10) of each channel (observed 5.8, 7.2 and 8.2
+        # for 4:4:4, 4:2:2 and 4:2:0)
+        assert np.abs(out.astype(int) - src).mean() < 10
+
+
+BUILD_ONE = """
+import ctypes, sys
+from pathlib import Path
+from unet_watermark_tpu_torch.ops.kernels import build
+build.BUILD_DIR = Path(sys.argv[1])
+lib, _ = build.build("jpeg_entropy.c")
+ctypes.CDLL(str(lib)).uwt_jpeg_decode_scan
+print(lib.name)
+"""
+
+
+def test_concurrent_builds_of_one_source(c_decoder, tmp_path):
+    """Six processes (more than the test's cores) build the C decoder into
+    one empty build directory at once, as test workers may: each loads a
+    whole library, all name the same file, no temporary file is left."""
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(repo), os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_ONE,
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 6, [e for _, e in outs]
+    names = {o.strip() for o, _ in outs}
+    assert len(names) == 1
+    assert sorted(f.name for f in tmp_path.iterdir()) == sorted(names)

@@ -102,7 +102,7 @@ def test_array_and_pil_inputs(detectors, files):
     with pytest.raises(ValueError):
         td.generate_text_mask(rgb[..., 0])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        td.detect_text_regions("photo.jpg")
+        td.detect_text_regions("photo.webp")
 
 
 def test_batch_process_equals_jax(files, detectors, tmp_path):
@@ -122,17 +122,37 @@ def test_batch_process_equals_jax(files, detectors, tmp_path):
 
 def test_batch_process_rejects_undecoded_types_first(files, detectors,
                                                       tmp_path):
-    """A folder holding a JPEG raises before any mask is written, as
+    """A folder holding a BMP file raises before any mask is written, as
     process_folder_batch does."""
     _, td = detectors
     src = tmp_path / "src"
     src.mkdir()
     for p in files[:2]:
         (src / p.name).write_bytes(p.read_bytes())
-    (src / "zz.jpg").write_bytes(b"\xff\xd8\xff\xd9")
+    (src / "zz.bmp").write_bytes(b"BM\x36\x00\x00\x00")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         td.batch_process(str(src), str(tmp_path / "out"))
     assert not any((tmp_path / "out").iterdir())
+
+
+def _no_entropy_decode(*args, **kwargs):
+    raise AssertionError("the pixels were decoded")
+
+
+def test_builtin_detector_decodes_a_jpeg_path_on_its_device(
+        files, detectors, tmp_path, monkeypatch):
+    """A JPEG path goes through image_io.read_rgb_tensor on the detector's
+    device, not through the host reader; its regions and mask equal the
+    JAX detector's on the same file."""
+    jd, td = detectors
+    img = cv2.imread(str(files[3]))
+    path = str(tmp_path / "g.jpg")
+    assert cv2.imwrite(path, img)
+    monkeypatch.setattr(image_io, "read_rgb", _no_entropy_decode)
+    regions = td.detect_text_regions(path)
+    assert regions and regions == jd.detect_text_regions(path)
+    np.testing.assert_array_equal(td.generate_text_mask(path),
+                                  jd.generate_text_mask(path))
 
 
 class _RecordingReader:
@@ -228,6 +248,40 @@ def test_paddle_client_equals_jax(mock_server, tmp_path, key):
     assert regions and regions == jd.detect_text_regions(p)
     np.testing.assert_array_equal(td.generate_text_mask(p),
                                   jd.generate_text_mask(p))
+
+
+def test_paddle_batch_process_reads_no_jpeg_pixels(mock_server, tmp_path,
+                                                   monkeypatch):
+    """The PaddleOCR client sends the file; its masks take each image's size
+    from the headers, so a JPEG folder (one EXIF-rotated file among them)
+    is never entropy-decoded. Masks and counts equal the JAX client's."""
+    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
+    from unet_watermark_tpu_torch.utils import jpeg
+
+    MockPaddleHandler.response_payload = {"ocrResults": [
+        {"prunedResult": PADDLE_PAYLOADS["dt_polys"]}]}
+    src = tmp_path / "src"
+    src.mkdir()
+    for i, (h, w) in enumerate(((40, 60), (64, 48))):
+        ok, data = cv2.imencode(".jpg", np.full((h, w, 3), 40 * i, np.uint8))
+        (src / f"p{i}.jpg").write_bytes(data.tobytes())
+    rotated = bytearray((src / "p1.jpg").read_bytes())  # APP1 Exif, MM,
+    rotated[2:2] = bytes.fromhex(  # orientation 6
+        "ffe10022457869660000""4d4d002a00000008""0001011200030000"
+        "000100060000""00000000")
+    (src / "p1.jpg").write_bytes(bytes(rotated))
+    assert cv2.imread(str(src / "p1.jpg")).shape[:2] == (48, 64)
+    monkeypatch.setattr(jpeg_entropy, "decode_scans", _no_entropy_decode)
+    monkeypatch.setattr(jpeg, "decode_scans", _no_entropy_decode)
+    jd = jax_ocr.PaddleOCRProcessor(api_url=mock_server)
+    td = ocr.PaddleOCRProcessor(api_url=mock_server)
+    js = jd.batch_process(str(src), str(tmp_path / "j"))
+    ts = td.batch_process(str(src), str(tmp_path / "t"))
+    assert ts == js and ts["processed"] == 2
+    for n in ("p0_mask.png", "p1_mask.png"):
+        np.testing.assert_array_equal(
+            image_io.read_gray(tmp_path / "t" / n),
+            cv2.imread(str(tmp_path / "j" / n), cv2.IMREAD_GRAYSCALE))
 
 
 def test_paddle_client_service_down(tmp_path):

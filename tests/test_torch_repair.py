@@ -5,7 +5,10 @@ of PNGs written by cv2, with the default configuration's UNet++/resnet34
 shipped weights in float32 at IMG_SIZE 64 and the push-pull engine
 ("telea"). Also the tiled high-res path and the predict flags
 (EDGE_REFINEMENT, CONNECTIVITY_CHECK, MULTI_SCALE_TEST), predict_mask for
-the three mask types, and what raises until a later slice."""
+the three mask types, and what raises until a later slice. The same on a
+folder of JPEGs written by cv2 (an EXIF-rotated and a progressive file
+among them), and the --no-unet route with OCR on JPEGs, whose step 3 reads
+JPEG bytes copied under .png names."""
 import json
 import os
 import struct
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_jpeg import splice_exif
 from test_torch_pipeline import _jax_predictor
 from unet_watermark_tpu import cli as jax_cli
 from unet_watermark_tpu_torch import cli
@@ -63,6 +67,30 @@ def _write_folder(folder: Path, spec) -> None:
         rgb = (img[0, y0:y0 + h, x0:x0 + w] * 255).astype(np.uint8)
         cv2.imwrite(str(folder / f"{name}.png"),
                     cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+
+
+def _write_jpeg_folder(folder: Path, spec, rotated=(), progressive=()
+                       ) -> None:
+    """_write_folder's images as JPEGs written by cv2 with its defaults
+    (quality 95, 4:2:0, baseline): the names in `rotated` stored turned a
+    quarter left with EXIF orientation 6 (read back upright), those in
+    `progressive` progressive."""
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, h, w, seed in spec:
+        side = max(h, w)
+        img, _ = watermarked_images(1, side, seed=seed or 0,
+                                    clean=int(seed is None))
+        y0, x0 = (side - h) // 2, (side - w) // 2
+        bgr = cv2.cvtColor((img[0, y0:y0 + h, x0:x0 + w] * 255).astype(
+            np.uint8), cv2.COLOR_RGB2BGR)
+        if name in rotated:
+            bgr = np.ascontiguousarray(np.rot90(bgr, 1))
+        ok, buf = cv2.imencode(".jpg", bgr, [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, int(name in progressive)])
+        data = buf.tobytes()
+        if name in rotated:
+            data = splice_exif(data, 6, big_endian=True)
+        (folder / f"{name}.jpg").write_bytes(data)
 
 
 def _jax(mask_mode="auto"):
@@ -158,6 +186,24 @@ def ocr_runs(preds, folder):
     return out
 
 
+@pytest.fixture(scope="module")
+def jpeg_runs(preds, tmp_path_factory):
+    """process_folder_batch without OCR on FOLDER written as JPEGs: b.jpg
+    EXIF-rotated, f.jpg progressive."""
+    d = tmp_path_factory.mktemp("repair_jpeg") / "in"
+    _write_jpeg_folder(d, FOLDER, rotated=("b",), progressive=("f",))
+    out = {"folder": d}
+    for key, p in zip(("jax", "port"), preds):
+        seen = _record_step1(p)
+        o = d.parent / f"out_{key}"
+        stats = p.process_folder_batch(str(d), str(o),
+                                       watermark_model="telea",
+                                       use_ocr=False, steps=3)
+        del p.step1_batch_predict_watermark_masks
+        out[key] = {"dir": o, "stats": stats, "step1": seen["step1"]}
+    return out
+
+
 def test_step1_masks_types_and_ratios_equal_jax(runs, folder):
     j, t = runs["jax"], runs["port"]
     names = sorted(os.listdir(j["dir"] / "step1_masks"))
@@ -212,6 +258,59 @@ def test_stage_timer_splits_a_run(preds, folder, tmp_path, monkeypatch):
         "engine_load", "step2_device", "step5", "encode"}
     assert min(timer.seconds.values()) > 0
     assert sum(timer.seconds.values()) <= wall
+    assert not timer.parts  # no JPEG; a PNG's upload is in upload_resize
+
+
+def test_step2_decodes_one_batch_at_a_time(folder, tmp_path, monkeypatch):
+    """Step 2 buckets the images by the sizes in their headers and decodes
+    each batch's images when the batch runs, so the device holds one batch
+    of them at a time: before each engine call, the images read since the
+    last one are that batch's."""
+    from unet_watermark_tpu_torch.inference import predict as P
+
+    pred = _port()
+    pred.cfg.PREDICT.BATCH_SIZE = 2
+    events, in_step2 = [], []
+    read = P.image_io.read_rgb_tensor
+    get_engine = P.engines.get_engine
+    step2 = pred.step2_batch_iopaint_watermark_repair
+
+    def reading(path, *args, **kwargs):
+        if in_step2:
+            events.append(("read", os.path.basename(path)))
+        return read(path, *args, **kwargs)
+
+    def engine_of(*args, **kwargs):
+        engine = get_engine(*args, **kwargs)
+
+        def run(imgs, masks):
+            events.append(("engine", imgs.shape[0]))
+            return engine(imgs, masks)
+        run.name = engine.name
+        return run
+
+    def step2_marked(*args, **kwargs):
+        in_step2.append(True)
+        return step2(*args, **kwargs)
+
+    monkeypatch.setattr(P.image_io, "read_rgb_tensor", reading)
+    monkeypatch.setattr(P.engines, "get_engine", engine_of)
+    pred.step2_batch_iopaint_watermark_repair = step2_marked
+    stats = pred.process_folder_batch(str(folder), str(tmp_path / "o"),
+                                      watermark_model="telea",
+                                      use_ocr=False, steps=1)
+    assert stats["status"] == "success"
+    pending, batches = 0, []
+    for kind, value in events:
+        if kind == "read":
+            pending += 1
+        else:
+            assert pending == value, events
+            batches.append(value)
+            pending = 0
+    assert pending == 0 and max(batches) == 2
+    assert sum(batches) == len(os.listdir(tmp_path / "o" /
+                                          "step2_watermark_repaired"))
 
 
 def test_repaired_images_keep_the_unmasked_pixels(runs, folder):
@@ -285,6 +384,85 @@ def test_ocr_finals_keep_step2_outside_the_text_mask(ocr_runs):
         np.testing.assert_array_equal(final[keep], step2[keep])
         if not keep.all():
             assert (final != step2).any()
+
+
+def test_jpeg_folder_matches_jax(jpeg_runs):
+    """A folder of JPEGs (one stored rotated with EXIF orientation 6, one
+    progressive): step-1 masks at each image's upright size and types
+    equal, repaired images within REPAIR_LSB, merged masks equal, stats
+    equal apart from times."""
+    j, t = jpeg_runs["jax"], jpeg_runs["port"]
+    sizes = {n: (h, w) for n, h, w, _ in FOLDER}
+    names = sorted(os.listdir(j["dir"] / "step1_masks"))
+    assert names == sorted(os.listdir(t["dir"] / "step1_masks"))
+    assert len(names) == len(FOLDER)
+    for name in names:
+        tm = _gray(t["dir"] / "step1_masks" / name)
+        assert tm.shape == sizes[name.split("_mask")[0]]
+        np.testing.assert_array_equal(
+            tm, _gray(j["dir"] / "step1_masks" / name))
+    assert _records(t["step1"]) == _records(j["step1"])
+    assert 0 < len(t["step1"]) < len(FOLDER)
+    found = {os.path.basename(r["original_path"]) for r in t["step1"]}
+    assert {"b.jpg", "f.jpg"} <= found  # the rotated and progressive files
+    for sub in ("step2_watermark_repaired", ".", "masks"):
+        jn = sorted(n for n in os.listdir(j["dir"] / sub)
+                    if n.endswith(".png"))
+        assert jn and jn == sorted(n for n in os.listdir(t["dir"] / sub)
+                                   if n.endswith(".png"))
+        for name in jn:
+            a = _rgb(j["dir"] / sub / name).astype(int)
+            b = _rgb(t["dir"] / sub / name).astype(int)
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= (0 if sub == "masks"
+                                            else REPAIR_LSB), (sub, name)
+    js, ts = dict(j["stats"]), dict(t["stats"])
+    assert [ts.pop(k) for k in PORT_KEYS] == [0, "pushpull", None, 0]
+    for key in TIME_KEYS:
+        assert ts.pop(key) > 0 and js.pop(key) > 0
+    assert ts == js and ts["status"] == "success"
+
+
+def test_jpeg_no_unet_ocr_reads_jpeg_under_png_names(preds, tmp_path):
+    """--no-unet with OCR on JPEGs: each file is copied to
+    step2_watermark_repaired/{stem}.png as it is, and step 3 and step 4
+    read those copies as the JPEGs they are, as cv2 does. Text masks equal
+    JAX's, finals within REPAIR_LSB, stats equal apart from times."""
+    d = tmp_path / "in"
+    _write_jpeg_folder(d, FOLDER[:2], rotated=("a",))
+    imgs, _, _ = text_images(TEXT_FOLDER, seed=11, logo=[True])
+    for i, img in enumerate(imgs):
+        ok, buf = cv2.imencode(".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        (d / f"t{i}.jpg").write_bytes(buf.tobytes())
+    stats = {}
+    for key, p in zip("jt", preds):
+        stats[key] = dict(p.process_folder_batch(
+            str(d), str(tmp_path / key), watermark_model="telea",
+            text_model="telea", use_unet=False, use_ocr=True,
+            ocr_engine="builtin", steps=1))
+    copy = tmp_path / "t" / "step2_watermark_repaired" / "t0.png"
+    assert copy.read_bytes()[:3] == b"\xff\xd8\xff"  # a JPEG
+    sub = "step3_text_masks"
+    names = sorted(os.listdir(tmp_path / "j" / sub))
+    assert "t0_text_mask.png" in names
+    assert names == sorted(os.listdir(tmp_path / "t" / sub))
+    for name in names:
+        np.testing.assert_array_equal(_gray(tmp_path / "t" / sub / name),
+                                      _gray(tmp_path / "j" / sub / name))
+    finals = sorted(n for n in os.listdir(tmp_path / "j")
+                    if n.endswith(".png"))
+    assert finals == sorted(n for n in os.listdir(tmp_path / "t")
+                            if n.endswith(".png"))
+    for name in finals:
+        a = _rgb(tmp_path / "j" / name).astype(int)
+        b = _rgb(tmp_path / "t" / name).astype(int)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= REPAIR_LSB, name
+    js, ts = stats["j"], stats["t"]
+    assert [ts.pop(k) for k in PORT_KEYS] == [0, "pushpull", "builtin", 0]
+    for key in TIME_KEYS:
+        ts.pop(key), js.pop(key)
+    assert ts == js and ts["steps_completed"]["step3_text_extraction"] >= 1
 
 
 @pytest.mark.parametrize("options", [{"use_unet": False},
@@ -373,6 +551,10 @@ def test_predict_mask_matches_jax(preds, folder, mask_type):
                                       jpred.predict_mask(path, mask_type))
 
 
+# the first bytes of a WEBP file (a format the port does not decode yet)
+WEBP_HEAD = b"RIFF\x24\x00\x00\x00WEBPVP8 "
+
+
 def _interlaced_png(path: Path) -> None:
     ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)
     chunk = (struct.pack(">I", 13) + b"IHDR" + ihdr
@@ -380,14 +562,14 @@ def _interlaced_png(path: Path) -> None:
     path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk)
 
 
-@pytest.mark.parametrize("bad", ["photo.jpg", "interlaced.png"])
+@pytest.mark.parametrize("bad", ["photo.webp", "interlaced.png"])
 def test_undecodable_files_raise_before_any_work(preds, folder, tmp_path,
                                                  bad):
     _, pred = preds
     d = tmp_path / "in"
     _write_folder(d, FOLDER[:1])
-    if bad.endswith(".jpg"):
-        (d / bad).write_bytes(b"\xff\xd8\xff")
+    if bad.endswith(".webp"):
+        (d / bad).write_bytes(WEBP_HEAD)
     else:
         _interlaced_png(d / bad)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

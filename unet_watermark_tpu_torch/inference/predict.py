@@ -4,7 +4,8 @@ folder-level repair pipeline and its batched in-memory surfaces.
 process_folder_batch(input, output) runs the JAX package's steps 1-5 with
 the same folders, file names, skip rules and stats:
 
-  step 1  decode each PNG on the host, ship it to the device as uint8,
+  step 1  decode each image (a PNG on the host, then shipped as uint8; a
+          JPEG's entropy data on the host and its pixels on the device),
           resize there (cv2-parity, ops/resize.py), one forward a batch,
           type detection and one mask strategy per image (under MASK_MODE
           auto the watermark strategy is the parity chain on K1 → components
@@ -30,8 +31,10 @@ the same folders, file names, skip rules and stats:
 predict_mask answers for the watermark, text and mixed types; the last two
 first run _enhance_text_features (CLAHE, Canny, sharpen; ops/imgproc.py) on
 the device. PREDICT.QUANT (ROADMAP.md §A.6) raises NotImplementedError. The
-port decodes PNG only (utils/image_io.py): a folder holding JPEG, BMP, TIFF
-or WEBP files, or an interlaced PNG, raises NotImplementedError before any
+port decodes PNG and JPEG (utils/image_io.py), each file by its content as
+cv2 does (a JPEG copied to {stem}.png by the --no-unet route or a fallback
+is read as the JPEG it is): a folder holding BMP, TIFF or WEBP files, an
+interlaced PNG or a refused JPEG form raises NotImplementedError before any
 work starts.
 
 make_fused_repair_fn is the fused detect→repair path (:931-985), whose
@@ -84,12 +87,20 @@ class StageTimer:
     process_folder_batch, each stage's own: a stage entered inside another
     counts in itself and not in the enclosing one. It synchronizes the card
     at the end of each stage, so a stage's device work counts in that
-    stage; off (STAGE_TIMER None) the pipeline makes no such syncs."""
+    stage; off (STAGE_TIMER None) the pipeline makes no such syncs.
+    `parts` holds the seconds of named parts of a stage (a JPEG decode's
+    host entropy decode and device pixel stage), which count in their
+    stage as well."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.seconds: Dict[str, float] = defaultdict(float)
+        self.parts: Dict[str, float] = defaultdict(float)
         self._inner: List[float] = []  # time of inner stages, per level
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
@@ -98,12 +109,20 @@ class StageTimer:
         try:
             yield
         finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             elapsed = time.perf_counter() - t0
             self.seconds[stage] += elapsed - self._inner.pop()
             if self._inner:
                 self._inner[-1] += elapsed
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            self.parts[name] += time.perf_counter() - t0
 
 
 # The timer the pipeline's stages report to: None (no timing, no syncs)
@@ -114,6 +133,19 @@ STAGE_TIMER: Optional[StageTimer] = None
 def _stage(name: str):
     timer = STAGE_TIMER
     return timer(name) if timer is not None else contextlib.nullcontext()
+
+
+def _part(name: str):
+    timer = STAGE_TIMER
+    return timer.part(name) if timer is not None else \
+        contextlib.nullcontext()
+
+
+def _decode_part(name: str):
+    """The parts of a decode (image_io.read_rgb_tensor): a JPEG's entropy
+    decode and pixel stage count in "decode", a PNG's upload in
+    "upload_resize"."""
+    return _stage("upload_resize") if name == "png_upload" else _part(name)
 
 
 class WatermarkPredictor:
@@ -208,7 +240,8 @@ class WatermarkPredictor:
                          limit: Optional[int] = None) -> List[str]:
         """Sorted image files of the folder, without those whose
         {stem}_mask.png is already in output_folder, `limit` of them at
-        random. A file the port cannot decode raises NotImplementedError."""
+        random. A file the port cannot decode (where cv2 could) raises
+        NotImplementedError."""
         files: List[str] = []
         for ext in IMAGE_EXTS:
             files.extend(glob.glob(os.path.join(input_folder, f"*.{ext}")))
@@ -221,21 +254,29 @@ class WatermarkPredictor:
         if limit is not None and 0 < limit < len(files):
             random.shuffle(files)
             files = files[:limit]
-        for p in files:
+        for p in files:  # an unreadable file passes: step 1 skips it
             image_io.require_decodable(p)
-            try:
-                image_io.check_png(p)
-            except image_io.PNGError:
-                pass  # unreadable: step 1 logs and skips it, as cv2 would
         return files
 
-    def _read_rgb(self, path: str) -> Optional[np.ndarray]:
-        """The decoded image, or None (logged) where cv2.imread would
-        return None."""
+    def _read_rgb(self, path: str) -> Optional[torch.Tensor]:
+        """The decoded (H, W, 3) uint8 image on this predictor's device, or
+        None (logged) where cv2.imread would return None."""
         with _stage("decode"):
             try:
-                return image_io.read_rgb(path)
-            except (OSError, image_io.PNGError) as e:
+                return image_io.read_rgb_tensor(path, self.device,
+                                                part=_decode_part)
+            except image_io.UNREADABLE as e:
+                logger.error("cannot load %s: %s", path, e)
+                return None
+
+    @staticmethod
+    def _image_size(path: str) -> Optional[Tuple[int, int]]:
+        """The (H, W) a decode of the file gives, from its headers, or None
+        (logged) where they tell that cv2.imread would return None."""
+        with _stage("decode"):
+            try:
+                return image_io.check_image(path)
+            except image_io.UNREADABLE as e:
                 logger.error("cannot load %s: %s", path, e)
                 return None
 
@@ -264,7 +305,7 @@ class WatermarkPredictor:
                      mask_type: str = "watermark") -> np.ndarray:
         """(H, W) uint8 {0, 255} mask of one image at its own size; the text
         and mixed types see the image after _enhance_text_features."""
-        rgb = torch.from_numpy(image_io.read_rgb(image_path)).to(self.device)
+        rgb = image_io.read_rgb_tensor(image_path, self.device)
         orig_h, orig_w = rgb.shape[:2]
         if mask_type in ("text", "mixed"):
             rgb = self._enhance_text_features(rgb)
@@ -345,8 +386,8 @@ class WatermarkPredictor:
     def step1_batch_predict_watermark_masks(
             self, input_folder: str, mask_output_folder: str,
             limit: Optional[int] = None) -> List[dict]:
-        """Step 1 over a folder: {stem}_mask.png for every image (uint8
-        images go to the device and are resized there), and a record
+        """Step 1 over a folder: {stem}_mask.png for every image (decoded
+        to the device and resized there), and a record
         (paths, mask type, watermark ratio) for each image whose mask is
         not empty."""
         os.makedirs(mask_output_folder, exist_ok=True)
@@ -365,15 +406,14 @@ class WatermarkPredictor:
                 rgb = self._read_rgb(p)
                 if rgb is None:
                     continue
-                with _stage("upload_resize"):
-                    t = torch.from_numpy(rgb).to(self.device)
                 if self._tiled(*rgb.shape[:2]):
-                    rec = self._step1_tiled_single(p, t, mask_output_folder)
+                    rec = self._step1_tiled_single(p, rgb,
+                                                   mask_output_folder)
                     if rec is not None:
                         processed.append(rec)
                     continue
-                sizes.append(rgb.shape[:2])
-                imgs.append(t)
+                sizes.append(tuple(rgb.shape[:2]))
+                imgs.append(rgb)
                 ok_paths.append(p)
             if not ok_paths:
                 continue
@@ -483,29 +523,36 @@ class WatermarkPredictor:
                                         device=self.device)
         self.engine_used = engine.name
 
-        # bucket by padded shape; images stay uint8 on the host until their
-        # batch goes to the device
+        # bucket by padded shape, read from the headers; masks stay on the
+        # host and each batch's images are decoded to the device when it
+        # runs, so the device holds one batch of images at a time
         buckets: Dict[Tuple[int, int], List[dict]] = {}
         for fi in to_process:
-            rgb = self._read_rgb(fi["image_path"])
+            size = self._image_size(fi["image_path"])
             mask_path = fi.get(mask_key)
             mask = self._read_mask(mask_path) if mask_path else None
-            if rgb is None or mask is None:
+            if size is None or mask is None:
                 self._fallback_copy(fi, output_folder, successful)
                 continue
-            h, w = rgb.shape[:2]
-            key = (-(-h // 32) * 32, -(-w // 32) * 32)
-            buckets.setdefault(key, []).append(
-                {**fi, "_img": rgb, "_mask": mask})
+            key = (-(-size[0] // 32) * 32, -(-size[1] // 32) * 32)
+            buckets.setdefault(key, []).append({**fi, "_mask": mask})
 
         bs = max(1, self.cfg.PREDICT.BATCH_SIZE)
         for items in buckets.values():
             for i in range(0, len(items), bs):
-                group = items[i:i + bs]
+                group = []
+                for g in items[i:i + bs]:
+                    rgb = self._read_rgb(g["image_path"])
+                    if rgb is None:
+                        self._fallback_copy(g, output_folder, successful)
+                    else:
+                        group.append({**g, "_img": rgb})
+                if not group:
+                    continue
                 with _stage("upload_resize"):
                     imgs, msks = [], []
                     for g in group:
-                        img = torch.from_numpy(g["_img"]).to(self.device)
+                        img = g["_img"]
                         mask = torch.from_numpy(g["_mask"]).to(self.device)
                         if mask.shape != img.shape[:2]:
                             mask = resize_nearest(mask, img.shape[:2])
@@ -545,7 +592,7 @@ class WatermarkPredictor:
         with _stage("decode"):
             try:
                 return image_io.read_gray(path)
-            except (OSError, image_io.PNGError) as e:
+            except image_io.UNREADABLE as e:
                 logger.error("cannot load mask %s: %s", path, e)
                 return None
 
@@ -598,11 +645,10 @@ class WatermarkPredictor:
         successful = []
         for fi in processed_files:
             image_path = fi["image_path"]
-            try:
-                h, w = image_io.check_png(image_path)
-            except (OSError, image_io.PNGError) as e:
-                logger.error("cannot load %s: %s", image_path, e)
+            size = self._image_size(image_path)
+            if size is None:
                 continue
+            h, w = size
             try:
                 with _stage("step3_detect"):
                     regions = detector.detect_text_regions(

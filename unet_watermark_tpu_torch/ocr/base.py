@@ -2,14 +2,16 @@
 
 Region dicts follow the reference's format: bbox is either [x, y, w, h] or
 the 8-coordinate polygon [x1, y1, ..., x4, y4], plus text and confidence.
-Images are read with utils/image_io.py (PNG) as RGB, where the JAX package
-reads BGR with cv2; every detector here takes that into account.
+Images are read with utils/image_io.py (PNG and JPEG) as RGB, where the JAX
+package reads BGR with cv2; every detector here takes that into account.
+A path's size comes from its headers: only a detector that looks at the
+pixels decodes it, on its own device.
 """
 from __future__ import annotations
 
 import os
 import random
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,12 +55,17 @@ class OCRDetector:
         """The regions of a path or an (H, W, 3) RGB image filled into a
         uint8 {0, 255} mask, written to output_path when given; None where
         the image cannot be read."""
-        img, path = self._load(image_input)
-        if img is None:
-            return None
-        regions = self.detect_text_regions(path if path else img,
+        path = self._path(image_input)
+        if path is None:
+            img = self._array(image_input)
+            size = img.shape[:2]
+        else:
+            size = self._size(path)
+            if size is None:
+                return None
+        regions = self.detect_text_regions(img if path is None else path,
                                            languages=languages)
-        mask = rasterize_regions(regions, *img.shape[:2])
+        mask = rasterize_regions(regions, *size)
         if output_path:
             image_io.write_png(output_path, mask)
         return mask
@@ -98,20 +105,30 @@ class OCRDetector:
         return os.path.join(output_folder, f"{stem}_mask.png")
 
     @staticmethod
-    def _load(image_input):
-        """(RGB uint8 image or None, path or None) of a path or an array
-        (a PIL image goes through np.asarray). A path the port cannot decode
-        (not a PNG) raises NotImplementedError; an unreadable PNG gives
-        None, as cv2.imread does."""
-        if isinstance(image_input, (str, os.PathLike)):
-            path = str(image_input)
-            image_io.require_decodable(path)
-            try:
-                return image_io.read_rgb(path), path
-            except (OSError, image_io.PNGError):
-                return None, path
+    def _path(image_input) -> Optional[str]:
+        """The path of a path input, None for an image. A path the port
+        cannot decode (where cv2 could) raises NotImplementedError."""
+        if not isinstance(image_input, (str, os.PathLike)):
+            return None
+        path = str(image_input)
+        image_io.require_decodable(path)
+        return path
+
+    @staticmethod
+    def _size(path: str) -> Optional[Tuple[int, int]]:
+        """(H, W) of a path from its headers; None where they tell that
+        cv2.imread would return None."""
+        try:
+            return image_io.check_image(path)
+        except image_io.UNREADABLE:
+            return None
+
+    @staticmethod
+    def _array(image_input) -> np.ndarray:
+        """An (H, W, 3) uint8 RGB image input (a PIL image goes through
+        np.asarray)."""
         arr = np.asarray(image_input)
         if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
             raise ValueError(f"expected an (H, W, 3) uint8 RGB image, got "
                              f"{arr.shape} {arr.dtype}")
-        return arr, None
+        return arr

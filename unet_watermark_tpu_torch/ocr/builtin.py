@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..ops import imgproc
 from ..ops.morphology import ellipse_kernel, rect_kernel
+from ..utils import image_io
 from ..utils.device import resolve_device
 from .base import OCRDetector, TextRegion
 
@@ -35,12 +36,17 @@ class BuiltinTextDetector(OCRDetector):
                             languages: Optional[Sequence[str]] = None
                             ) -> List[TextRegion]:
         del languages
-        img, _ = self._load(image_path)
-        if img is None:
-            return []
-        if not img.flags.writeable:  # a PIL image's buffer
-            img = img.copy()
-        rgb = torch.from_numpy(img).to(self.device)
+        path = self._path(image_path)
+        if path is None:
+            img = self._array(image_path)
+            if not img.flags.writeable:  # a PIL image's buffer
+                img = img.copy()
+            rgb = torch.from_numpy(img).to(self.device)
+        else:
+            try:
+                rgb = image_io.read_rgb_tensor(path, self.device)
+            except image_io.UNREADABLE:
+                return []
         gray = imgproc.gray_u8(rgb, "rgb")
         h, w = gray.shape
         grad = imgproc.morph_gradient(gray, ellipse_kernel(3, 3))

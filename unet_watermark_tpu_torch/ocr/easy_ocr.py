@@ -44,8 +44,10 @@ class EasyOCRDetector(OCRDetector):
     def detect_text_regions(self, image_path,
                             languages: Optional[Sequence[str]] = None
                             ) -> List[TextRegion]:
-        img, path = self._load(image_path)
-        if img is None:
+        path = self._path(image_path)
+        if path is None:
+            img = self._array(image_path)
+        elif self._size(path) is None:
             return []
         if languages and list(languages) != self.languages:
             self.languages = list(languages)

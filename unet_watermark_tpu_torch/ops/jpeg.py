@@ -1,0 +1,242 @@
+"""The JPEG pixel stage as torch integer ops on the coefficients' device:
+libjpeg-turbo 3.1's output stage under cv2.imread, bit for bit, run on all
+of an image's blocks at once.
+
+  dequantize + IDCT  jidctint.c's islow IDCT: int32, CONST_BITS 13,
+                     PASS1_BITS 2, the column pass then the row pass, the
+                     final descale, the +128 level shift and the IDCT range
+                     limit (indices wrap mod 1024, as its table does); one
+                     IDCT over every block of every component
+  upsample           jdsample.c's choice per component: fancy (triangle)
+                     h2v1 and h2v2 where the downsampled width is over 2,
+                     fancy h1v2, plain replication otherwise (h2v1/h2v2 at
+                     width <= 2, 4:1:1 and other integer factors); the rows
+                     above the first and below the last real row repeat
+                     them (jdmainct.c's context rows)
+  colour             jdcolor.c's fixed-point YCbCr -> RGB tables
+                     (SCALEBITS 16, ONE_HALF rounding), RGB and gray
+                     copies; a colour file read as gray is its Y plane
+                     (JCS_GRAYSCALE output), an RGB one read as gray goes
+                     through rgb_gray_convert's weights
+  orientation        EXIF 2-8 as cv2's ExifTransform applies them
+
+decode(header, coefs, gray) takes utils/jpeg.parse's header and the
+entropy decoder's coefficient arrays (tensors on the output's device).
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+CONST_BITS, PASS1_BITS = 13, 2
+SCALEBITS = 16
+ONE_HALF = 1 << (SCALEBITS - 1)
+# jidctint.c's FIX() constants
+F0_298, F0_390, F0_541, F0_765 = 2446, 3196, 4433, 6270
+F0_899, F1_175, F1_501, F1_847 = 7373, 9633, 12299, 15137
+F1_961, F2_053, F2_562, F3_072 = 16069, 16819, 20995, 25172
+
+
+def _fix(x: float) -> int:
+    return int(x * (1 << SCALEBITS) + 0.5)
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _idct_1d(c: Sequence[torch.Tensor]):
+    """jidctint.c's even and odd parts on the 8 inputs of one pass; returns
+    the 8 outputs before the pass's descale."""
+    z2, z3 = c[2], c[6]
+    z1 = (z2 + z3) * F0_541
+    tmp2 = z1 + z3 * -F1_847
+    tmp3 = z1 + z2 * F0_765
+    tmp0 = (c[0] + c[4]) << CONST_BITS
+    tmp1 = (c[0] - c[4]) << CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * F1_175
+    t0, t1, t2, t3 = t0 * F0_298, t1 * F2_053, t2 * F3_072, t3 * F1_501
+    z1, z2 = z1 * -F0_899, z2 * -F2_562
+    z3, z4 = z3 * -F1_961 + z5, z4 * -F0_390 + z5
+    t0 = t0 + z1 + z3
+    t1 = t1 + z2 + z4
+    t2 = t2 + z2 + z3
+    t3 = t3 + z1 + z4
+    return (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+
+
+def dequantize(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
+    """(..., 64) int16 coefficients times the (64,) table, int32. The table
+    goes through int16 as libjpeg-turbo's SIMD build stores its
+    multipliers."""
+    return coef.to(torch.int32) * quant.to(torch.int16).to(torch.int32)
+
+
+def idct_islow(x: torch.Tensor) -> torch.Tensor:
+    """(..., 64) dequantized int32 coefficients in natural order → (..., 8,
+    8) uint8 samples."""
+    x = x.view(*x.shape[:-1], 8, 8)  # rows: vertical frequency
+    # pass 1: columns (the 8 inputs of a column are its 8 rows)
+    ws = _idct_1d([x[..., k, :] for k in range(8)])
+    ws = [_descale(w, CONST_BITS - PASS1_BITS) for w in ws]
+    ws = torch.stack(ws, dim=-2)  # (..., 8 rows, 8 cols)
+    # pass 2: rows
+    out = _idct_1d([ws[..., :, k] for k in range(8)])
+    out = torch.stack([_descale(o, CONST_BITS + PASS1_BITS + 3)
+                       for o in out], dim=-1)
+    return _idct_range_limit(out)
+
+
+def _idct_range_limit(x: torch.Tensor) -> torch.Tensor:
+    """jdmaster.c's post-IDCT table at x & 1023: x + 128 for x in [-128,
+    127], 255 above, 0 below, wrapping mod 1024."""
+    i = x & 1023
+    out = torch.where(i < 128, i + 128,
+                      torch.where(i < 512, torch.full_like(i, 255),
+                                  torch.where(i < 896, torch.zeros_like(i),
+                                              i - 896)))
+    return out.to(torch.uint8)
+
+
+def _planes(header, coefs: Sequence[torch.Tensor], needed) -> dict:
+    """The needed components' samples, {index: (height, width) int32},
+    from one IDCT over all of their blocks."""
+    comps = header.components
+    x = []
+    for ci in needed:
+        quant = comps[ci].quant
+        quant = torch.zeros(64, dtype=torch.int32) if quant is None else \
+            torch.from_numpy(quant)
+        x.append(dequantize(coefs[ci], quant.to(coefs[ci].device)
+                            ).reshape(-1, 64))
+    px = idct_islow(torch.cat(x))  # (blocks, 8, 8)
+    planes, start = {}, 0
+    for ci in needed:
+        comp = comps[ci]
+        bh, bw = coefs[ci].shape[:2]
+        blk = px[start:start + bh * bw].view(bh, bw, 8, 8)
+        start += bh * bw
+        planes[ci] = blk.permute(0, 2, 1, 3).reshape(bh * 8, bw * 8)[
+            :comp.height, :comp.width].to(torch.int32)
+    return planes
+
+
+def _h2v1_fancy(x: torch.Tensor) -> torch.Tensor:
+    """jdsample.c h2v1_fancy_upsample: (h, w) → (h, 2w), w > 2."""
+    left = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    right = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    even = (3 * x + left + 1) >> 2
+    odd = (3 * x + right + 2) >> 2
+    even[:, 0] = x[:, 0]
+    odd[:, -1] = x[:, -1]
+    return torch.stack([even, odd], dim=-1).reshape(x.shape[0], -1)
+
+
+def _vertical_sums(x: torch.Tensor):
+    """3 * nearer row + further row, for the output row above (row above
+    as the further one) and below each input row; the first and last real
+    rows stand in for the rows beyond them."""
+    up = torch.cat([x[:1], x[:-1]], dim=0)
+    down = torch.cat([x[1:], x[-1:]], dim=0)
+    return 3 * x + up, 3 * x + down
+
+
+def _h1v2_fancy(x: torch.Tensor) -> torch.Tensor:
+    """jdsample.c h1v2_fancy_upsample: (h, w) → (2h, w)."""
+    above, below = _vertical_sums(x)
+    return torch.stack([(above + 1) >> 2, (below + 2) >> 2],
+                       dim=1).reshape(-1, x.shape[1])
+
+
+def _h2v2_fancy(x: torch.Tensor) -> torch.Tensor:
+    """jdsample.c h2v2_fancy_upsample: (h, w) → (2h, 2w), w > 2."""
+    rows = []
+    for colsum in _vertical_sums(x):
+        last = torch.cat([colsum[:, :1], colsum[:, :-1]], dim=1)
+        nxt = torch.cat([colsum[:, 1:], colsum[:, -1:]], dim=1)
+        even = (3 * colsum + last + 8) >> 4
+        odd = (3 * colsum + nxt + 7) >> 4
+        even[:, 0] = (colsum[:, 0] * 4 + 8) >> 4
+        odd[:, -1] = (colsum[:, -1] * 4 + 7) >> 4
+        rows.append(torch.stack([even, odd], dim=-1).reshape(x.shape[0], -1))
+    return torch.stack(rows, dim=1).reshape(2 * x.shape[0], -1)
+
+
+def upsample(x: torch.Tensor, hexp: int, vexp: int) -> torch.Tensor:
+    """A component's samples expanded by (hexp, vexp) with the method
+    jinit_upsampler picks (fancy upsampling on)."""
+    if hexp == 1 and vexp == 1:
+        return x
+    if hexp == 2 and vexp == 1 and x.shape[1] > 2:
+        return _h2v1_fancy(x)
+    if hexp == 1 and vexp == 2:
+        return _h1v2_fancy(x)
+    if hexp == 2 and vexp == 2 and x.shape[1] > 2:
+        return _h2v2_fancy(x)
+    return x.repeat_interleave(vexp, 0).repeat_interleave(hexp, 1)
+
+
+def _ycc_tables(device) -> List[torch.Tensor]:
+    x = torch.arange(256, dtype=torch.int64, device=device) - 128
+    cr_r = (_fix(1.40200) * x + ONE_HALF) >> SCALEBITS
+    cb_b = (_fix(1.77200) * x + ONE_HALF) >> SCALEBITS
+    cr_g = -_fix(0.71414) * x
+    cb_g = -_fix(0.34414) * x + ONE_HALF
+    return [t.to(torch.int32) for t in (cr_r, cb_b, cr_g, cb_g)]
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
+               ) -> torch.Tensor:
+    """jdcolor.c ycc_rgb_convert on int32 planes → (H, W, 3) uint8."""
+    cr_r, cb_b, cr_g, cb_g = _ycc_tables(y.device)
+    cb, cr = cb.long(), cr.long()
+    r = y + cr_r[cr]
+    g = y + ((cb_g[cb] + cr_g[cr]) >> SCALEBITS)
+    b = y + cb_b[cb]
+    return torch.stack([r, g, b], dim=-1).clamp(0, 255).to(torch.uint8)
+
+
+def rgb_to_gray(r, g, b) -> torch.Tensor:
+    """jdcolor.c rgb_gray_convert on int32 planes → uint8."""
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b
+         + ONE_HALF) >> SCALEBITS
+    return y.to(torch.uint8)
+
+
+def orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
+    """cv2's ExifTransform on an (H, W) or (H, W, C) image."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(0, 1)
+    flips = {2: [1], 3: [0, 1], 4: [0], 6: [1], 7: [0, 1], 8: [0]}
+    dims = flips.get(orientation)
+    return img.flip(dims) if dims else img.contiguous()
+
+
+def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False
+           ) -> torch.Tensor:
+    """The image as cv2.imread gives it (RGB): (H, W, 3) uint8, or (H, W)
+    with gray=True, on the coefficients' device, oriented."""
+    comps = header.components
+    h, w = header.height, header.width
+    needed = [0] if gray and header.color == "ycc" else range(len(comps))
+    planes = _planes(header, coefs, needed)
+    for ci in needed:
+        planes[ci] = upsample(planes[ci], header.hmax // comps[ci].h,
+                              header.vmax // comps[ci].v)[:h, :w]
+    if header.color == "gray":
+        y = planes[0].to(torch.uint8)
+        img = y if gray else y[..., None].expand(h, w, 3)
+    elif header.color == "ycc":
+        img = planes[0].to(torch.uint8) if gray else \
+            ycc_to_rgb(planes[0], planes[1], planes[2])
+    else:  # RGB
+        img = rgb_to_gray(planes[0], planes[1], planes[2]) if gray else \
+            torch.stack([planes[i] for i in range(3)],
+                        dim=-1).to(torch.uint8)
+    return orient(img, header.orientation)

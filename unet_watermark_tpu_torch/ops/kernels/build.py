@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-One nvcc call per source, into a shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). The library lands in
-unet_watermark_tpu_torch/_build/ (git-ignored), named by the hash of its
-source, and is built at first use in a process: nothing is compiled or
-loaded when a module is imported.
+One compiler call per source, into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds): nvcc for a CUDA
+source (.cu), the host C compiler (cc, the one nvcc itself drives) for a
+host source (.c). The library lands in unet_watermark_tpu_torch/_build/
+(git-ignored), named by the hash of its source and flags, and is built at
+first use in a process: nothing is compiled or loaded when a module is
+imported. Concurrent builds of one source (test workers) each compile to a
+temporary file and rename it into place.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 
 def nvcc() -> str:
@@ -33,13 +37,21 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def cc() -> str:
+    """The host C compiler: $CC, else cc from PATH."""
+    return os.environ.get("CC") or shutil.which("cc") or "cc"
+
+
 def build(source: str) -> Tuple[Path, str]:
     """Compile csrc/<source> unless a library of the same content exists.
-    Returns the library's path and nvcc's output (ptxas register and
-    shared-memory report; empty when the library was already built)."""
+    Returns the library's path and the compiler's output (for nvcc, ptxas's
+    register and shared-memory report; empty when the library was already
+    built)."""
     src = CSRC_DIR / source
+    host = src.suffix == ".c"
+    compiler, flags = (cc(), CC_FLAGS) if host else (nvcc(), NVCC_FLAGS)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists():
         return lib, ""
@@ -47,10 +59,10 @@ def build(source: str) -> Tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name} "
+            raise RuntimeError(f"{Path(compiler).name} failed on {src.name} "
                                f"(rc {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
     finally:

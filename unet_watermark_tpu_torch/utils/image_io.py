@@ -1,15 +1,25 @@
-"""PNG read and write with numpy and zlib: the port's stand-in for the JAX
-package's cv2.imread / cv2.imwrite (the GPU machine has no cv2 or PIL).
+"""Image read and write: the port's stand-in for the JAX package's
+cv2.imread / cv2.imwrite (the GPU machine has no cv2 or PIL). PNG is read
+and written with numpy and zlib; JPEG is read by utils/jpeg.py's parser,
+the entropy decoder of ops/kernels/jpeg_entropy.py and the pixel stage of
+ops/jpeg.py. As in cv2, a file's content picks its decoder, not its name.
 
 read_rgb(path) returns what cv2.cvtColor(cv2.imread(path), BGR2RGB) returns:
-(H, W, 3) uint8 with alpha dropped (no compositing), gray replicated to
+(H, W, 3) uint8. PNG: alpha dropped (no compositing), gray replicated to
 three channels, palettes expanded, 1/2/4-bit gray scaled to 8 bits and
 16-bit samples reduced to their high byte (as libpng's strip_16 does under
-cv2). read_gray(path) is cv2.imread(path, IMREAD_GRAYSCALE) for files
-stored as gray (with or without alpha): the mask files the pipeline writes.
-A colour file read as gray raises NotImplementedError: cv2 converts it
-inside libpng with a gamma-aware rule that is not ported. Interlaced PNGs
-raise NotImplementedError; a malformed file raises PNGError.
+cv2). JPEG: libjpeg-turbo's pixels, EXIF orientation applied.
+read_gray(path) is cv2.imread(path, IMREAD_GRAYSCALE) for PNGs stored as
+gray (with or without alpha; the mask files the pipeline writes) and for
+every JPEG (a colour JPEG's Y plane). A colour PNG read as gray raises
+NotImplementedError: cv2 converts it inside libpng with a gamma-aware rule
+that is not ported. Both decode on the host (a JPEG with the plain Python
+entropy decoder). read_rgb_tensor(path, device) returns the RGB image on a
+device: a JPEG's pixel stage runs there, and on a CUDA device its entropy
+decode is the C decoder; a PNG is decoded on the host and uploaded.
+Interlaced PNGs, BMP, TIFF and WEBP files and the JPEG forms utils/jpeg.py
+refuses raise NotImplementedError; a file cv2 would give None for raises
+one of UNREADABLE.
 
 write_png(path, img) stores an (H, W) gray or (H, W, 3) RGB uint8 image as
 cv2.imwrite stores it (after RGB2BGR for colour): 8-bit, no interlace.
@@ -26,12 +36,19 @@ of one pixel), then the Up rows from the top.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import zlib
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..ops import jpeg as jpeg_pixels
+from ..ops.kernels import jpeg_entropy
+from . import jpeg
+from .jpeg import JPEGError
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels of each colour type: gray, RGB, palette, gray+alpha, RGBA
@@ -39,21 +56,68 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 ZLIB_LEVEL = 1  # the deflate level cv2.imwrite uses by default
-DECODED_EXTS = ("png",)  # the file types this module decodes
+# signatures of the formats cv2 reads that the port does not decode yet
+UNPORTED = {"bmp": (b"BM",), "tiff": (b"II*\x00", b"MM\x00*"),
+            "webp": (b"RIFF",)}
+UNPORTED_EXTS = ("bmp", "tiff", "tif", "webp")
 
 
-def require_decodable(path: str) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for a file
-    type this module does not decode."""
-    if os.path.splitext(path)[1][1:].lower() not in DECODED_EXTS:
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG only; JPEG, BMP, TIFF and WEBP "
-            f"decoding is not ported yet (ROADMAP.md §A.5, other image "
-            f"formats)")
+class DecodeError(ValueError):
+    """The file is neither a PNG nor a JPEG (cv2.imread gives None)."""
 
 
-class PNGError(ValueError):
+class PNGError(DecodeError):
     """The file is not a well-formed PNG."""
+
+
+# what a reader raises where cv2.imread would return None
+UNREADABLE = (OSError, DecodeError, JPEGError)
+
+
+def sniff(head: bytes) -> Optional[str]:
+    """The format a file's first bytes name: png, jpeg, one of UNPORTED's,
+    or None."""
+    if head.startswith(SIGNATURE):
+        return "png"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    for kind, sigs in UNPORTED.items():
+        if any(head.startswith(sig) for sig in sigs) and (
+                kind != "webp" or head[8:12] == b"WEBP"):
+            return kind
+    return None
+
+
+def _refuse_unported(path, head: bytes) -> Optional[str]:
+    """The format of a file from its first bytes (sniff); raises
+    NotImplementedError, naming the ROADMAP.md item, for a BMP, TIFF or
+    WEBP file, by content, or by name where the content is neither PNG nor
+    JPEG."""
+    kind = sniff(head)
+    ext = os.path.splitext(str(path))[1][1:].lower()
+    if kind in UNPORTED or (kind is None and ext in UNPORTED_EXTS):
+        raise NotImplementedError(
+            f"{path}: a {(kind or ext).upper()} file: the port decodes PNG "
+            f"and JPEG only; BMP, TIFF and WEBP decoding is not ported yet "
+            f"(ROADMAP.md §A.5, other image formats)")
+    return kind
+
+
+def require_decodable(path) -> None:
+    """Raise NotImplementedError, naming the ROADMAP.md item, for a file
+    this module cannot decode where cv2 could: a BMP, TIFF or WEBP file, an
+    interlaced PNG or a refused JPEG form. A file cv2 would give None for
+    passes: the pipeline logs and skips it, as the JAX package does."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(16)
+    except OSError:
+        head = b""
+    _refuse_unported(path, head)
+    try:
+        check_image(path)
+    except UNREADABLE:
+        pass
 
 
 def _chunks(data: bytes):
@@ -92,14 +156,18 @@ def _header(body: bytes):
     return w, h, depth, ctype
 
 
-def check_png(path) -> Tuple[int, int]:
-    """(height, width) from the signature and header alone: raises as the
-    decoder would for a file it cannot decode (not a PNG, interlaced, bad
-    header)."""
+def check_image(path) -> Tuple[int, int]:
+    """(height, width) of the image cv2.imread would return, from the
+    headers alone (a JPEG's up to its first scan, EXIF orientation
+    applied); raises as the decoder would for a file it cannot decode."""
     with open(path, "rb") as f:
         head = f.read(33)
-    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
-        raise PNGError(f"{path}: not a PNG file")
+        kind = sniff(head)
+        if kind == "jpeg":
+            return jpeg.parse(head + f.read(), headers_only=True
+                              ).oriented_size()
+    if kind != "png" or head[12:16] != b"IHDR":
+        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
     w, h, _, _ = _header(head[16:29])
     return h, w
 
@@ -216,14 +284,58 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-def read_rgb(path) -> np.ndarray:
+def _no_part(name: str):
+    return contextlib.nullcontext()
+
+
+def decode_jpeg(data: bytes, device="cpu", gray: bool = False,
+                part: Callable = _no_part) -> torch.Tensor:
+    """JPEG bytes → (H, W, 3) RGB or (H, W) gray uint8 on `device`, as
+    cv2.imread gives it. part(name) wraps each of the two stages,
+    "jpeg_entropy" (host) and "jpeg_pixels" (upload and pixel stage on the
+    device), for a caller that times them."""
+    device = torch.device(device)
+    with part("jpeg_entropy"):
+        header = jpeg.parse(data)
+        coefs = jpeg_entropy.decode_scans(header, data, device)
+    with part("jpeg_pixels"):
+        return jpeg_pixels.decode(
+            header, [torch.from_numpy(c).to(device) for c in coefs], gray)
+
+
+def _read(path, device, gray: bool, part: Callable = _no_part):
+    """The decoded file: a tensor on `device` for a JPEG, a numpy array
+    for a PNG."""
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        data = f.read()
+    kind = _refuse_unported(path, data[:16])
+    if kind == "jpeg":
+        return decode_jpeg(data, device, gray, part)
+    if kind != "png":
+        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
+    return decode_png(data, gray=gray)
+
+
+def read_rgb(path) -> np.ndarray:
+    img = _read(path, "cpu", False)
+    return img.numpy() if isinstance(img, torch.Tensor) else img
 
 
 def read_gray(path) -> np.ndarray:
-    with open(path, "rb") as f:
-        return decode_png(f.read(), gray=True)
+    img = _read(path, "cpu", True)
+    return img.numpy() if isinstance(img, torch.Tensor) else img
+
+
+def read_rgb_tensor(path, device, part: Callable = _no_part
+                    ) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB on `device`: a JPEG decoded there (the C entropy
+    decoder and the card's pixel stage on a CUDA device), a PNG decoded on
+    the host and uploaded inside part("png_upload")."""
+    img = _read(path, device, False, part)
+    if isinstance(img, np.ndarray):
+        with part("png_upload"):
+            img = torch.from_numpy(img).to(device)
+    return img
 
 
 def _filter_rows(img: np.ndarray, filters: Sequence[int]) -> bytes:

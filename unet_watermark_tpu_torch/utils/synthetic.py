@@ -7,14 +7,18 @@ size) at a random place. The last `clean` images carry no logo, as a
 folder of user images holds some that have none. text_images draws lines
 of block capitals from a 5x7 bitmap font over such images, as a text
 watermark lies over a photo, and returns each line's box and the pixels
-its glyphs cover. Used by
-chip_smoke.py and the tests.
+its glyphs cover. encode_jpeg writes JPEG files of them (the GPU machine
+has no cv2 or PIL to write one). Used by chip_smoke.py and the tests; no
+entry point of the port exposes them.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import struct
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import jpeg
 
 # 5x7 glyphs, rows top to bottom, "#" ink
 FONT = {
@@ -158,3 +162,283 @@ def text_images(shapes: Sequence[Tuple[int, int]], seed: int = 0,
         boxes.append(lines)
         inks.append(drawn)
     return images, boxes, inks
+
+
+# ---------------------------------------------------------------------------
+# a JPEG writer, vectorized with numpy (no loop per block or symbol)
+# ---------------------------------------------------------------------------
+# the JPEG spec's example tables (K.1), natural order, scaled by quality as
+# libjpeg's jpeg_quality_scaling does
+STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+STD_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32)
+SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}  # luma (h, v)
+# spectral bands of a progressive file's AC scans, one scan each per
+# component
+BANDS = ((1, 5), (6, 63))
+_ZIGZAG = np.array(jpeg.NATURAL[:64])  # zigzag k -> natural index
+
+
+def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _dct_matrix() -> np.ndarray:
+    u = np.arange(8)[:, None]
+    x = np.arange(8)[None, :]
+    d = np.cos((2 * x + 1) * u * np.pi / 16) / 2
+    d[0] /= np.sqrt(2)
+    return d
+
+
+def _huff_codes(table) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, length) of each of the 256 symbols (length 0: not coded)."""
+    bits, vals = table
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _magnitude(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(size category, extra bits) of each value."""
+    size = np.frexp(np.abs(x).astype(np.float64))[1].astype(np.int64)
+    extra = np.where(x < 0, x + (1 << size) - 1, x)
+    return size, extra
+
+
+def _scan_bytes(zz: np.ndarray, comp: np.ndarray, mcu: np.ndarray,
+                tables, ss: int, se: int, restart: int) -> bytes:
+    """The entropy-coded data of one scan: zz (N, 64) zigzag coefficients
+    of its blocks in coding order, each block's scan component (index into
+    tables: (dc, ac) code tables) and MCU; DC differences when ss == 0, the
+    AC run/size symbols of positions max(ss, 1)..se (EOB where the band
+    ends in zeros), each restart interval padded with 1-bits and followed
+    by its RST marker, 0xFF bytes stuffed."""
+    n = zz.shape[0]
+    keys, vals, lens = [], [], []
+    interval = mcu // restart if restart else np.zeros(n, np.int64)
+    if ss == 0:
+        dc = zz[:, 0].astype(np.int64)
+        diff = np.empty(n, np.int64)
+        for c in np.unique(comp):  # DC prediction along each component
+            sel = np.flatnonzero(comp == c)
+            d = dc[sel].copy()
+            first = np.ones(sel.size, bool)
+            first[1:] = interval[sel][1:] != interval[sel][:-1]
+            d[~first] -= dc[sel][:-1][~first[1:]]
+            diff[sel] = d
+        size, extra = _magnitude(diff)
+        code = np.stack([tables[c][0][0] for c in range(len(tables))])
+        clen = np.stack([tables[c][0][1] for c in range(len(tables))])
+        keys.append(np.arange(n) * 260)
+        lens.append(clen[comp, size] + size)
+        vals.append((code[comp, size] << size) | extra)
+    lo = max(ss, 1)
+    if se >= lo:
+        band = zz[:, lo:se + 1].astype(np.int64)
+        blk, kk = np.nonzero(band)
+        kk = kk + lo
+        prev = np.empty_like(kk)
+        prev[:] = lo - 1
+        same = np.zeros(kk.size, bool)
+        same[1:] = blk[1:] == blk[:-1]
+        prev[same] = kk[:-1][same[1:]]
+        run = kk - prev - 1
+        size, extra = _magnitude(band[blk, kk - lo])
+        code = np.stack([tables[c][1][0] for c in range(len(tables))])
+        clen = np.stack([tables[c][1][1] for c in range(len(tables))])
+        cb = comp[blk]
+        sym = ((run % 16) << 4) | size
+        keys.append(blk * 260 + kk * 4 + 3)
+        lens.append(clen[cb, sym] + size)
+        vals.append((code[cb, sym] << size) | extra)
+        nzrl = run // 16  # a ZRL (0xF0) for each 16 zeros of the run
+        for j in range(3):
+            sel = nzrl > j
+            keys.append(blk[sel] * 260 + kk[sel] * 4 + j)
+            lens.append(clen[cb[sel], 0xF0])
+            vals.append(code[cb[sel], 0xF0])
+        last = np.full(n, lo - 1)
+        np.maximum.at(last, blk, kk)
+        eob = np.flatnonzero(last < se)
+        keys.append(eob * 260 + 256)
+        lens.append(clen[comp[eob], 0x00])
+        vals.append(code[comp[eob], 0x00])
+    key = np.concatenate(keys)
+    order = np.argsort(key, kind="stable")
+    val = np.concatenate(vals)[order]
+    ln = np.concatenate(lens)[order]
+    block_of = (key[order] // 260)
+    # pad each restart interval's bits to a byte with 1-bits
+    item_interval = interval[block_of]
+    ends = np.flatnonzero(np.diff(item_interval)) + 1
+    bounds = np.concatenate([[0], ends, [ln.size]])
+    bits = np.add.reduceat(ln, bounds[:-1]) if ln.size else np.zeros(0, int)
+    pad = (-bits) % 8
+    val = np.insert(val, bounds[1:], (1 << pad) - 1)
+    ln = np.insert(ln, bounds[1:], pad)
+    interval_bytes = (bits + pad) // 8
+    start = np.cumsum(ln) - ln
+    total = int(start[-1] + ln[-1]) // 8 if ln.size else 0
+    # each item's bits into a 40-bit big-endian window at its first byte;
+    # the windows' bytes add up without carries (no two share a bit)
+    b0 = start // 8
+    window = val << (40 - (start % 8) - ln)
+    out = np.zeros(total + 5, np.float64)
+    for d in range(5):
+        out += np.bincount(b0 + d, weights=(window >> (8 * (4 - d))) & 0xFF,
+                           minlength=total + 5)
+    out = out[:total].astype(np.uint8)
+    ff = np.flatnonzero(out == 0xFF) + 1
+    rst_at = np.cumsum(interval_bytes)[:-1]
+    rst = np.arange(rst_at.size) % 8 + 0xD0
+    pos = np.concatenate([ff, np.repeat(rst_at, 2)])
+    ins = np.concatenate([np.zeros(ff.size, np.int64),
+                          np.stack([np.full(rst.size, 0xFF), rst], 1).ravel()])
+    order = np.argsort(pos * 2 + np.concatenate(
+        [np.zeros(ff.size, np.int64), np.ones(2 * rst.size, np.int64)]),
+        kind="stable")
+    return np.insert(out, pos[order], ins[order].astype(np.uint8)).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _exif(orientation: int) -> bytes:
+    """An APP1 body: "Exif\0\0", a big-endian TIFF header and IFD0 with
+    the orientation tag alone."""
+    return (b"Exif\x00\x00MM\x00\x2a" + struct.pack(">I", 8)
+            + struct.pack(">HHHIHH", 1, 0x0112, 3, 1, orientation, 0)
+            + struct.pack(">I", 0))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95, sampling: str = "420",
+                progressive: bool = False, restart: int = 0,
+                orientation: Optional[int] = None) -> bytes:
+    """(H, W, 3) RGB or (H, W) gray uint8 → JPEG bytes: JFIF YCbCr (one
+    component for gray), `sampling` 444/422/420, quality-scaled example
+    quantization tables, the standard Huffman tables, baseline, or
+    progressive by spectral selection (a DC scan, then each component's AC
+    bands BANDS), a restart interval of `restart` MCUs, and an EXIF
+    orientation tag where given. Samples go through libjpeg's JFIF colour
+    transform and an orthonormal float DCT; the bytes differ from cv2's
+    encoder, the decoded pixels are what cv2.imread gives for them."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected (H, W[, 3]) uint8, got {img.shape} "
+                         f"{img.dtype}")
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        planes = [img.astype(np.float64)]
+        factors = [(1, 1)]
+    else:
+        r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        factors = [SAMPLING[sampling], (1, 1), (1, 1)]
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    qtabs = [quality_table(STD_LUMA_Q, quality),
+             quality_table(STD_CHROMA_Q, quality)]
+    dct = _dct_matrix()
+    blocks = []  # each component's (bh, bw, 64) zigzag coefficients
+    for i, (plane, (hf, vf)) in enumerate(zip(planes, factors)):
+        plane = np.clip(np.rint(plane), 0, 255)
+        plane = np.pad(plane, ((0, mcuy * 8 * vmax - h),
+                               (0, mcux * 8 * hmax - w)), mode="edge")
+        sy, sx = vmax // vf, hmax // hf
+        if sy > 1 or sx > 1:
+            plane = np.rint(plane.reshape(plane.shape[0] // sy, sy,
+                                          plane.shape[1] // sx, sx)
+                            .mean(axis=(1, 3)))
+        bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+        x = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128.0
+        coef = dct @ x @ dct.T
+        q = qtabs[min(i, 1)].reshape(8, 8)
+        zz = np.rint(coef / q).astype(np.int64).reshape(bh, bw, 64)
+        blocks.append(zz[..., _ZIGZAG])
+    std = [(jpeg.STD_DC_LUMA, jpeg.STD_AC_LUMA),
+           (jpeg.STD_DC_CHROMA, jpeg.STD_AC_CHROMA)]
+    codes = [(_huff_codes(dc), _huff_codes(ac)) for dc, ac in std]
+    ncomp = len(planes)
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01"
+                                          b"\x00\x01\x00\x00")]
+    if orientation is not None:
+        out.append(_segment(0xE1, _exif(orientation)))
+    for t, q in enumerate(qtabs[:min(ncomp, 2)]):
+        out.append(_segment(0xDB, bytes([t]) + bytes(
+            q[_ZIGZAG].astype(np.uint8))))
+    sof = struct.pack(">BHHB", 8, h, w, ncomp) + b"".join(
+        bytes([i + 1, (f[0] << 4) | f[1], min(i, 1)])
+        for i, f in enumerate(factors))
+    out.append(_segment(0xC2 if progressive else 0xC0, sof))
+    dht = b""
+    for t, (dc, ac) in enumerate(std[:min(ncomp, 2)]):
+        for cls, (bits, vals) in ((0, dc), (1, ac)):
+            dht += bytes([cls << 4 | t]) + bytes(bits) + bytes(vals)
+    out.append(_segment(0xC4, dht))
+    if restart:
+        out.append(_segment(0xDD, struct.pack(">H", restart)))
+
+    def sos(comps, ss, se):
+        body = bytes([len(comps)]) + b"".join(
+            bytes([c + 1, (min(c, 1) << 4) | min(c, 1)]) for c in comps)
+        return _segment(0xDA, body + bytes([ss, se, 0]))
+
+    # the interleaved scan's blocks in coding order: MCUs across, then each
+    # component's h x v blocks
+    my, mx = np.divmod(np.arange(mcuy * mcux), mcux)
+    order_zz, order_comp, order_mcu = [], [], []
+    for c, (hf, vf) in enumerate(factors):
+        by, bx = np.divmod(np.arange(vf * hf), hf)
+        rows = my[:, None] * vf + by[None, :]
+        cols = mx[:, None] * hf + bx[None, :]
+        order_zz.append(blocks[c][rows, cols])  # (mcus, hv, 64)
+        order_comp.append(np.full(rows.shape, c))
+        order_mcu.append(np.broadcast_to(np.arange(rows.shape[0])[:, None],
+                                         rows.shape))
+    if ncomp == 1:  # one component: its own block grid, block by block
+        grid = blocks[0][:-(-h // 8), :-(-w // 8)]
+        zz_i = grid.reshape(-1, 64)
+        comp_i = np.zeros(zz_i.shape[0], np.int64)
+        mcu_i = np.arange(zz_i.shape[0])
+    else:
+        zz_i = np.concatenate(order_zz, 1).reshape(-1, 64)
+        comp_i = np.concatenate(order_comp, 1).ravel()
+        mcu_i = np.concatenate(order_mcu, 1).ravel()
+    tabs = [codes[min(c, 1)] for c in range(ncomp)]
+    if not progressive:
+        out.append(sos(range(ncomp), 0, 63))
+        out.append(_scan_bytes(zz_i, comp_i, mcu_i, tabs, 0, 63, restart))
+    else:
+        out.append(sos(range(ncomp), 0, 0))
+        out.append(_scan_bytes(zz_i, comp_i, mcu_i, tabs, 0, 0, restart))
+        for c, (hf, vf) in enumerate(factors):
+            ch = -(-h * vf // vmax)
+            cw = -(-w * hf // hmax)
+            grid = blocks[c][:-(-ch // 8), :-(-cw // 8)].reshape(-1, 64)
+            for ss, se in BANDS:
+                out.append(sos([c], ss, se))
+                out.append(_scan_bytes(
+                    grid, np.zeros(grid.shape[0], np.int64),
+                    np.arange(grid.shape[0]), [tabs[c]], ss, se, restart))
+    out.append(b"\xff\xd9")
+    return b"".join(out)

@@ -5,7 +5,9 @@
 
 Phases, each printing its own line:
   0  versions, and the card's name and power limit (nvidia-smi)
-  1  build the CUDA kernels (nvcc → .so, ctypes) and report the build time
+  1  build the native sources (nvcc → .so for each .cu, cc for the JPEG
+     entropy decoder; all compiler calls started together; ctypes) and
+     report the build time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
      borders, and blob masks, at the main path's shape (BATCH x SIZE²) and
@@ -79,16 +81,18 @@ Phases, each printing its own line:
      run whose parts add up to that run's total), and
      predict_mask(..., "text") in
      float32 on the card agreeing with the CPU's on >= 99.9 % of pixels
-  3f the `repair` command as users type it (OCR on) on a folder of 16 JPEGs
+  3f the `repair` command as users type it (OCR on) on a folder of 17 JPEGs
      that utils/synthetic.encode_jpeg writes: 8 of 512² (baseline 4:2:0
      q95, the last 2 with no logo), 720 x 1280 at 4:4:4 q90 with a restart
      interval of 4 MCUs, 720 x 1280 at 4:2:2 q85, 1080 x 1920 progressive,
      1080 x 1920 stored turned with EXIF orientation 6, a gray 512², a
      phone's 3024 x 4032 photo (4032 x 3024 upright, orientation 6), a
-     1080 x 1920 file cut 30 % into its entropy data, and one cut before
-     its first scan (skipped, as cv2 gives None). Checks: every file
-     decoded on the card's route (the C entropy decoder, the pixel stage
-     on the card) equal byte for byte, colour and gray, to the plain route
+     1080 x 1920 file cut 30 % into its entropy data, a progressive 720 x
+     1280 one cut so (its blocks smoothed as libjpeg smooths them), and
+     one cut before its first scan (skipped, as cv2 gives None). Checks:
+     every file decoded on the card's route (the C entropy decoder, the
+     pixel stage on the card) equal byte for byte, colour and gray, to the
+     plain route
      (the Python entropy decoder, the pixel stage on the CPU); rc 0,
      "success", engine "ffc-lama", no engine or OCR failure, K1 and K2
      launched by its step 1, masks and finals at each image's upright
@@ -98,6 +102,20 @@ Phases, each printing its own line:
      (steps 3-4 read the JPEGs copied under .png names), and the decode of
      a 1080 x 1920 baseline, a progressive and the phone file timed by
      part
+  3g the int8 tier (PREDICT.QUANT): for Unet and UNet++ at full width
+     with the shipped weights and sidecars, one forward at BATCH x SIZE²
+     in which every uwt_conv_s8 launch (50 and 68) is held bit for bit
+     against its plain version on the card, and every activation quantize
+     against float32 x * f32(1/sx), and the masks against the
+     bf16 tier's (>= 97 % agreement); the default fused fn with LaMa under
+     PREDICT.QUANT (engine "ffc-lama", 68 launches, phase 3's output
+     checks, the mask equal to the plain tight chain), timed in turns with
+     the bf16 fn, and each network in turns with its bf16 tier; the UNet++
+     forward's 68 convs replayed back to back against their bound, their
+     plain versions and cuDNN's bf16 conv, and 6 of its shapes one by one
+     beside im2col + torch._int_mm; a profile of the UNet++ network in
+     each tier; `repair --quant --no-ocr` on 4 of 3d's files (rc 0,
+     "success", engine "ffc-lama", 68 launches)
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -125,6 +143,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -898,6 +917,8 @@ JPEG_FOLDER = tuple(
     ("g0", 512, 512, 95, "gray", False, 0, None, None),
     ("m0", 4032, 3024, 90, "420", False, 0, 6, None),  # a phone's photo
     ("t0", 1080, 1920, 95, "420", False, 0, None, "cut 30 %"),
+    # progressive, cut: libjpeg's block smoothing runs on its coefficients
+    ("u0", 720, 1280, 95, "420", True, 0, None, "cut 30 %"),
     ("x0", 512, 512, 95, "420", False, 0, None, "cut before SOS"))
 JPEG_CLEAN = 2  # the last j* files carry no logo
 JPEG_NO_UNET = ("j00", "j06", "o0", "p0")  # the --no-unet run's files
@@ -1161,6 +1182,321 @@ def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
             "launches": launches}
 
 
+# phase 3g: the int8 tier's conv count a forward, by arch (the sidecars'
+# entries), the convs of the UNet++ forward timed one by one (their sidecar
+# paths), and the 3d files the `repair --quant` run takes
+INT8_CONVS = {"Unet": 50, "UnetPlusPlus": 68}
+INT8_SHAPES = ("encoder/conv1", "encoder/layer1_0/conv1",
+               "encoder/layer4_1/conv1", "decoder/x_0_1_conv1/conv:skip",
+               "decoder/final_block/conv1/conv:up",
+               "decoder/final_block/conv2/conv")
+INT8_CLI_FILES = ("a00", "a01", "a02", "a03")
+# dense int8 tensor-core peak (data sheet: 1979 TOP/s, a multiply-add
+# counted as two operations)
+PEAK_INT8_OPS_PER_S = 1979e12
+
+
+def conv_s8_bound(call) -> tuple:
+    """(operations, bytes) of one int8 conv that the function must do: 2 per
+    multiply-add of its non-zero taps (the lhs-dilated 4x4 conv has 4 an
+    output), each input read once (activation, weight, scale) and the
+    output written once."""
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
+
+    xq, wq, scale, kw = call
+    n, cin, h, w = xq.shape
+    cout, _, kh, kwid = wq.shape
+    ho = k8.out_size(h, kh, kw["stride"], kw["padding"], kw["dilation"])
+    wo = k8.out_size(w, kwid, kw["stride"], kw["padding"], kw["dilation"])
+    taps = 4 if kw["dilation"] == 2 else kh * kwid
+    out_bytes = 2 if kw["out_dtype"].is_floating_point and \
+        kw["out_dtype"].itemsize == 2 else 4
+    ops = 2 * n * ho * wo * cout * cin * taps
+    return ops, xq.numel() + wq.numel() + 4 * cout + n * ho * wo * cout * \
+        out_bytes
+
+
+def conv_s8_library(call):
+    """The one cuDNN call that computes the conv in bf16 on the same
+    (integer-valued) operands: conv2d, or for the lhs-dilated conv
+    conv_transpose2d with the kernel flipped (stride 2, padding 1)."""
+    import torch.nn.functional as F
+
+    xq, wq, scale, kw = call
+    xb, wb = xq.bfloat16(), wq.bfloat16()
+    if kw["dilation"] == 2:
+        wt = wb.flip(2, 3).transpose(0, 1).contiguous()
+        return lambda: F.conv_transpose2d(xb, wt, stride=2, padding=1)
+    return lambda: F.conv2d(xb, wb, stride=kw["stride"],
+                            padding=kw["padding"])
+
+
+def conv_s8_int_mm(call):
+    """im2col (F.unfold on the fp16 copy, the dilated input written out)
+    and torch._int_mm on the int8 operands, K padded to a multiple of 8;
+    None where _int_mm does not take the shape."""
+    import torch
+    import torch.nn.functional as F
+    from unet_watermark_tpu_torch.ops import quant
+
+    xq, wq, scale, kw = call
+    cout, cin, kh, kwid = wq.shape
+    k = cin * kh * kwid
+    kp = -(-k // 8) * 8
+    if cout % 8:
+        return None
+    x = xq.half()
+    b = torch.zeros(kp, cout, dtype=torch.int8, device=xq.device)
+    b[:k] = wq.reshape(cout, k).t()
+
+    def run():
+        xi = quant.dilate2(x) if kw["dilation"] == 2 else x
+        cols = F.unfold(xi, (kh, kwid), padding=kw["padding"],
+                        stride=kw["stride"])  # (n, k, L)
+        a = cols.transpose(1, 2).reshape(-1, k).to(torch.int8)
+        if kp != k:
+            a = F.pad(a, (0, kp - k))
+        return torch._int_mm(a, b)
+    return run
+
+
+def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
+                    dev) -> dict:
+    """Phase 3g: the int8 tier (PREDICT.QUANT) through uwt_conv_s8. For each
+    arch, one forward at BATCH x SIZE² with every launch held bit for bit
+    against conv_s8_plain on the card, and the launch count; the masks
+    against the bf16 tier's; the default fused fn with LaMa under
+    PREDICT.QUANT (checks of phase 3c, timed beside the bf16 fn in turns);
+    the network in turns with bf16 for both archs; the UNet++ forward's
+    convs timed as a whole and by shape beside the plain version, cuDNN's
+    bf16 conv and im2col + torch._int_mm; `repair --quant --no-ocr` on 4 of
+    3d's files. Returns the kernel line's entry and the timing fields."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.configs import get_cfg_defaults
+    from unet_watermark_tpu_torch.inference import maskproc
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.ops import quant
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
+
+    t_phase = time.perf_counter()
+    real, real_quantize = k8.conv_s8, quant._quantize
+    qpreds, forward_calls, agree = {}, {}, {}
+    for arch, expect in INT8_CONVS.items():
+        cfg = get_cfg_defaults()
+        cfg.MODEL.NAME = arch
+        cfg.PREDICT.QUANT = True
+        pq = WatermarkPredictor(cfg)
+        if len(pq._quant_plans) != expect:
+            raise AssertionError(f"{arch}: {len(pq._quant_plans)} int8 plans, "
+                                 f"not {expect}")
+        calls = []
+
+        def hooked(xq, wq, scale, **kw):
+            y = real(xq, wq, scale, **kw)
+            ref = quant.conv_s8_plain(xq, wq, scale, kw["stride"],
+                                      kw["padding"], kw["dilation"],
+                                      kw["out_dtype"])
+            if not torch.equal(y, ref):
+                err = (y.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"uwt_conv_s8 differs from its plain "
+                                     f"version by {err} on {tuple(xq.shape)}"
+                                     f" x {tuple(wq.shape)} {kw}")
+            calls.append((xq, wq, scale, dict(kw)))
+            return y
+
+        def quantize_hooked(x, inv):
+            # the scalar multiply on the card against a float32 tensor's
+            xq = real_quantize(x, inv)
+            inv32 = torch.tensor(inv, dtype=torch.float32, device=x.device)
+            ref = torch.clamp(torch.round(x.float() * inv32), -127.0,
+                              127.0).to(torch.int8)
+            if not torch.equal(xq, ref):
+                raise AssertionError(f"the activation quantize on the card "
+                                     f"differs from float32 x * f32(1/sx) "
+                                     f"on {tuple(x.shape)}")
+            quantized.append(inv)
+            return xq
+
+        quantized = []
+        k8.reset_launch_counts()
+        k8.conv_s8, quant._quantize = hooked, quantize_hooked
+        try:
+            raw_q = pq.predict_masks(images)
+            torch.cuda.synchronize()
+        finally:
+            k8.conv_s8, quant._quantize = real, real_quantize
+        if len(quantized) != expect:
+            raise AssertionError(f"{arch}: {len(quantized)} activations "
+                                 f"quantized, not {expect}")
+        if real.launches != expect or len(calls) != expect:
+            raise AssertionError(f"{arch}: {real.launches} launches of "
+                                 f"uwt_conv_s8 in a forward, not {expect}")
+        raw_b = preds[arch].predict_masks(images)
+        agree[arch] = (raw_q == raw_b).float().mean().item()
+        if agree[arch] < 0.97:  # the JAX package's test_predictor_quant_tier
+            raise AssertionError(f"{arch}: int8 and bf16 masks agree on "
+                                 f"only {agree[arch]:.4%} of pixels")
+        qpreds[arch] = pq
+        forward_calls[arch] = calls
+        log("int8_forward", arch=arch, images=list(images.shape),
+            launches=real.launches, every_launch_equals_plain=True,
+            every_quantize_equals_float32=True,
+            int8_vs_bf16_mask_agreement=round(agree[arch], 6),
+            scales=len(pq._quant_scales))
+
+    # the default fused fn (UNet++, LaMa) under PREDICT.QUANT
+    pq = qpreds["UnetPlusPlus"]
+    fused_q = pq.make_fused_repair_fn()
+    if fused_q.engine_used != "ffc-lama":
+        raise AssertionError(f"int8 fused fn fills with {fused_q.engine_used}")
+    k8.reset_launch_counts()
+    repaired_q, mask_q = fused_q(images)
+    torch.cuda.synchronize()
+    fused_launches = real.launches
+    if fused_launches != INT8_CONVS["UnetPlusPlus"]:
+        raise AssertionError(f"the int8 fused fn launched uwt_conv_s8 "
+                             f"{fused_launches} times")
+    check_repair(images, repaired_q, mask_q)
+    raw_q = pq.predict_masks(images)
+    for i, mk in enumerate(raw_q):
+        if not torch.equal(mask_q[i],
+                           maskproc.optimize_watermark_mask_tight(mk)):
+            raise AssertionError(f"int8 fused fn's mask of image {i} differs "
+                                 f"from the plain tight chain")
+    # in turns: bf16, int8, int8, bf16 (fused fn with LaMa, then networks)
+    n = images.shape[0]
+    rounds = {"fused_bf16_ms": [], "fused_int8_ms": []}
+    for key in ("fused_bf16_ms", "fused_int8_ms", "fused_int8_ms",
+                "fused_bf16_ms"):
+        fn = fused_bf16 if key == "fused_bf16_ms" else fused_q
+        rounds[key].append(cuda_ms(lambda: fn(images), 5, warmup=2))
+    net = {}
+    with torch.inference_mode():
+        for arch in INT8_CONVS:
+            b, q = preds[arch], qpreds[arch]
+            r = [cuda_ms(lambda: m.predict_masks(images), 10)
+                 for m in (b, q, q, b)]
+            net[arch] = {"bf16_network_ms": (r[0] + r[3]) / 2,
+                         "int8_network_ms": (r[1] + r[2]) / 2, "rounds": r}
+    fused_ms = {k: float(np.mean(v)) for k, v in rounds.items()}
+    with torch.inference_mode():
+        for tier, m in (("int8", qpreds["UnetPlusPlus"]),
+                        ("bf16", preds["UnetPlusPlus"])):
+            log(f"profile_{tier}_network", arch="UnetPlusPlus",
+                **profile_window(lambda: m.predict_masks(images), 3))
+
+    # the UNet++ forward's convs: the whole set back to back, and by shape
+    calls = forward_calls["UnetPlusPlus"]
+    by_weight = {id(p.wq): k for k, p in pq._quant_plans.items()}
+    paths = [by_weight[id(c[1])] for c in calls]
+    work_ops = work_bytes = bound = 0.0
+    for c in calls:
+        ops, nbytes = conv_s8_bound(c)
+        work_ops += ops
+        work_bytes += nbytes
+        bound += max(ops / PEAK_INT8_OPS_PER_S, nbytes / PEAK_BYTES_PER_S)
+
+    def replay(fn):
+        return lambda: [fn(c) for c in calls]
+
+    with torch.inference_mode():
+        kernel_all = replay(lambda c: real(c[0], c[1], c[2], **c[3]))
+        libs = [conv_s8_library(c) for c in calls]
+        timed = {"ms": kernel_all, "library_ms": lambda: [f() for f in libs]}
+        t_rounds = {k: [] for k in timed}
+        for r in range(4):
+            for key in (list(timed) if r % 2 == 0 else list(timed)[::-1]):
+                t_rounds[key].append(cuda_ms(timed[key], 5, warmup=1))
+        plain_ms = cuda_ms(replay(lambda c: quant.conv_s8_plain(
+            c[0], c[1], c[2], c[3]["stride"], c[3]["padding"],
+            c[3]["dilation"], c[3]["out_dtype"])), 1, warmup=1)
+        shapes = []
+        for path in INT8_SHAPES:
+            c = calls[paths.index(path)]
+            ops, nbytes = conv_s8_bound(c)
+            mm = conv_s8_int_mm(c)
+            shapes.append({
+                "path": path, "x": list(c[0].shape), "w": list(c[1].shape),
+                "stride": c[3]["stride"], "dilation": c[3]["dilation"],
+                "ms": cuda_ms(lambda: real(c[0], c[1], c[2], **c[3]), 20),
+                "plain_ms": cuda_ms(lambda: quant.conv_s8_plain(
+                    c[0], c[1], c[2], c[3]["stride"], c[3]["padding"],
+                    c[3]["dilation"], c[3]["out_dtype"]), 2, warmup=1),
+                "cudnn_bf16_ms": cuda_ms(conv_s8_library(c), 20),
+                "im2col_int_mm_ms": cuda_ms(mm, 5) if mm else None,
+                "bound_ms": max(ops / PEAK_INT8_OPS_PER_S,
+                                nbytes / PEAK_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if ops / PEAK_INT8_OPS_PER_S >=
+                nbytes / PEAK_BYTES_PER_S else "bytes",
+                "gop": ops / 1e9, "mb": nbytes / 1e6})
+    # the library call computes the same sums (bf16 output)
+    c = calls[paths.index("decoder/final_block/conv1/conv:up")]
+    acc = quant.conv_sums_plain(c[0], c[1], 1, 2, 2).float()
+    lib = libs[paths.index("decoder/final_block/conv1/conv:up")]().float()
+    lib_err = ((lib - acc).abs().max() / acc.abs().max().clamp(min=1)).item()
+    if lib_err > 1e-2:
+        raise AssertionError(f"the cuDNN yardstick of the up-conv is another "
+                             f"function (relative error {lib_err})")
+    ms = float(np.median(t_rounds["ms"]))
+    library_ms = float(np.median(t_rounds["library_ms"]))
+    ops_ms, bytes_ms = (work_ops / PEAK_INT8_OPS_PER_S * 1e3,
+                        work_bytes / PEAK_BYTES_PER_S * 1e3)
+    log("int8_convs", arch="UnetPlusPlus", launches=len(calls), ms=ms,
+        plain_ms=plain_ms, cudnn_bf16_ms=library_ms, bound_ms=bound * 1e3,
+        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+        gop=work_ops / 1e9, mb=work_bytes / 1e6, rounds_ms=t_rounds,
+        cudnn_up_conv_rel_err=lib_err, shapes=shapes)
+
+    # `repair --quant --no-ocr` on 4 of 3d's files
+    folder = work / "in_q"
+    folder.mkdir()
+    for stem in INT8_CLI_FILES:
+        shutil.copy(work / "in" / f"{stem}.png", folder / f"{stem}.png")
+    argv = ["repair", "--input", str(folder), "--output", str(work / "out_q"),
+            "--no-ocr", "--quant"]
+    k8.reset_launch_counts()
+    rc, wall, _ = run_cli(argv, dev, timer=False)
+    cli_launches = real.launches
+    summary = json.loads((work / "out_q" / "repair_summary.json").read_text())
+    if rc != 0 or summary.get("status") != "success" or \
+            summary.get("engine_used") != "ffc-lama" or \
+            summary.get("engine_failures"):
+        raise AssertionError(f"repair --quant: rc {rc}, {summary}")
+    if cli_launches != INT8_CONVS["UnetPlusPlus"]:  # one step-1 batch
+        raise AssertionError(f"repair --quant launched uwt_conv_s8 "
+                             f"{cli_launches} times")
+    masks = sorted(os.listdir(work / "out_q" / "step1_masks"))
+    log("repair_cli_quant", argv=argv[:1] + argv[5:], rc=rc,
+        launches=cli_launches, wall_s=wall, step1_masks=len(masks),
+        status=summary["status"], engine=summary["engine_used"])
+    timing = {"batch": n, "size": images.shape[1],
+              "fused_lama_bf16_ms": fused_ms["fused_bf16_ms"],
+              "fused_lama_int8_ms": fused_ms["fused_int8_ms"],
+              "fused_lama_bf16_img_per_s": n / (fused_ms["fused_bf16_ms"]
+                                                / 1e3),
+              "fused_lama_int8_img_per_s": n / (fused_ms["fused_int8_ms"]
+                                                / 1e3),
+              "fused_rounds_ms": rounds, "networks": net,
+              "int8_vs_bf16_mask_agreement": agree,
+              "repair_cli_quant_wall_s": wall,
+              "phase_s": time.perf_counter() - t_phase}
+    kernel = {
+        "name": "uwt_conv_s8", "route": "cuda",
+        "source": f"{PORT}/csrc/conv_s8.cu",
+        "replaces": "unet_watermark_tpu/ops/quant.py:160",
+        "launches": fused_launches,
+        "unet_forward_launches": INT8_CONVS["Unet"],
+        "repair_cli_quant_launches": cli_launches,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound * 1e3,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+        "what": "the 68 convs of one UNet++ int8 forward at 8 x 512², "
+                "back to back"}
+    return {"timing": timing, "kernel": kernel}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1184,6 +1520,8 @@ def main(argv=None) -> int:
     from unet_watermark_tpu_torch.ops import components as cc
     from unet_watermark_tpu_torch.ops.inpaint import inpaint_pushpull
     from unet_watermark_tpu_torch.ops.kernels import build
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
+    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
     from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
     from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 
@@ -1202,12 +1540,17 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     # -- 1: build ------------------------------------------------------------
+    # one compiler call a source, all started together
+    sources = (kc.SOURCE, k8.SOURCE, jpeg_entropy.SOURCE)
     t0 = time.perf_counter()
-    lib, nvcc_out = build.build(kc.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build.build, sources)))
     build_s = time.perf_counter() - t0
-    log("build", library=lib.name, seconds=round(build_s, 3),
-        ptxas=[ln.strip() for ln in nvcc_out.splitlines()
-               if "registers" in ln or "smem" in ln or "spill" in ln])
+    for source, (lib, out) in built.items():
+        log("build", source=source, library=lib.name,
+            seconds_all=round(build_s, 3),
+            ptxas=[ln.strip() for ln in out.splitlines()
+                   if "registers" in ln or "smem" in ln or "spill" in ln])
 
     # -- 2: kernels against their plain versions -----------------------------
     for size in (s, 33, 100):
@@ -1492,6 +1835,9 @@ def main(argv=None) -> int:
         ocr_timing = repair_cli_ocr_phase(work, args.seed, dev)
         # -- 3f: the repair command on a folder of JPEGs -----------------
         jpeg_timing = repair_cli_jpeg_phase(work, args.seed, dev)
+        # -- 3g: the int8 tier -------------------------------------------
+        int8 = int8_tier_phase(work, {"Unet": pred, "UnetPlusPlus": pred_d},
+                               fused_l, images_d, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1615,6 +1961,7 @@ def main(argv=None) -> int:
         fused_lama_img_per_s=n / (e2e_l[0] / 1e3),
         fused_lama_batch=[n, s, s, 3], card=card)
     log("timing_repair_cli_ocr", **ocr_timing, card=card)
+    log("timing_int8_tier", **int8["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -1676,6 +2023,7 @@ def main(argv=None) -> int:
         if err != 0.0:
             raise AssertionError(f"{fn.__name__} differs from its plain "
                                  f"version by {err}")
+    kernels.append(int8["kernel"])
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -302,3 +302,70 @@ def test_jpeg_card_route_equals_cpu(cuda, form):
             assert card.device.type == "cuda"
             assert torch.equal(card.cpu(),
                                image_io.decode_jpeg(body, "cpu", gray))
+
+
+# uwt_conv_s8 (csrc/conv_s8.cu): every conv form of the two archs, at small
+# shapes with ragged tiles and at shapes of the 8 x 512² forward, bf16 and
+# fp32 outputs, held bit for bit against its plain version on the card.
+# (kernel, stride, padding, lhs dilation, cin, cout, n, side)
+CONV_S8_FORMS = [(7, 2, 3, 1, 3, 64, 2, 36), (3, 1, 1, 1, 16, 16, 1, 19),
+                 (3, 2, 1, 1, 64, 128, 2, 17), (1, 2, 0, 1, 64, 128, 2, 17),
+                 (4, 1, 2, 2, 32, 16, 2, 13), (3, 1, 1, 1, 48, 40, 1, 7),
+                 (7, 2, 3, 1, 3, 64, 8, 512), (3, 1, 1, 1, 64, 64, 8, 128),
+                 (3, 1, 1, 1, 512, 512, 8, 16), (4, 1, 2, 2, 32, 16, 8, 256),
+                 (4, 1, 2, 2, 512, 256, 8, 16)]
+
+
+@pytest.mark.parametrize("form", CONV_S8_FORMS, ids=lambda f: "-".join(
+    map(str, f)))
+def test_conv_s8_bit_exact(cuda, form):
+    from unet_watermark_tpu_torch.ops import quant
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8
+    k, stride, pad, dil, cin, cout, n, side = form
+    g = torch.Generator().manual_seed(sum(form))
+    x = torch.randint(-127, 128, (n, cin, side, side), generator=g,
+                      dtype=torch.int8).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                      dtype=torch.int8).to(cuda)
+    scale = torch.rand(cout, generator=g).to(cuda) * 1e-3
+    scale[0] = 1e-17  # a dead operand's f32(sx) * sw: not flushed
+    for dtype in (torch.bfloat16, torch.float32):
+        ref = quant.conv_s8_plain(x, w, scale, stride, pad, dil, dtype)
+        before = conv_s8.conv_s8.launches
+        out = conv_s8.conv_s8(x, w, scale, stride=stride, padding=pad,
+                              dilation=dil, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert conv_s8.conv_s8.launches == before + 1
+        assert out.shape == ref.shape and out.dtype == dtype
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(out, ref)
+        assert (out[:, 0] != 0).any() or not ref[:, 0].any()
+
+
+def test_conv_s8_refuses_what_it_does_not_take(cuda):
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8
+    x = torch.zeros(1, 16, 8, 8, dtype=torch.int8, device=cuda)
+    w = torch.zeros(8, 16, 3, 3, dtype=torch.int8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_s8.conv_s8(x, w, s)
+    with pytest.raises(TypeError):
+        conv_s8.conv_s8(x.float(), w, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_on_card_equals_cpu(cuda, dtype):
+    """The activation quantize (a Python-float multiply, round half to
+    even, clip) gives the CPU's int8 values on the card, ties included."""
+    from unet_watermark_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(3)
+    for amax in (1e-12, 0.37, 6.35, 1e4):
+        sx = max(amax, quant.MIN_AMAX) / 127.0
+        x = torch.randn(2, 7, 9, 11, generator=g) * amax
+        ties = torch.arange(-130, 130.5, 0.5, dtype=torch.float64) * sx
+        x.view(-1)[:ties.numel()] = ties.float()
+        x = x.to(dtype)
+        cpu, _ = quant.quantize_activation(x, amax)
+        card, _ = quant.quantize_activation(x.to(cuda), amax)
+        assert torch.equal(card.cpu(), cpu)

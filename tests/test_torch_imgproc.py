@@ -1,12 +1,8 @@
 """ops/imgproc.py, the port's cv2-parity image ops, against cv2 5.0.0 itself,
 bit for bit, on seeded inputs: odd sizes, 1 x N and N x 1, sizes that are
 not multiples of the CLAHE grid, flat and two-level images, rings with
-blobs inside, shapes touching every border, rotated and concave quads.
-
-The one stated exception: fill_poly equals cv2.fillPoly for polygons whose
-corners lie inside the image; for polygons that cross the image's edge,
-cv2 5.0 clips the edge list in a way not reproduced, and a fixed sample of
-them differs on a stated count (test_fill_poly_crossing_the_edge)."""
+blobs inside, shapes touching every border, rotated and concave quads,
+and quads that cross the image's edge (test_fill_poly_crossing_the_edge)."""
 import cv2
 import numpy as np
 import pytest
@@ -263,13 +259,9 @@ def test_fill_poly_equals_cv2(seed):
         np.testing.assert_array_equal(got, ref, err_msg=str(pts.tolist()))
 
 
-# Of FILL_POLY_CROSSING_N random quads with corners up to 8 px beyond the
-# edges of a 1-59 px image (seed 7) that cross the image's edge, this many
-# masks differ from cv2 5.0's: its clipping of edges that leave the image
-# is not reproduced. No region from the builtin detector is a polygon; the
-# easy and paddle engines' polygons lie inside the image they came from.
+# Random quads with corners up to 8 px beyond the edges of a 1-59 px image
+# (seed 7) that cross the image's edge: every mask equals cv2 5.0's.
 FILL_POLY_CROSSING_N = 2000
-FILL_POLY_CROSSING_DIFFER = 103
 
 
 def test_fill_poly_crossing_the_edge():
@@ -287,7 +279,7 @@ def test_fill_poly_crossing_the_edge():
         ip.fill_poly(got, pts)
         cv2.fillPoly(ref, [pts], 255)
         differ += not np.array_equal(got, ref)
-    assert differ == FILL_POLY_CROSSING_DIFFER
+    assert differ == 0
 
 
 def test_wrong_inputs_raise():

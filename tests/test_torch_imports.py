@@ -21,7 +21,9 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.ocr.paddle_ocr",
         "unet_watermark_tpu_torch.utils.jpeg",
         "unet_watermark_tpu_torch.ops.jpeg",
-        "unet_watermark_tpu_torch.ops.kernels.jpeg_entropy"]
+        "unet_watermark_tpu_torch.ops.kernels.jpeg_entropy",
+        "unet_watermark_tpu_torch.ops.quant",
+        "unet_watermark_tpu_torch.ops.kernels.conv_s8"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """
@@ -55,7 +57,7 @@ def _run(code_or_args, cwd, timeout=120):
 def test_port_imports_nothing_of_jax():
     proc = _run(IMPORT_ALL.format(blocked=BLOCKED, must=MUST), REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 39  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 41  # every module was imported
 
 
 def test_chip_smoke_fails_without_a_card():

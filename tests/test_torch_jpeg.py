@@ -4,14 +4,10 @@ csrc/jpeg_entropy.c, ops/jpeg.py's pixel stage) against cv2.imread (cv2
 byte equal, for colour and gray reads, over qualities, samplings,
 progressive and optimized coding, restart intervals, split luma/chroma
 qualities, gray files, odd sizes, EXIF orientations 1-8 in both byte
-orders, and files cut inside their entropy data. Also the C decoder's
-coefficients against the Python decoder's, utils/synthetic.encode_jpeg's
-files in cv2, and the forms that must raise.
-
-One case is not exact: a progressive file cut before its last scan starts.
-libjpeg then smooths the blocks whose coefficients are incomplete
-(jdcoefct.c's block smoothing), which is not ported; those cuts are stated
-below by their count of differing bytes and largest difference.
+orders, and files cut inside their entropy data (a progressive cut is
+smoothed as jdcoefct.c smooths it). Also the C decoder's coefficients
+against the Python decoder's, utils/synthetic.encode_jpeg's files in cv2,
+and the forms that must raise.
 """
 import itertools
 import os
@@ -42,14 +38,21 @@ SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
 # (quality, IMWRITE_JPEG_OPTIMIZE, restart interval in MCUs): each file of a
 # matrix case; every quality, both optimize settings and every interval
 CODINGS = [(50, 0, 0), (75, 1, 1), (95, 0, 7), (100, 1, 0)]
-# progressive 129 x 191 q95 4:2:0 files cut at these shares of their
-# entropy data (from the first scan on): {share: (bytes of the colour read,
-# of 73 917, that differ from cv2's, largest difference)}. The 0.3 cut
-# falls in scan 6 of 10, the 0.6 cut in scan 9: libjpeg smooths the blocks
-# of coefficients not yet fully refined (the same happens at clean scan
-# boundaries); the 0.95 cut falls in the last scan, where it does not
-CUT_SHARES = (0.3, 0.6, 0.95)
-PROGRESSIVE_CUT_DIFFER = {0.3: (44950, 67), 0.6: (9229, 4), 0.95: (0, 0)}
+# 129 x 191 q95 4:2:0 files cut at these shares of their entropy data
+# (from the first scan on), and "scan": at the end of the fifth scan's data.
+# In a progressive file the 0.3 cut falls in scan 6 of 10 and the 0.6 cut
+# in scan 9, where libjpeg smooths the blocks whose coefficients are not
+# yet fully refined; the 0.95 cut falls in the last scan, which counts as
+# begun, so nothing is smoothed
+CUT_SHARES = (0.3, 0.6, 0.95, "scan")
+
+
+def cut_file(data: bytes, share) -> bytes:
+    if share == "scan":
+        scans = jpeg.parse(data).scans
+        return data[:scans[min(4, len(scans) - 1)].end]
+    start = entropy_start(data)
+    return data[:start + int(share * (len(data) - start))]
 
 
 def photo(h, w, seed, gray=False):
@@ -200,26 +203,91 @@ def entropy_start(data: bytes) -> int:
 @pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
 def test_truncated_files(tmp_path, prog, share):
     """A file cut inside its entropy data: cv2 gives the image (a flat gray
-    tail in a baseline file, the earlier scans' detail in a progressive
-    one). Baseline cuts are exact; progressive cuts before the last scan
-    differ by PROGRESSIVE_CUT_DIFFER (libjpeg's block smoothing)."""
+    tail in a baseline file, the earlier scans' detail, smoothed, in a
+    progressive one). Every cut is exact, colour and gray."""
     data = encode(photo(129, 191, 9), 95, "420", prog)
-    start = entropy_start(data)
-    cut = data[:start + int(share * (len(data) - start))]
+    cut = cut_file(data, share)
     path = tmp_path / "cut.jpg"
     path.write_bytes(cut)
     rgb, gray = cv2_reads(path)
     out = image_io.read_rgb(path)
     assert out.shape == rgb.shape
-    if not prog:
-        np.testing.assert_array_equal(out, rgb)
-        np.testing.assert_array_equal(image_io.read_gray(path), gray)
+    np.testing.assert_array_equal(out, rgb)
+    np.testing.assert_array_equal(image_io.read_gray(path), gray)
+    header = jpeg.parse(cut)
+    jpeg.decode_scans(header, cut)
+    smoothing = jpeg.block_smoothing(header)
+    if not prog and share != "scan":
         # the MCUs after the cut are left empty: mid-gray luma
         assert gray[-1, -1] == 128
-        return
-    diff = np.abs(out.astype(int) - rgb)
-    assert (int((diff > 0).sum()), int(diff.max())) == \
-        PROGRESSIVE_CUT_DIFFER[share]
+    # smoothed where a coefficient of 1..9 is not exact in the last scan's
+    # state: the 0.3 and 0.6 cuts, and the scan-boundary cut (scan 5 of 10)
+    assert (smoothing is not None) == (prog and share != 0.95)
+
+
+# Progressive files cut at random points and at the end of every scan but
+# the last, for each sampling (and gray), q50 and q95, with and without
+# restarts: block smoothing makes every cut equal to cv2's, except inside
+# the MCU where the data ran out. There the missing bits read as zeros and
+# can decode to coefficients far out of range, which libjpeg-turbo's SIMD
+# IDCT (16-bit lanes) saturates where the port's int32 IDCT wraps
+# (ROADMAP.md §C.8): this many files of each sampling's sweep differ, only
+# there. A cut inside a marker segment between scans (DHT, SOS) is refused
+# by the port's parser, where cv2 decodes the scans before it (§C.9): this
+# many of each sweep's cuts.
+CUT_SWEEP_DIFFER = {"444": 1, "422": 0, "420": 0, "440": 0, "411": 1,
+                    "gray": 0}
+CUT_SWEEP_REFUSED = {"444": 5, "422": 4, "420": 4, "440": 2, "411": 0,
+                     "gray": 2}
+
+
+@pytest.mark.parametrize("sampling", list(CUT_SWEEP_DIFFER))
+def test_progressive_cut_sweep(tmp_path, sampling):
+    rng = np.random.default_rng(len(sampling) + ord(sampling[-1]))
+    path = tmp_path / "cut.jpg"
+    n = differ = refused = 0
+    for (h, w), q, rst in itertools.product(((17, 33), (72, 40)), (50, 95),
+                                            (0, 3)):
+        gray = sampling == "gray"
+        data = encode(photo(h, w, h + w, gray), q, "420" if gray else
+                      sampling, 1, 0, rst)
+        scans = jpeg.parse(data).scans
+        start = scans[0].start
+        cuts = [sc.end for sc in scans[:-1]] + [
+            start + int(u * (len(data) - start)) for u in rng.random(3)]
+        for c in cuts:
+            path.write_bytes(data[:c])
+            try:
+                header = jpeg.parse(data[:c])
+            except jpeg.JPEGError:  # cut inside a marker segment (§C.9)
+                refused += cv2.imread(str(path)) is not None
+                continue
+            n += 1
+            rgb, gray_ref = cv2_reads(path)
+            got = (image_io.read_rgb(path), image_io.read_gray(path))
+            bad = np.zeros((h, w), bool)
+            for a, b in zip(got, (rgb, gray_ref)):
+                bad |= (a != b).reshape(h, w, -1).any(-1)
+            if not bad.any():
+                continue
+            differ += 1
+            # the differing pixels lie inside the cut MCU (and its
+            # upsampling neighbours)
+            jpeg.decode_scans(header, data[:c])
+            last = header.scans[-1]
+            _, _, across = jpeg.scan_blocks(header, last)
+            my, mx = divmod(last.cut, across)
+            comp = header.components[last.comps[0]]
+            sy, sx = ((8 * header.vmax // comp.v, 8 * header.hmax // comp.h)
+                      if len(last.comps) == 1 else
+                      (8 * header.vmax, 8 * header.hmax))
+            inside = np.zeros_like(bad)
+            inside[max(my * sy - 2, 0):(my + 1) * sy + 2,
+                   max(mx * sx - 2, 0):(mx + 1) * sx + 2] = True
+            assert last.cut >= 0 and not (bad & ~inside).any()
+    assert n >= 30
+    assert differ == CUT_SWEEP_DIFFER[sampling]
+    assert refused == CUT_SWEEP_REFUSED[sampling]
 
 
 def test_unreadable_files_give_jpeg_error(tmp_path):
@@ -351,17 +419,19 @@ def test_c_decoder_equals_python(c_decoder, sampling, prog):
         files += [encode(photo(129, 191, 3), 95, sampling, prog, luma=lq,
                          chroma=cq) for lq, cq in ((90, 40), (40, 95))]
     full = encode(photo(129, 191, 9), 95, "420", prog)
-    start = entropy_start(full)
-    files += [full[:start + int(s * (len(full) - start))]
-              for s in CUT_SHARES]
+    files += [cut_file(full, s) for s in CUT_SHARES]
     files += [encode_jpeg(photo(40, 56, 1), 85, s, bool(prog), rst, o)
               for s, rst, o in (("444", 0, None), ("422", 3, 6),
                                 ("420", 2, 3))]
     for data in files:
         header = jpeg.parse(data)
-        for a, b in zip(jpeg.decode_scans(header, data),
-                        c_decoder(header, data)):
+        plain = jpeg.decode_scans(header, data)
+        cuts = [scan.cut for scan in header.scans]
+        for a, b in zip(plain, c_decoder(header, data)):
             np.testing.assert_array_equal(a, b)
+        # both record the MCU where the data ran out (block smoothing's
+        # last good row)
+        assert [scan.cut for scan in header.scans] == cuts
 
 
 @pytest.mark.parametrize("restart", [0, 3])

@@ -8,8 +8,9 @@ Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
 builtin detector where easyocr is not installed, as there). --device is
 "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda"); "cuda" without
 a card raises. What the port does not run yet raises NotImplementedError
-naming its ROADMAP.md item: --quant, --video, and the `train` and `auto`
-subcommands. The LaMa weights of --inpaint-weights go into the config
+naming its ROADMAP.md item: --video, and the `train` and `auto`
+subcommands. --quant runs the int8 tier (PREDICT.QUANT, set after --opts
+are merged). The LaMa weights of --inpaint-weights go into the config
 (PREDICT.INPAINT_WEIGHTS) where the JAX CLI sets the
 PREDICT_INPAINT_WEIGHTS environment variable.
 """
@@ -49,9 +50,6 @@ def _load_cfg(args):
 def repair_command(args) -> int:
     """WatermarkPredictor.process_folder_batch on the --input folder, then
     repair_summary.json in --output."""
-    if args.quant:
-        raise NotImplementedError("--quant: the int8 inference tier is not "
-                                  "ported yet (ROADMAP.md §A.6)")
     if args.video:
         raise NotImplementedError("--video: the comparison video needs a "
                                   "video writer, not ported yet (ROADMAP.md "
@@ -60,6 +58,8 @@ def repair_command(args) -> int:
     cfg = _load_cfg(args)
     if args.opts:
         cfg.merge_from_list(args.opts)
+    if args.quant:  # after --opts, as the JAX CLI
+        cfg.PREDICT.QUANT = True
     if args.inpaint_weights:
         cfg.PREDICT.INPAINT_WEIGHTS = args.inpaint_weights
 
@@ -131,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--merge-masks", action="store_true", default=True)
     rp.add_argument("--limit", type=int)
     rp.add_argument("--quant", action="store_true",
-                    help="int8 segmentation forward (not ported yet)")
+                    help="int8 segmentation forward (needs the weights' "
+                         "calibrated .quant.json sidecar)")
     rp.add_argument("--no-unet", action="store_true")
     rp.add_argument("--no-ocr", action="store_true",
                     help="skip steps 3-4 (the OCR text masks and their "

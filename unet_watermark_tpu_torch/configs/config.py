@@ -56,7 +56,9 @@ class PredictConfig:
     # trained FFC-LaMa weights for the repair engines; None = auto-resolve
     # (env PREDICT_INPAINT_WEIGHTS, then the shipped weights/lama_ffc.npz)
     INPAINT_WEIGHTS: Optional[str] = None
-    # the int8 tier; not ported (ROADMAP.md §A.6): True raises
+    # the int8 PTQ tier (ops/quant.py): the convs run s8 x s8 -> s32 with
+    # the <weights>.quant.json sidecar; without one, a warning and the
+    # model dtype
     QUANT: bool = False
     # "parity" = the reference's cv2 chain, "tight" = the
     # precision-preserving chain, "auto" = tight for the repair mask

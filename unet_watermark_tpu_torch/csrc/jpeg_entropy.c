@@ -153,7 +153,8 @@ static int restart(bits_t *b, int expected) {
 
 /* Decode one scan. comps[i] and the luts belong to the scan's i-th
  * component; an MCU of a one-component scan is one block of that
- * component's block grid, mcus_across blocks wide. Returns 0, or -1 for bad
+ * component's block grid, mcus_across blocks wide. Returns the index of the
+ * MCU at which the data ran out (-1 where it did not), or -2 for bad
  * arguments. */
 int uwt_jpeg_decode_scan(const uint8_t *data, int64_t start, int64_t end,
                          const uwt_jpeg_comp *comps, int32_t ncomps,
@@ -166,13 +167,14 @@ int uwt_jpeg_decode_scan(const uint8_t *data, int64_t start, int64_t end,
   int32_t last_dc[4] = {0, 0, 0, 0};
   int32_t eobrun = 0, restarts_to_go = restart_interval, next_rst = 0;
   int short_ = 0;
+  int32_t cut = -1;
   int dc_refine = progressive && ss == 0 && ah != 0;
   int need_dc = !progressive || (ss == 0 && ah == 0);
   int ac_first = progressive && ss != 0 && ah == 0;
   int p1 = 1 << al, m1 = -(1 << al);
   int32_t mcu;
   if (ncomps < 1 || ncomps > 4 || mcus_across < 1 || se > 63 || ss > se)
-    return -1;
+    return -2;
   memset(&b, 0, sizeof b);
   b.data = data;
   b.pos = start;
@@ -183,7 +185,7 @@ int uwt_jpeg_decode_scan(const uint8_t *data, int64_t start, int64_t end,
     int i;
     if (restart_interval) {
       if (restarts_to_go == 0) {
-        if (restart(&b, next_rst)) short_ = 0;
+        if (restart(&b, next_rst)) short_ = 0, cut = -1;
         b.short_ = 0;
         next_rst = (next_rst + 1) & 7;
         memset(last_dc, 0, sizeof last_dc);
@@ -297,7 +299,7 @@ int uwt_jpeg_decode_scan(const uint8_t *data, int64_t start, int64_t end,
         }
       }
     }
-    if (b.short_) short_ = 1;
+    if (b.short_ && !short_) short_ = 1, cut = mcu;
   }
-  return 0;
+  return cut;
 }

@@ -30,7 +30,10 @@ the same folders, file names, skip rules and stats:
 
 predict_mask answers for the watermark, text and mixed types; the last two
 first run _enhance_text_features (CLAHE, Canny, sharpen; ops/imgproc.py) on
-the device. PREDICT.QUANT (ROADMAP.md §A.6) raises NotImplementedError. The
+the device. With PREDICT.QUANT every forward (step 1, predict_mask, the
+tiled path, the fused fn) runs the int8 tier (ops/quant.py) through
+_apply_model, with the sidecar next to the weights; without one it warns
+and stays in the model dtype, as the JAX package does. The
 port decodes PNG and JPEG (utils/image_io.py), each file by its content as
 cv2 does (a JPEG copied to {stem}.png by the --no-unet route or a fallback
 is read as the JPEG it is): a folder holding BMP, TIFF or WEBP files, an
@@ -66,6 +69,7 @@ from ..ocr.base import rasterize_regions
 from ..ops import components as cc
 from ..ops import imgproc
 from ..ops import morphology as m
+from ..ops import quant
 from ..ops.inpaint import inpaint_pushpull
 from ..ops.resize import resize_linear_f32, resize_linear_u8, resize_nearest
 from ..utils import image_io
@@ -162,10 +166,6 @@ class WatermarkPredictor:
                  weights_path: Optional[str] = None, device: str = "cuda"):
         with _stage("predictor_init"):
             self.cfg = cfg if cfg is not None else get_cfg_defaults()
-            if self.cfg.PREDICT.QUANT:
-                raise NotImplementedError(
-                    "PREDICT.QUANT: the int8 inference tier is not ported "
-                    "yet (ROADMAP.md §A.6)")
             self.device = resolve_device(device)
             self.dtype = torch_dtype(self.cfg.MODEL.DTYPE)
             model = create_model_from_config(self.cfg)
@@ -181,6 +181,10 @@ class WatermarkPredictor:
             if self.device.type == "cuda":
                 model = model.to(memory_format=torch.channels_last)
             self.model = model
+            self._quant_scales = self._load_quant_scales()
+            # the int8 operands of every calibrated conv, built once
+            self._quant_plans = quant.build_plans(
+                model, self._quant_scales) if self._quant_scales else None
             self.img_size = self.cfg.DATA.IMG_SIZE
             self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
             self._std = torch.tensor(IMAGENET_STD, device=self.device)
@@ -192,6 +196,30 @@ class WatermarkPredictor:
     # ------------------------------------------------------------------
     # forward helpers
     # ------------------------------------------------------------------
+    def _load_quant_scales(self) -> Optional[Dict[str, float]]:
+        """The sidecar's activation scales under PREDICT.QUANT, else None
+        (predict.py:113-130 in the JAX package)."""
+        if not self.cfg.PREDICT.QUANT:
+            return None
+        sidecar = quant.quant_sidecar_path(self.weights_path)
+        if not os.path.exists(sidecar):
+            logger.warning("PREDICT.QUANT set but no calibration sidecar at "
+                           "%s — staying %s", sidecar, self.cfg.MODEL.DTYPE)
+            return None
+        scales = quant.load_scales(sidecar)
+        logger.info("int8 inference tier: %d calibrated conv scales (%s)",
+                    len(scales), sidecar)
+        return scales
+
+    def _apply_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The segmentation forward on normalized NHWC images: the model
+        dtype, or the int8 tier when PREDICT.QUANT resolved a sidecar.
+        Every forward of the predictor goes through here."""
+        if self._quant_scales:
+            with quant.quant_int8(self._quant_scales, self._quant_plans):
+                return self.model(x)
+        return self.model(x)
+
     def _normalize(self, images_01: torch.Tensor) -> torch.Tensor:
         return (images_01 - self._mean) / self._std
 
@@ -200,7 +228,8 @@ class WatermarkPredictor:
         """(N, S, S, 3) [0, 1] → (N, S, S) sigmoid probabilities. The JAX
         package pads a batch to a static size for its compile cache; eager
         torch runs it as it is."""
-        return torch.sigmoid(self.model(self._normalize(images_01))[..., 0])
+        return torch.sigmoid(self._apply_model(
+            self._normalize(images_01))[..., 0])
 
     @torch.inference_mode()
     def predict_masks(self, images_01: torch.Tensor) -> torch.Tensor:
@@ -338,9 +367,9 @@ class WatermarkPredictor:
         if self._tiled(h, w):
             padded, (oh, ow) = pad_to_multiple(rgb.float() / 255.0, 32,
                                                min_size=p.TILE_SIZE)
-            logits = predict_tiled(self.model, self._normalize(padded),
-                                   tile=p.TILE_SIZE, overlap=p.TILE_OVERLAP,
-                                   batch=p.BATCH_SIZE)
+            logits = predict_tiled(
+                self._apply_model, self._normalize(padded),
+                tile=p.TILE_SIZE, overlap=p.TILE_OVERLAP, batch=p.BATCH_SIZE)
             return torch.sigmoid(logits)[:oh, :ow, 0]
         return self._batch_prob_maps([rgb])[0]
 

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.quant import QConv2d
+
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 # a ConvBnRelu: convJ of a Unet block or final_block, x_{i}_{j}_convJ of UNet++
@@ -124,9 +126,16 @@ def load_flax_weights(model: nn.Module, flat: Dict[str, np.ndarray],
                       name_fn: Callable[[str], str] = torch_name) -> int:
     """Load flat flax weights into `model` in place (its tensors are
     replaced, so a model built on the meta device gets real ones); returns
-    the number used."""
+    the number used. Each ops/quant.QConv2d gets its kernel's flax path as
+    `quant_path` ('params/encoder/conv1/kernel' → 'encoder/conv1'), the key
+    of its activation scale in the int8 tier's sidecar."""
     sd = to_state_dict(flat, model, name_fn)
     model.load_state_dict(sd, strict=True, assign=True)
+    for key in flat:
+        if key.startswith("params/") and key.endswith("/kernel"):
+            mod = model.get_submodule(name_fn(key)[:-len(".weight")])
+            if isinstance(mod, QConv2d):
+                mod.quant_path = key[len("params/"):-len("/kernel")]
     return len(flat)
 
 

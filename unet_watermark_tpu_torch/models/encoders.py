@@ -2,7 +2,10 @@
 
 Returns the SMP 6-feature pyramid [x, s2, s4, s8, s16, s32]. Module names
 follow the torchvision/SMP state_dict (conv1, bn1, layer1..layer4,
-downsample.0/.1), which is the name map models/convert.py applies.
+downsample.0/.1), which is the name map models/convert.py applies. The
+convs are ops/quant.QConv2d: the 36 of resnet34 run int8 under a quant
+context, under their flax paths (encoder/conv1, encoder/layer{L}_{B}/conv{1,2},
+encoder/layer{L}_0/downsample_conv).
 """
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+
+from ..ops.quant import QConv2d
 
 BN_EPS = 1e-5
 
@@ -23,15 +28,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, ch: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, ch, 3, stride, 1, bias=False)
+        self.conv1 = QConv2d(cin, ch, 3, stride, 1, bias=False)
         self.bn1 = _bn(ch)
-        self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
+        self.conv2 = QConv2d(ch, ch, 3, 1, 1, bias=False)
         self.bn2 = _bn(ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != ch:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, ch, 1, stride, 0, bias=False), _bn(ch))
+                QConv2d(cin, ch, 1, stride, 0, bias=False), _bn(ch))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -56,7 +61,7 @@ class ResNetEncoder(nn.Module):
     def __init__(self, variant: str = "resnet34"):
         super().__init__()
         self.out_channels = resnet_out_channels(variant)
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = QConv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)  # pads with -inf

@@ -6,6 +6,12 @@ default FusedUpConvBnRelu is an exact rewrite of them on the same
 parameters. The two decoders concatenate in opposite orders, which the
 kernels' input channels follow: the Unet block [up | skip], a UNet++ cell
 [skips... | up].
+
+Under a quant context (ops/quant.py) each block's first conv runs as the
+JAX package's SplitUpConcatConv instead (QConv2d.forward_split: the
+lhs-dilated conv of the lower feature with the fused 4x4 kernel plus the
+3x3 conv of the skips, each int8 with its own scale); outside one the
+plain forms above run unchanged.
 """
 from __future__ import annotations
 
@@ -15,13 +21,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import QConv2d, current_mode
 from .encoders import BN_EPS
 
 
-def conv_bn_relu(cin: int, ch: int) -> nn.Sequential:
-    """ConvBnRelu; Sequential indices give the SMP names convJ.0 / convJ.1."""
-    return nn.Sequential(nn.Conv2d(cin, ch, 3, 1, 1, bias=False),
-                         nn.BatchNorm2d(ch, eps=BN_EPS), nn.ReLU(inplace=True))
+def conv_bn_relu(cin: int, ch: int, split=None) -> nn.Sequential:
+    """ConvBnRelu; Sequential indices give the SMP names convJ.0 / convJ.1.
+    `split` marks a block's first conv (QConv2d.split)."""
+    conv = QConv2d(cin, ch, 3, 1, 1, bias=False)
+    conv.split = split
+    return nn.Sequential(conv, nn.BatchNorm2d(ch, eps=BN_EPS),
+                         nn.ReLU(inplace=True))
+
+
+def split_conv_bn_relu(block: nn.Sequential, x_low: torch.Tensor,
+                       skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """A first conv_bn_relu over concat(up2x(x_low), skip) as
+    FusedUpConvBnRelu runs it (QConv2d.forward_split)."""
+    conv, bn, relu = block
+    return relu(bn(conv.forward_split(x_low, skip)))
 
 
 class DecoderBlock(nn.Module):
@@ -29,10 +47,12 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, cin: int, cskip: int, ch: int):
         super().__init__()
-        self.conv1 = conv_bn_relu(cin + cskip, ch)
+        self.conv1 = conv_bn_relu(cin + cskip, ch, split=(cin, True))
         self.conv2 = conv_bn_relu(ch, ch)
 
     def forward(self, x, skip: Optional[torch.Tensor] = None):
+        if current_mode() is not None:
+            return self.conv2(split_conv_bn_relu(self.conv1, x, skip))
         x = F.interpolate(x, scale_factor=2, mode="nearest")
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
@@ -81,7 +101,8 @@ class UnetPlusPlusDecoder(nn.Module):
             for i in range(5 - j):
                 cin = sum(width[(i, k)] for k in range(j)) + width[(i + 1,
                                                                    j - 1)]
-                setattr(self, f"x_{i}_{j}_conv1", conv_bn_relu(cin, row_ch[i]))
+                setattr(self, f"x_{i}_{j}_conv1", conv_bn_relu(
+                    cin, row_ch[i], split=(width[(i + 1, j - 1)], False)))
                 setattr(self, f"x_{i}_{j}_conv2",
                         conv_bn_relu(row_ch[i], row_ch[i]))
                 width[(i, j)] = row_ch[i]
@@ -89,8 +110,17 @@ class UnetPlusPlusDecoder(nn.Module):
 
     def forward(self, feats: List[torch.Tensor]):
         grid = {(i, 0): feats[i + 1] for i in range(5)}
+        quant = current_mode() is not None
         for j in range(1, 5):
             for i in range(5 - j):
+                if quant:  # the skips as one tensor with one scale
+                    cats = [grid[(i, k)] for k in range(j)]
+                    x = split_conv_bn_relu(
+                        getattr(self, f"x_{i}_{j}_conv1"),
+                        grid[(i + 1, j - 1)],
+                        torch.cat(cats, dim=1) if j > 1 else cats[0])
+                    grid[(i, j)] = getattr(self, f"x_{i}_{j}_conv2")(x)
+                    continue
                 up = F.interpolate(grid[(i + 1, j - 1)], scale_factor=2,
                                    mode="nearest")
                 x = torch.cat([grid[(i, k)] for k in range(j)] + [up], dim=1)

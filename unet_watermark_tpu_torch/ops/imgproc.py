@@ -35,8 +35,7 @@ to the bit against cv2 5.0.0 (tests/test_torch_imgproc.py).
   fill_rect, fill_poly
                   cv2.rectangle(..., -1) and cv2.fillPoly (shift 0,
                   8-connected edges) on host numpy masks: a region list is
-                  a few shapes. fill_poly is exact for polygons inside the
-                  mask, not for those crossing its edge.
+                  a few shapes, inside the mask or crossing its edge.
 
 Images are (H, W) uint8 unless the function says otherwise. Labelling goes
 through ops/components.label_components. Each function's comment names
@@ -404,29 +403,30 @@ def _line8(mask: np.ndarray, p1, p2, value: int) -> None:
 def fill_poly(mask: np.ndarray, pts, value: int = 255) -> None:
     """cv2.fillPoly(mask, [pts], value) for one int32 polygon (shift 0,
     LINE_8): the outline drawn with 8-connected lines, then cv2's scanline
-    fill of the edge list. Exact for polygons inside the mask; where an
-    edge leaves it, cv2 5.0 clips the edge list in a way not reproduced
-    (tests/test_torch_imgproc.py states how often that differs)."""
+    fill of the edge list. As cv2 5.0's CollectPolyEdges, an edge that
+    leaves the mask takes its x and dx from the clipped line's endpoints
+    (dx 0 where the clipped line is one row or is not visible), and keeps
+    its unclipped rows; the fill clamps each row's span to the mask."""
     h, w = mask.shape[:2]
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     edges = []
     x0, y0 = pts[-1]
     for x1, y1 in pts:
         _line8(mask, (x0, y0), (x1, y1), value)
-        e0 = (x0 << XY_SHIFT, y0)
-        e1 = (x1 << XY_SHIFT, y1)
+        t0, t1 = (x0, y0), (x1, y1)
         if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
                 and 0 <= y1 < h):
-            _, t0, t1 = _clip_line(w, h, (x0, y0), (x1, y1))
-            if t0[1] != t1[1]:
-                e0 = (t0[0] << XY_SHIFT, t0[1])
-                e1 = (t1[0] << XY_SHIFT, t1[1])
+            _, t0, t1 = _clip_line(w, h, t0, t1)
         if y0 != y1:
-            dxe = _trunc_div(e1[0] - e0[0], e1[1] - e0[1])
+            dxe = 0
+            if t0[1] != t1[1]:
+                dxe = _trunc_div((t1[0] - t0[0]) << XY_SHIFT, t1[1] - t0[1])
             if y0 < y1:
-                edges.append([y0, y1, e0[0] + (y0 - e0[1]) * dxe, dxe])
+                edges.append([y0, y1, (t0[0] << XY_SHIFT)
+                              + (y0 - t0[1]) * dxe, dxe])
             else:
-                edges.append([y1, y0, e1[0] + (y1 - e1[1]) * dxe, dxe])
+                edges.append([y1, y0, (t1[0] << XY_SHIFT)
+                              + (y1 - t1[1]) * dxe, dxe])
         x0, y0 = x1, y1
     _fill_edges(mask, edges, value)
 

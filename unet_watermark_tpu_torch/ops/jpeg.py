@@ -2,6 +2,13 @@
 libjpeg-turbo 3.1's output stage under cv2.imread, bit for bit, run on all
 of an image's blocks at once.
 
+  block smoothing    jdcoefct.c decompress_smooth_data, where
+                     utils/jpeg.block_smoothing says libjpeg-turbo 3.1
+                     applies it (a progressive file cut before its last
+                     scan): zero coefficients of zigzag 1..9 that are not
+                     exact get estimates from the 5 x 5 block DCs around
+                     them, and the DC too where no AC scan has begun; a
+                     stencil over the quantized coefficients of all blocks
   dequantize + IDCT  jidctint.c's islow IDCT: int32, CONST_BITS 13,
                      PASS1_BITS 2, the column pass then the row pass, the
                      final descale, the +128 level shift and the IDCT range
@@ -28,6 +35,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+
+from ..utils import jpeg
 
 CONST_BITS, PASS1_BITS = 13, 2
 SCALEBITS = 16
@@ -104,12 +113,132 @@ def _idct_range_limit(x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
+# jdcoefct.c's estimates: (zigzag index, natural position, kernel over the
+# 5 x 5 block DCs for a DC-only latch, kernel otherwise); rows of 5 are the
+# block rows -2..+2, columns -2..+2. The last four and the DC are estimated
+# only for a DC-only latch.
+_K = {
+    "ac01_dc": ((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3),
+                (-3, 13, 0, -13, 3), (-1, -1, 0, 1, 1)),
+    "ac01": ((0,) * 5, (0,) * 5, (-7, 50, 0, -50, 7), (0,) * 5, (0,) * 5),
+    "ac20_dc": ((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0),
+                (0, 2, 7, 2, 0), (0, 0, 1, 0, 0)),
+    "ac20": ((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0),
+             (0, 0, 13, 0, 0), (0, 0, -1, 0, 0)),
+    "ac11_dc": ((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), (0,) * 5,
+                (0, -9, 0, 9, 0), (1, 0, 0, 0, -1)),
+    "ac11": ((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), (0,) * 5,
+             (1, -10, 0, 10, -1), (0, 1, 0, -1, 0)),
+    "ac03": ((0,) * 5, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0),
+             (0,) * 5),
+    "ac12": ((0,) * 5, (0, 1, -3, 1, 0), (0,) * 5, (0, -1, 3, -1, 0),
+             (0,) * 5),
+    "dc": ((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8),
+           (-6, 6, 42, 6, -6), (-2, -6, -8, -6, -2)),
+}
+
+
+def _t(k):
+    return tuple(zip(*k))
+
+
+# zigzag 1..9 in jdcoefct.c's order; AC10, AC02, AC21, AC30 are the
+# transposes of AC01, AC20, AC12, AC03
+_SMOOTH = (
+    (1, 1, _K["ac01_dc"], _K["ac01"]),
+    (2, 8, _t(_K["ac01_dc"]), _t(_K["ac01"])),
+    (3, 16, _K["ac20_dc"], _K["ac20"]),
+    (4, 9, _K["ac11_dc"], _K["ac11"]),
+    (5, 2, _t(_K["ac20_dc"]), _t(_K["ac20"])),
+    (6, 3, _K["ac03"], None),
+    (7, 10, _K["ac12"], None),
+    (8, 17, _t(_K["ac12"]), None),
+    (9, 24, _t(_K["ac03"]), None),
+)
+
+
+def _neighbour_rows(comp, rows: int) -> List[List[int]]:
+    """Block rows -2..+2 of each block row, as decompress_smooth_data picks
+    them: an absent row repeats the nearer one, with its image_block_row
+    counted in the last iMCU row's own block rows."""
+    v = comp.v
+    hib = -(-comp.height // 8)
+    last_rows = hib % v or v
+    out = []
+    for r in range(hib):
+        m, br = divmod(r, v)
+        block_rows = v if m < rows - 1 else last_rows
+        ib, ibs = m * block_rows + br, block_rows * rows
+        p1 = r - 1 if ib > 0 else r
+        p2 = r - 2 if ib > 1 else p1
+        n1 = r + 1 if ib < ibs - 1 else r
+        n2 = r + 2 if ib < ibs - 2 else n1
+        out.append([p2, p1, r, n1, n2])
+    return out
+
+
+def smooth(coef: torch.Tensor, comp, quant, rows: int, cur, prev,
+           last_good_row: int) -> torch.Tensor:
+    """jdcoefct.c decompress_smooth_data on one component's (bh, bw, 64)
+    quantized coefficients: every real block's zero coefficients of
+    zigzag 1..9 that its latch says are not exact get an estimate from
+    the 5 x 5 DCs around it (edges repeated), clipped below 2^Al; with a
+    DC-only latch (1..9 all -1) the DC is replaced by a Gaussian-like mean
+    too. Block rows in iMCU rows past last_good_row take `prev`."""
+    hib, wib = -(-comp.height // 8), -(-comp.width // 8)
+    dev = coef.device
+    rsel = torch.tensor(_neighbour_rows(comp, rows), device=dev)  # (hib, 5)
+    cols = torch.arange(wib, device=dev)
+    csel = torch.stack([(cols + d).clamp(0, wib - 1) for d in range(-2, 3)],
+                       1)  # (wib, 5)
+    dc = coef[..., 0].long()
+    grid = dc[rsel[:, :, None, None], csel[None, None, :, :]]
+    grid = grid.permute(0, 2, 1, 3)  # (hib, wib, 5 rows, 5 cols)
+    q = [int(quant[p]) for p in range(64)]
+    q00 = q[0]
+    full = coef.clone()
+    # the block rows of iMCU rows up to last_good_row take `cur`
+    split = min(hib, (last_good_row + 1) * comp.v)
+    for latch, lo, hi in ((cur, 0, split), (prev, split, hib)):
+        if lo == hi:
+            continue
+        change_dc = all(b == -1 for b in latch[1:10])
+        blk = coef[lo:hi, :wib]
+        g = grid[lo:hi]
+        new = blk.clone()
+        for zz, pos, k_dc, k_ac in _SMOOTH:
+            al = latch[zz]
+            kernel = k_dc if change_dc else k_ac
+            if al == 0 or kernel is None:
+                continue
+            num = q00 * (g * torch.tensor(kernel, device=dev)).sum((-2, -1))
+            qk = q[pos]
+            pred = ((qk << 7) + num.abs()) // (qk << 8)
+            if al > 0:
+                pred = pred.clamp(max=(1 << al) - 1)
+            pred = torch.where(num < 0, -pred, pred)
+            new[..., pos] = torch.where(blk[..., pos] == 0, pred.to(blk.dtype),
+                                        blk[..., pos])
+        if change_dc:
+            num = q00 * (g * torch.tensor(_K["dc"], device=dev)).sum((-2, -1))
+            pred = ((q00 << 7) + num.abs()) // (q00 << 8)
+            new[..., 0] = torch.where(num < 0, -pred, pred).to(blk.dtype)
+        full[lo:hi, :wib] = new
+    return full
+
+
 def _planes(header, coefs: Sequence[torch.Tensor], needed) -> dict:
     """The needed components' samples, {index: (height, width) int32},
     from one IDCT over all of their blocks."""
     comps = header.components
+    smoothing = jpeg.block_smoothing(header)
     x = []
     for ci in needed:
+        if smoothing is not None and smoothing.cur[ci] is not None:
+            coefs = list(coefs)
+            coefs[ci] = smooth(coefs[ci], comps[ci], comps[ci].quant,
+                               header.mcuy, smoothing.cur[ci],
+                               smoothing.prev[ci], smoothing.last_good_row)
         quant = comps[ci].quant
         quant = torch.zeros(64, dtype=torch.int32) if quant is None else \
             torch.from_numpy(quant)

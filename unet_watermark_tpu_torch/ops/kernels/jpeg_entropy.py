@@ -70,8 +70,9 @@ def decode_scans_c(header: jpeg.Header, data: bytes) -> List[np.ndarray]:
             buf.ctypes.data, scan.start, scan.end, comps, ns, dc_ptrs,
             ac_ptrs, n_mcu, across, scan.ss, scan.se, scan.ah, scan.al,
             int(progressive), scan.restart)
-        if rc != 0:
+        if rc < -1:
             raise RuntimeError(f"uwt_jpeg_decode_scan: bad arguments ({rc})")
+        scan.cut = rc
     decode_scans_c.calls += 1
     return coefs
 

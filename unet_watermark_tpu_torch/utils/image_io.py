@@ -288,7 +288,7 @@ def _no_part(name: str):
     return contextlib.nullcontext()
 
 
-def decode_jpeg(data: bytes, device="cpu", gray: bool = False,
+def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
                 part: Callable = _no_part) -> torch.Tensor:
     """JPEG bytes → (H, W, 3) RGB or (H, W) gray uint8 on `device`, as
     cv2.imread gives it. part(name) wraps each of the two stages,

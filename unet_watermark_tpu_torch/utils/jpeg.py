@@ -27,10 +27,13 @@ A file without a frame or a scan, with a malformed segment, or with a
 frame over cv2.imread's size limits (MAX_SIDE, MAX_PIXELS) raises
 JPEGError (cv2.imread gives None). Arithmetic coding, lossless and
 hierarchical frames, 12-bit samples and 4-component (CMYK/YCCK) files
-raise NotImplementedError naming ROADMAP.md §A.5. Progressive files cut
-before their last refinement scan are smoothed by libjpeg (jdcoefct.c's
-block smoothing), which is not ported: their pixels differ from cv2's (the
-count is stated in tests/test_torch_jpeg.py).
+raise NotImplementedError naming ROADMAP.md §A.5.
+
+block_smoothing(header) is jdcoefct.c's smoothing_ok for a progressive file
+whose coefficients are not all exact (a file cut before its last scan):
+each component's coefficient-bit latches as libjpeg-turbo 3.1 keeps them,
+and the last iMCU row the last scan decoded in full (the entropy decoders
+set each scan's `cut`). ops/jpeg.py applies it to the coefficients.
 """
 from __future__ import annotations
 
@@ -122,6 +125,9 @@ class Scan:
     restart: int
     start: int                        # entropy-coded data: [start, end)
     end: int
+    # the MCU at which the entropy data ran out, -1 where it did not; set
+    # by the entropy decoders
+    cut: int = -1
     dc_tables: Dict[int, Tuple[tuple, bytes]] = field(default_factory=dict)
     ac_tables: Dict[int, Tuple[tuple, bytes]] = field(default_factory=dict)
 
@@ -493,6 +499,78 @@ def scan_blocks(header: Header, scan: Scan):
 
 
 # ---------------------------------------------------------------------------
+# block smoothing: what jdcoefct.c decides on the host
+# ---------------------------------------------------------------------------
+SAVED_COEFS = 10  # the DC and the first 9 AC coefficients (zigzag order)
+# natural positions of zigzag 1..9, jdcoefct.c's Q01_POS .. Q30_POS
+SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+@dataclass
+class Smoothing:
+    """jdcoefct.c's block smoothing of a progressive file, as libjpeg-turbo
+    3.1 sets it up (smoothing_ok): per component, the coefficient-bit
+    latches of the last scan's state (`cur`) and of the state before it
+    (`prev`), each SAVED_COEFS long (-1: no scan yet, 0: exact, Al > 0:
+    known up to bit Al), or None where the component is skipped (its DC
+    not yet begun, or a zero among its DC and first 9 AC quantizers); and
+    the last iMCU row the last scan decoded in full. Rows past it take
+    `prev`."""
+    cur: List[Optional[Tuple[int, ...]]]
+    prev: List[Optional[Tuple[int, ...]]]
+    last_good_row: int
+
+
+def block_smoothing(header: Header) -> Optional[Smoothing]:
+    """The smoothing libjpeg applies to this file's coefficients, or None
+    (a baseline file, or every latched coefficient of 1..9 exact).
+
+    coef_bits follows jdphuff.c's start_pass: at each scan's start, before
+    its data is read (so a scan cut partway counts as begun), the state of
+    coefficients min(Ss, 1)..max(Se, 9) of its components is saved as the
+    previous one (0 in the first scan), and Ss..Se take Al. The last
+    scan's `cut` (set by the entropy decoder) gives the last good iMCU
+    row."""
+    if not header.progressive:
+        return None
+    n = len(header.components)
+    cur = [[-1] * 64 for _ in range(n)]
+    prev = [[-1] * 64 for _ in range(n)]
+    for number, scan in enumerate(header.scans, 1):
+        for ci in scan.comps:
+            for k in range(min(scan.ss, 1), max(scan.se, 9) + 1):
+                prev[ci][k] = cur[ci][k] if number > 1 else 0
+            for k in range(scan.ss, scan.se + 1):
+                cur[ci][k] = scan.al
+    several = len(header.scans) > 1
+    latch_cur, latch_prev = [], []
+    useful = False
+    for ci, comp in enumerate(header.components):
+        q = comp.quant
+        if q is None or cur[ci][0] < 0 or not q[0] or \
+                not all(q[p] for p in SMOOTH_POS):
+            latch_cur.append(None)
+            latch_prev.append(None)
+            continue
+        latch_cur.append(tuple(cur[ci][:SAVED_COEFS]))
+        latch_prev.append((cur[ci][0],) + tuple(
+            prev[ci][k] if several else -1 for k in range(1, SAVED_COEFS)))
+        useful |= any(cur[ci][1:SAVED_COEFS])
+    if not useful:
+        return None
+    last = header.scans[-1]
+    rows = header.mcuy
+    good = rows - 1
+    if last.cut >= 0:
+        _, _, across = scan_blocks(header, last)
+        row = last.cut // across
+        if len(last.comps) == 1:
+            row //= header.components[last.comps[0]].v
+        good = row
+    return Smoothing(latch_cur, latch_prev, good)
+
+
+# ---------------------------------------------------------------------------
 # the plain entropy decoder
 # ---------------------------------------------------------------------------
 class _Bits:
@@ -636,6 +714,7 @@ def _decode_scan(header: Header, scan: Scan, data: bytes, coefs) -> None:
     ac_lut = [huffman_lookup(scan_table(scan, i, False), False).tolist()
               if need_ac else None for i in range(len(comps))]
     bits = _Bits(data, scan.start, scan.end)
+    scan.cut = -1
     last_dc = [0] * len(comps)
     eobrun = 0
     restarts_to_go = scan.restart
@@ -649,6 +728,7 @@ def _decode_scan(header: Header, scan: Scan, data: bytes, coefs) -> None:
             if restarts_to_go == 0:
                 if bits.restart(next_rst):
                     short = False
+                    scan.cut = -1
                 bits.short = False
                 next_rst = (next_rst + 1) & 7
                 last_dc = [0] * len(comps)
@@ -752,8 +832,9 @@ def _decode_scan(header: Header, scan: Scan, data: bytes, coefs) -> None:
                     k += 1
                 eobrun -= 1
             store[base:base + 64] = blk
-        if bits.short:
+        if bits.short and not short:
             short = True
+            scan.cut = mcu
 
 
 def _i16(v: int) -> int:

@@ -116,6 +116,19 @@ Phases, each printing its own line:
      beside im2col + torch._int_mm; a profile of the UNet++ network in
      each tier; `repair --quant --no-ocr` on 4 of 3d's files (rc 0,
      "success", engine "ffc-lama", 68 launches)
+  3h the `train` command at full width (the yaml: UNet++/resnet34, 512²,
+     batch 8, bf16, Adam, the transparent_watermark policy) on 40 files
+     it writes (masks for 20, the rest from the clean diff): 3 epochs
+     with a checkpoint each (rc 0, finite history, every checkpoint and
+     best_model), --resume from epoch 2 to 3; the exported .npz in
+     WatermarkPredictor's default fused fn (K1 and K2 launched, masks
+     equal to the best checkpoint's weights held in memory); one float32
+     step (Unet, 64², batch 4, no augmentation) on the card against the
+     CPU from the same state; on one resident batch after 5 full-width
+     steps of warmup: one step under torch's sync debug mode (no
+     synchronizing call), 20 steps timed as one window (img/s, the loss
+     falling), 20 synced steps timed by stage (augment,
+     forward+backward, optimizer); a profile of 3 steps
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -136,6 +149,7 @@ exits non-zero without that last line; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -143,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1497,6 +1512,262 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
     return {"timing": timing, "kernel": kernel}
 
 
+# phase 3h: the train command's folder (40 files of SIZE², masks for the
+# first 20; 32 train and 8 val at TRAIN_RATIO 0.8, 4 steps an epoch at the
+# yaml's batch 8), its epochs, and the full-width step's warmup and timed
+# steps
+TRAIN_FILES, TRAIN_MASKS, TRAIN_EPOCHS = 40, 20, 3
+TRAIN_WARMUP, TRAIN_STEPS = 5, 20
+# the card-against-CPU step: Unet at 64², batch 4, float32, no augmentation
+# (the tolerances of tests/test_torch_train.py)
+STEP_SIZE, STEP_BATCH = 64, 4
+STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_STATS_TOL = 1e-4, 1e-4, 1e-4
+
+
+def training_phase(work: Path, seed: int, dev) -> dict:
+    """Phase 3h: the `train` command on the card at full width (the yaml:
+    UNet++/resnet34, 512², batch 8, bf16, Adam, DiceLoss, the
+    transparent_watermark policy, the card-resident pipeline), 3 epochs
+    with a checkpoint each, then --resume from epoch 2; the exported .npz
+    served by WatermarkPredictor's default fused fn (masks equal to those
+    of the best checkpoint's weights held in memory, K1 and K2 launched);
+    one float32 step on the card against the CPU from the same state; the
+    full-width step checked for host syncs, timed as a window and by
+    stage. Returns the timing fields and the serving run's launches."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.configs import (DEFAULT_CONFIG,
+                                                  get_cfg_defaults,
+                                                  update_config)
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.models.convert import load_flax_weights
+    from unet_watermark_tpu_torch.ops import augment as aug
+    from unet_watermark_tpu_torch.ops import losses
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.training import checkpoint as ck
+    from unet_watermark_tpu_torch.training import train as tr
+    from unet_watermark_tpu_torch.utils.synthetic import (
+        watermarked_images, write_training_folder)
+
+    t_phase = time.perf_counter()
+    root, out = work / "train_data", work / "train_out"
+    write_training_folder(root, TRAIN_FILES, SIZE, seed, masks=TRAIN_MASKS)
+    ckpt = out / "checkpoints"
+    argv = ["train", "-c", str(DEFAULT_CONFIG), "--data-dir", str(root),
+            "--epochs", str(TRAIN_EPOCHS), "--output-dir", str(out / "logs"),
+            "--model-save-path", str(out / "models" / "unet_watermark.pth"),
+            "--opts", "TRAIN.SAVE_INTERVAL", "1",
+            "TRAIN.CHECKPOINT_DIR", str(ckpt), "DATA.IMG_SIZE", str(SIZE)]
+    torch.cuda.reset_peak_memory_stats()
+    rc, wall, _ = run_cli(argv, dev, timer=False)
+    history = json.loads((out / "logs" / "training_history.json").read_text())
+    if rc != 0 or len(history["train_loss"]) != TRAIN_EPOCHS or not all(
+            np.isfinite(history[k]).all() for k in ("train_loss",
+                                                    "val_loss")):
+        raise AssertionError(f"train: rc {rc}, history {history}")
+    made = sorted(os.listdir(ckpt))
+    want = ["best_model"] + [f"checkpoint_epoch_{e + 1}"
+                             for e in range(TRAIN_EPOCHS)]
+    if made != want:
+        raise AssertionError(f"train wrote {made}, not {want}")
+    generated = len(os.listdir(root / "masks"))
+    if generated != TRAIN_FILES:  # 20 given, 20 cached by the clean diff
+        raise AssertionError(f"{generated} mask files after training")
+    log("train_cli", argv=argv[:1] + argv[5:7], rc=rc, wall_s=wall,
+        epochs=len(history["train_loss"]), history=history,
+        checkpoints=made, masks_after=generated,
+        peak_allocated_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    resume = argv + ["--resume", str(ckpt / "checkpoint_epoch_2")]
+    rc_r, wall_r, _ = run_cli(resume, dev, timer=False)
+    resumed = json.loads((out / "logs" / "training_history.json").read_text())
+    if rc_r != 0 or len(resumed["train_loss"]) != TRAIN_EPOCHS or \
+            resumed["train_loss"][:2] != history["train_loss"][:2]:
+        raise AssertionError(f"resume: rc {rc_r}, history {resumed}")
+    log("train_cli_resume", rc=rc_r, wall_s=wall_r,
+        epochs=len(resumed["train_loss"]),
+        epoch3_train_loss=[history["train_loss"][2],
+                           resumed["train_loss"][2]])
+
+    # back to serving: the exported .npz in the predictor's default fused fn
+    # (MASK_MODE auto: the tight chain) and in parity mode (the cv2 chain on
+    # K1 and K2); each fn again with the best checkpoint's fp32 weights
+    # held in memory, cast to the model dtype: the same masks
+    npz = out / "models" / "seg_unetplusplus_resnet34.npz"
+    tree, _ = ck.restore_raw(str(ckpt / "best_model"))
+    held = {k: v for k, v in tree.items()
+            if k.startswith(("params/", "batch_stats/"))}
+    images_np, _ = watermarked_images(BATCH, SIZE, seed=seed + 7, clean=2)
+    images = torch.from_numpy(images_np).to(dev)
+    serving = {}
+    for mode, engine in (("auto", "lama"), ("parity", "pushpull")):
+        cfg = get_cfg_defaults()
+        cfg.DATA.IMG_SIZE = SIZE
+        cfg.PREDICT.MASK_MODE = mode
+        pred = WatermarkPredictor(cfg, weights_path=str(npz), device=dev)
+        fused = pred.make_fused_repair_fn(inpaint_engine=engine)
+        kc.reset_launch_counts()
+        _, mask = fused(images)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kc.KERNELS}
+        model = pred.model
+        load_flax_weights(model, held)  # fp32 in memory, then the dtype
+        pred.model = model.to(dev, pred.dtype).eval().to(
+            memory_format=torch.channels_last)
+        _, mask_held = fused(images)
+        if not torch.equal(mask, mask_held):
+            raise AssertionError(f"{mode}: the exported .npz's masks differ "
+                                 f"from the best checkpoint's weights held "
+                                 f"in memory")
+        serving[mode] = {"engine": fused.engine_used, "launches": launches,
+                         "mask_fraction": mask.mean().item()}
+        del pred, fused, model
+    serve_launches = serving["parity"]["launches"]
+    if min(serve_launches.values()) < 1 or \
+            serving["auto"]["engine"] != "ffc-lama":
+        raise AssertionError(f"the trained weights' fused fns: {serving}")
+    log("train_serving", weights=npz.name, **serving,
+        masks_equal_held_weights=True)
+
+    # one float32 step on the card and on the CPU from the same state
+    cfg_s = get_cfg_defaults()
+    cfg_s.MODEL.NAME, cfg_s.MODEL.DTYPE = "Unet", "float32"
+    cfg_s.DATA.IMG_SIZE = STEP_SIZE
+    off = aug.AugmentPolicy(hflip_p=0, vflip_p=0, rot90_p=0, affine_p=0,
+                            bc_p=0, hsv_p=0)
+    small, logos = watermarked_images(STEP_BATCH, STEP_SIZE, seed=seed + 3)
+    host = {"image": torch.from_numpy(np.rint(small * 255).astype(np.uint8)),
+            "mask": torch.from_numpy(logos.astype(np.uint8))[..., None],
+            "valid": torch.ones(STEP_BATCH)}
+    got = []
+    for where in (dev, torch.device("cpu")):
+        state = tr.create_train_state(cfg_s, seed, where)
+        grads = {}
+
+        def part(name, state=state, grads=grads):
+            if name == "optimizer":
+                grads.update({n: p.grad.detach().clone().cpu() for n, p in
+                              state.model.named_parameters()})
+            return contextlib.nullcontext()
+
+        step = tr.make_train_step(cfg_s, losses.get_loss_function(cfg_s),
+                                  off, torch.Generator(where))
+        m = step(state, {k: v.to(where) for k, v in host.items()}, part)
+        got.append((float(m["loss"]), grads,
+                      {k: v.detach().cpu() for k, v in
+                       state.model.state_dict().items()}))
+    (lg, gg, sg), (lc, gc, sc) = got
+    grad_err = max((gg[k] - gc[k]).abs().max().item() for k in gg)
+    stats_err = max((sg[k].float() - sc[k].float()).abs().max().item()
+                    for k in sg if "running" in k)
+    lr = cfg_s.TRAIN.LR  # Adam's first step: ±lr where a gradient's sign
+    moved = max((sg[k] - sc[k]).abs().max().item() for k in sg
+                if k in gg)
+    if abs(lg - lc) > STEP_LOSS_TOL or grad_err > STEP_GRAD_TOL or \
+            stats_err > STEP_STATS_TOL or moved > 2 * lr + 1e-5:
+        raise AssertionError(f"float32 step card vs CPU: loss {lg} vs {lc}, "
+                             f"grads {grad_err}, stats {stats_err}, params "
+                             f"{moved}")
+    log("train_step_card_vs_cpu", size=STEP_SIZE, batch=STEP_BATCH,
+        loss_card=lg, loss_cpu=lc, grad_max_abs=grad_err,
+        batch_stats_max_abs=stats_err, params_max_abs=moved)
+
+    # the full-width step, timed by stage on one resident batch
+    cfg_f = get_cfg_defaults()
+    update_config(cfg_f, DEFAULT_CONFIG)
+    cfg_f.DATA.IMG_SIZE = SIZE
+    state = tr.create_train_state(cfg_f, seed, dev)
+    step = tr.make_train_step(cfg_f, losses.get_loss_function(cfg_f),
+                              cfg_f.DATA.AUGMENTATION_TYPE,
+                              torch.Generator(dev).manual_seed(seed))
+    big, logos = watermarked_images(cfg_f.TRAIN.BATCH_SIZE, SIZE, seed=seed)
+    batch = {"image": torch.from_numpy(np.rint(big * 255).astype(np.uint8)
+                                       ).to(dev),
+             "mask": torch.from_numpy(logos.astype(np.uint8))[..., None]
+             .to(dev),
+             "valid": torch.ones(cfg_f.TRAIN.BATCH_SIZE, device=dev)}
+    events = []
+
+    @contextlib.contextmanager
+    def timed(name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        events.append((name, a, b))
+
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch)
+    torch.cuda.synchronize()
+    # no stage of a step makes the host wait for the card: one step under
+    # torch's sync debug mode, which warns at every synchronizing call
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "synchroniz" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"a train step synchronizes: {syncs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the rate: TRAIN_STEPS steps as one window, one sync at its end, so
+    # the host queues ahead of the card as in an epoch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    seen = [step(state, batch)["loss"] for _ in range(TRAIN_STEPS)]
+    b.record()
+    torch.cuda.synchronize()
+    window_ms = a.elapsed_time(b)
+    losses_seen = torch.stack(seen).tolist()
+    # the split: each step alone (synced), with events between its stages
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        events.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(state, batch, timed)
+        b.record()
+        torch.cuda.synchronize()
+        steps.append({"step_ms": a.elapsed_time(b),
+                      **{f"{n}_ms": x.elapsed_time(y)
+                         for n, x, y in events}})
+    med = {k: float(np.median([st[k] for st in steps])) for k in steps[0]}
+    first, last = np.mean(losses_seen[:5]), np.mean(losses_seen[-5:])
+    if not (np.isfinite(losses_seen).all() and last < first):
+        raise AssertionError(f"the loss on one batch did not fall over "
+                             f"{TRAIN_STEPS} steps: {losses_seen}")
+    n_img = TRAIN_STEPS * cfg_f.TRAIN.BATCH_SIZE
+    timing = {"arch": cfg_f.MODEL.NAME, "dtype": cfg_f.MODEL.DTYPE,
+              "batch": cfg_f.TRAIN.BATCH_SIZE, "size": SIZE,
+              "policy": cfg_f.DATA.AUGMENTATION_TYPE,
+              "steps": TRAIN_STEPS, "host_syncs_per_step": len(syncs),
+              "window_ms": window_ms,
+              "window_step_ms": window_ms / TRAIN_STEPS,
+              "img_per_s": n_img / (window_ms / 1e3),
+              **{f"median_{k}": v for k, v in med.items()},
+              "img_per_s_synced_steps": cfg_f.TRAIN.BATCH_SIZE
+              / (med["step_ms"] / 1e3),
+              "peak_allocated_mib": torch.cuda.max_memory_allocated()
+              / 2 ** 20,
+              "loss_first5": first, "loss_last5": last,
+              "train_cli_wall_s": wall, "resume_wall_s": wall_r,
+              "phase_s": time.perf_counter() - t_phase}
+    log("train_step_timing", **timing, step_rounds_ms=[
+        round(st["step_ms"], 4) for st in steps])
+    log("profile_train_step", **profile_window(lambda: step(state, batch),
+                                               3))
+    del state
+    torch.cuda.empty_cache()
+    return {"timing": timing, "launches": serve_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1838,6 +2109,8 @@ def main(argv=None) -> int:
         # -- 3g: the int8 tier -------------------------------------------
         int8 = int8_tier_phase(work, {"Unet": pred, "UnetPlusPlus": pred_d},
                                fused_l, images_d, args.seed, dev)
+        # -- 3h: the train command -----------------------------------------
+        training = training_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1962,6 +2235,7 @@ def main(argv=None) -> int:
         fused_lama_batch=[n, s, s, 3], card=card)
     log("timing_repair_cli_ocr", **ocr_timing, card=card)
     log("timing_int8_tier", **int8["timing"], card=card)
+    log("timing_train", **training["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -2014,6 +2288,7 @@ def main(argv=None) -> int:
             "repair_cli_launches": cli_timing["launches"][fn.__name__],
             "repair_cli_ocr_launches": ocr_timing["launches"][fn.__name__],
             "repair_cli_jpeg_launches": jpeg_timing["launches"][fn.__name__],
+            "trained_weights_launches": training["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

@@ -79,13 +79,14 @@ def test_constructs_outside_the_subset_raise(text):
 @pytest.mark.parametrize("name", NAMES)
 def test_merged_fields_equal_jax(name):
     """After each shipped file, every field the port's tree has holds the
-    value the JAX tree holds after update_config; keys the port's tree
-    lacks (TRAIN, LOSS, ...) are skipped as JAX skips unknown keys."""
+    value the JAX tree holds after update_config (MODEL, DATA, TRAIN, LOSS,
+    OPTIMIZER, PREDICT, TEXT_WATERMARK); keys the port's tree lacks (VAL,
+    ...) are skipped as JAX skips unknown keys."""
     cfg, jcfg = get_cfg_defaults(), jax_defaults()
     update_config(cfg, PORT_DIR / name)
     jax_update(jcfg, str(JAX_DIR / name))
     paths = list(_paths(cfg))
-    assert len(paths) == 23
+    assert len(paths) == 66
     for path in paths:
         value, jvalue = cfg.get_by_path(path), jcfg.get_by_path(path)
         assert value == jvalue and type(value) is type(jvalue), path

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
-from unet_watermark_tpu_torch.utils import image_io, jpeg
+from unet_watermark_tpu_torch.utils import image_io, jpeg, synthetic
 from unet_watermark_tpu_torch.utils.synthetic import encode_jpeg
 
 torch.set_num_threads(2)
@@ -227,18 +227,18 @@ def test_truncated_files(tmp_path, prog, share):
 
 # Progressive files cut at random points and at the end of every scan but
 # the last, for each sampling (and gray), q50 and q95, with and without
-# restarts: block smoothing makes every cut equal to cv2's, except inside
-# the MCU where the data ran out. There the missing bits read as zeros and
-# can decode to coefficients far out of range, which libjpeg-turbo's SIMD
-# IDCT (16-bit lanes) saturates where the port's int32 IDCT wraps
-# (ROADMAP.md §C.8): this many files of each sampling's sweep differ, only
-# there. A cut inside a marker segment between scans (DHT, SOS) is refused
-# by the port's parser, where cv2 decodes the scans before it (§C.9): this
-# many of each sweep's cuts.
-CUT_SWEEP_DIFFER = {"444": 1, "422": 0, "420": 0, "440": 0, "411": 1,
+# restarts: block smoothing makes every cut equal to cv2's. Inside the MCU
+# where the data ran out the missing bits read as zeros and can decode to
+# coefficients far out of range; the port's IDCT wraps and saturates there
+# as libjpeg-turbo's SIMD IDCT does in 16-bit lanes (ROADMAP.md §C.8,
+# resolved). A cut inside a marker segment between scans (DHT, SOS) is
+# read as libjpeg reads the EOI markers its source manager inserts, so the
+# port refuses such a file only where cv2 gives none (§C.9, resolved).
+# Neither count is above zero for any sampling.
+CUT_SWEEP_DIFFER = {"444": 0, "422": 0, "420": 0, "440": 0, "411": 0,
                     "gray": 0}
-CUT_SWEEP_REFUSED = {"444": 5, "422": 4, "420": 4, "440": 2, "411": 0,
-                     "gray": 2}
+CUT_SWEEP_REFUSED = {"444": 0, "422": 0, "420": 0, "440": 0, "411": 0,
+                     "gray": 0}
 
 
 @pytest.mark.parametrize("sampling", list(CUT_SWEEP_DIFFER))
@@ -486,3 +486,45 @@ def test_concurrent_builds_of_one_source(c_decoder, tmp_path):
     names = {o.strip() for o, _ in outs}
     assert len(names) == 1
     assert sorted(f.name for f in tmp_path.iterdir()) == sorted(names)
+
+
+def _crafted_blocks(seed: int, mode: str):
+    """Two rows of three gray blocks with extreme quantized coefficients
+    (DC differences up to 2047, AC up to 1023) and a quantizer of 1..255,
+    as no photo gives them: the products wrap in 16 bits, the passes
+    saturate, and a DC-only block takes the column shortcut."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((2, 3, 64), np.int64)
+    if mode == "row0":
+        b[..., 1:8] = rng.choice([-1023, -512, 0, 512, 1023], (2, 3, 7))
+    elif mode == "col0":
+        b[..., ::8] = rng.choice([-1023, -700, 0, 700, 1023], (2, 3, 8))
+    elif mode == "extremes":
+        b[:] = rng.choice([-1023, -1, 0, 1, 1023], (2, 3, 64))
+    else:
+        b[:] = rng.integers(-1023, 1024, (2, 3, 64)) * (
+            rng.random((2, 3, 64)) < 0.5)
+    dc, prev = [], 0
+    for _ in range(6):  # DC differences within the table's 2047
+        want = int(rng.choice([-2047, 2047, rng.integers(-2047, 2048)]))
+        prev = int(np.clip(want, prev - 2047, prev + 2047))
+        dc.append(prev)
+    b[..., 0] = np.reshape(dc, (2, 3))
+    q = rng.choice([1, 255, int(rng.integers(1, 256))], 64)
+    return b, q
+
+
+@pytest.mark.parametrize("mode", ["dc_only", "row0", "col0", "extremes",
+                                  "random"])
+@pytest.mark.parametrize("seed", range(4))
+def test_idct_on_coefficients_out_of_range(mode, seed):
+    """Crafted one-component files whose dequantized coefficients leave
+    the range a real file gives: every sample equals cv2.imread's (the
+    16-bit lanes of libjpeg-turbo's SIMD IDCT; ROADMAP.md §C.8)."""
+    for k in range(6):
+        blocks, q = _crafted_blocks(100 * seed + k, mode)
+        data = synthetic.encode_jpeg_blocks(blocks, q)
+        ref = cv2.imdecode(np.frombuffer(data, np.uint8),
+                           cv2.IMREAD_GRAYSCALE)
+        got = image_io.decode_jpeg(data, "cpu", gray=True).numpy()
+        np.testing.assert_array_equal(got, ref)

@@ -1,15 +1,21 @@
-"""The port's command line (cli.py in the JAX package): the `repair`
-subcommand, with the JAX CLI's flags, defaults and repair_summary.json.
+"""The port's command line (cli.py in the JAX package): the `train` and
+`repair` subcommands, with the JAX CLI's flags and defaults.
 
+    python -m unet_watermark_tpu_torch.cli train -c <yaml> --data-dir D \\
+        [--epochs N] [--resume DIR] [--init-weights W.npz] [--opts K V ...]
     python -m unet_watermark_tpu_torch.cli repair --input D --output O \\
         [--device cuda|cpu] [--no-ocr] [--ocr-engine easy|builtin|paddle]
+
+`train` follows the JAX CLI's order, CLI flags over --opts over the YAML
+over the defaults, and writes checkpoints, training_history.json and the
+shipped-format .npz beside --model-save-path (training/train.py).
 
 Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
 builtin detector where easyocr is not installed, as there). --device is
 "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda"); "cuda" without
 a card raises. What the port does not run yet raises NotImplementedError
-naming its ROADMAP.md item: --video, and the `train` and `auto`
-subcommands. --quant runs the int8 tier (PREDICT.QUANT, set after --opts
+naming its ROADMAP.md item: --video, --use-blurred-mask and the `auto`
+subcommand. --quant runs the int8 tier (PREDICT.QUANT, set after --opts
 are merged). The LaMa weights of --inpaint-weights go into the config
 (PREDICT.INPAINT_WEIGHTS) where the JAX CLI sets the
 PREDICT_INPAINT_WEIGHTS environment variable.
@@ -45,6 +51,39 @@ def _load_cfg(args):
     if getattr(args, "config", None) and os.path.exists(args.config):
         update_config(cfg, args.config)
     return cfg
+
+
+def train_command(args) -> int:
+    """training.train.train on the config after the CLI's overrides."""
+    device = setup_device(args.device)
+    cfg = _load_cfg(args)
+    if args.data_dir:
+        cfg.DATA.ROOT_DIR = args.data_dir
+    if args.output_dir:
+        cfg.TRAIN.OUTPUT_DIR = args.output_dir
+    if args.model_save_path:
+        cfg.TRAIN.MODEL_SAVE_PATH = args.model_save_path
+    if args.batch_size:
+        cfg.TRAIN.BATCH_SIZE = args.batch_size
+    if args.epochs:
+        cfg.TRAIN.EPOCHS = args.epochs
+    if args.lr:
+        cfg.TRAIN.LR = args.lr
+    if args.no_early_stopping:
+        cfg.TRAIN.USE_EARLY_STOPPING = False
+    if args.early_stopping_patience:
+        cfg.TRAIN.EARLY_STOPPING_PATIENCE = args.early_stopping_patience
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+
+    from .training.train import train
+
+    result = train(cfg, resume_from=args.resume,
+                   use_blurred_mask=args.use_blurred_mask,
+                   init_weights=args.init_weights, device=device)
+    logger.info("training done: best_val_loss=%.4f over %d epochs",
+                result["best_val_loss"], result["epochs_run"])
+    return 0
 
 
 def repair_command(args) -> int:
@@ -98,12 +137,10 @@ def repair_command(args) -> int:
     return 0 if stats.get("status") == "success" else 1
 
 
-def _not_ported(name: str):
-    def command(args) -> int:
-        raise NotImplementedError(
-            f"the '{name}' subcommand (training) is not ported yet "
-            f"(ROADMAP.md §A.7)")
-    return command
+def auto_train_command(args) -> int:
+    raise NotImplementedError(
+        "the 'auto' subcommand (the self-improving train loop) is not "
+        "ported yet (ROADMAP.md §A.7)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,6 +149,28 @@ def build_parser() -> argparse.ArgumentParser:
         description="watermark detection and removal on one NVIDIA GPU "
                     "(the PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command")
+
+    tp = sub.add_parser("train", help="train the segmentation model")
+    tp.add_argument("--config", "-c", type=str, default=str(DEFAULT_CONFIG))
+    tp.add_argument("--device", type=str, default="cuda")
+    tp.add_argument("--data-dir", type=str)
+    tp.add_argument("--output-dir", type=str)
+    tp.add_argument("--model-save-path", type=str)
+    tp.add_argument("--batch-size", type=int)
+    tp.add_argument("--epochs", type=int)
+    tp.add_argument("--lr", type=float)
+    tp.add_argument("--no-early-stopping", action="store_true")
+    tp.add_argument("--early-stopping-patience", type=int)
+    tp.add_argument("--resume", type=str)
+    tp.add_argument("--init-weights", type=str, default=None,
+                    help="warm-start params from a shipped-format .npz "
+                         "(fine-tune; unlike --resume, optimizer state "
+                         "and history start fresh)")
+    tp.add_argument("--use-blurred-mask", action="store_true",
+                    help="soft blurred training masks (not ported yet)")
+    tp.add_argument("--opts", nargs="*", default=None,
+                    help="KEY VALUE pairs overriding config entries")
+    tp.set_defaults(func=train_command)
 
     rp = sub.add_parser("repair", help="detect and repair watermarks")
     rp.add_argument("--input", type=str, default="data/test")
@@ -151,11 +210,10 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--opts", nargs="*", default=None)
     rp.set_defaults(func=repair_command)
 
-    for name, text in (("train", "train the segmentation model"),
-                       ("auto", "self-improving train loop")):
-        p = sub.add_parser(name, help=f"{text} (not ported yet)")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(func=_not_ported(name))
+    ap = sub.add_parser("auto", help="self-improving train loop (not "
+                                     "ported yet)")
+    ap.add_argument("rest", nargs=argparse.REMAINDER)
+    ap.set_defaults(func=auto_train_command)
     return parser
 
 

@@ -10,6 +10,7 @@ are copied beside this module (configs/*.yaml).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, is_dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional
@@ -26,7 +27,11 @@ class ModelConfig:
     ENCODER_NAME: str = "resnet34"
     DECODER_CHANNELS: List[int] = field(
         default_factory=lambda: [256, 128, 64, 32, 16])
-    DTYPE: str = "bfloat16"  # compute dtype of the network; logits are fp32
+    # compute dtype of the network; logits are fp32, and training keeps
+    # fp32 parameters (bf16 compute under torch.autocast)
+    DTYPE: str = "bfloat16"
+    REMAT: bool = False  # training: recompute the encoder's blocks and the
+    # decoder in the backward pass (torch.utils.checkpoint)
     # UNet++ decoder layout: "canonical" (the Zhou grid of the shipped
     # weights); "smp" (the layout of reference .pth imports) is not ported
     DECODER_IMPL: str = "canonical"
@@ -34,7 +39,64 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
+    ROOT_DIR: str = "data/train"
+    ADDITIONAL_ROOT_DIRS: List[str] = field(default_factory=list)
     IMG_SIZE: int = 512
+    GENERATE_MASK_THRESHOLD: int = 30
+    TRAIN_RATIO: float = 0.8
+    SHUFFLE: bool = True
+    SEED: int = 42
+    NUM_WORKERS: int = 4
+    CACHE_IMAGES: bool = False
+    # disk memmap of decoded and resized uint8 samples (data/decoded_cache)
+    CACHE_DECODED: bool = True
+    CACHE_DIR: Optional[str] = None  # default: <ROOT_DIR>/.decoded_cache
+    # the whole uint8 corpus resident on the card (data/pipeline
+    # DeviceDataPipeline) when it fits DEVICE_CACHE_MB
+    DEVICE_CACHE: bool = True
+    DEVICE_CACHE_MB: int = 3072
+    PREFETCH_FACTOR: int = 2
+    AUGMENTATION_TYPE: str = "transparent_watermark"
+
+
+@dataclass
+class TrainConfig:
+    BATCH_SIZE: int = 16
+    EPOCHS: int = 300
+    LR: float = 1e-4
+    WEIGHT_DECAY: float = 1e-4
+    OUTPUT_DIR: str = "logs/output"
+    MODEL_SAVE_PATH: str = "models/unet_watermark.pth"
+    LOG_INTERVAL: int = 10
+    SAVE_INTERVAL: int = 50
+    USE_EARLY_STOPPING: bool = True
+    EARLY_STOPPING_PATIENCE: int = 10
+    CHECKPOINT_DIR: str = "models/checkpoints"
+    SAVE_BEST_ONLY: bool = False
+    GRADIENT_CLIP: float = 1.0
+
+
+@dataclass
+class LossConfig:
+    NAME: str = "DiceLoss"
+    SMOOTH: float = 1e-5
+    BCE_WEIGHT: float = 0.5
+    DICE_WEIGHT: float = 0.5
+    FOCAL_ALPHA: float = 0.25
+    FOCAL_GAMMA: float = 2.0
+    FOCAL_WEIGHT: float = 0.0
+    EDGE_LOSS_WEIGHT: float = 0.0
+
+
+@dataclass
+class OptimizerConfig:
+    NAME: str = "Adam"
+    LR_SCHEDULER: str = "ReduceLROnPlateau"
+    SCHEDULER_PATIENCE: int = 5
+    SCHEDULER_FACTOR: float = 0.5
+    SCHEDULER_T_0: int = 50
+    SCHEDULER_T_MULT: int = 2
+    SCHEDULER_ETA_MIN: float = 1e-6
 
 
 @dataclass
@@ -76,9 +138,15 @@ class TextWatermarkConfig:
 class Config:
     MODEL: ModelConfig = field(default_factory=ModelConfig)
     DATA: DataConfig = field(default_factory=DataConfig)
+    TRAIN: TrainConfig = field(default_factory=TrainConfig)
+    LOSS: LossConfig = field(default_factory=LossConfig)
+    OPTIMIZER: OptimizerConfig = field(default_factory=OptimizerConfig)
     PREDICT: PredictConfig = field(default_factory=PredictConfig)
     TEXT_WATERMARK: TextWatermarkConfig = field(
         default_factory=TextWatermarkConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
     def merge_from_dict(self, d: Dict[str, Any]) -> "Config":
         _merge_into(self, d)

@@ -22,6 +22,10 @@ A conv kernel goes HWIO → OIHW. A ConvTranspose2d kernel goes (kh, kw, in,
 out) → (in, out, kh, kw), flipped in both spatial axes: flax's
 ConvTranspose (transpose_kernel=False) convolves the dilated input with
 the kernel as it is, torch's with the kernel flipped.
+
+flax_name inverts torch_name, and to_flax takes a segmentation model's
+state_dict back to flat flax weights (OIHW → HWIO), the tree a trained
+model is saved as (utils/shipping.save_params_npz).
 """
 from __future__ import annotations
 
@@ -74,6 +78,54 @@ def torch_name(flax_key: str) -> str:
     return ".".join(segs) + "." + leaf
 
 
+def flax_name(name: str) -> str:
+    """'encoder.layer1.0.conv1.weight' → 'params/encoder/layer1_0/conv1/kernel';
+    running statistics go to 'batch_stats/...{mean,var}'."""
+    *mods, leaf = name.split(".")
+    segs, i = [], 0
+    while i < len(mods):
+        p = mods[i]
+        nxt = mods[i + 1] if i + 1 < len(mods) else None
+        if re.fullmatch(r"layer\d+", p) and nxt is not None and nxt.isdigit():
+            segs.append(f"{p}_{nxt}")
+        elif p == "blocks":
+            segs.append(f"block{nxt}")
+        elif p == "downsample":
+            segs.append("downsample_conv" if nxt == "0" else "downsample_bn")
+        elif nxt in ("0", "1") and (_CONV_BN.fullmatch(p)
+                                    or p == "segmentation_head"):
+            segs += [p, "conv" if nxt == "0" else "bn"]
+        else:
+            segs.append(p)
+            i += 1
+            continue
+        i += 2
+    path = "/".join(segs)
+    if leaf in ("running_mean", "running_var"):
+        return f"batch_stats/{path}/{leaf[len('running_'):]}"
+    if leaf == "weight":
+        leaf = "scale" if re.fullmatch(r"bn\d*|downsample_bn", segs[-1]) \
+            else "kernel"
+    if leaf not in ("kernel", "scale", "bias"):
+        raise KeyError(f"no flax counterpart for '{name}'")
+    return f"params/{path}/{leaf}"
+
+
+def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """A segmentation model's weights as flat flax float32 arrays (conv
+    kernels OIHW → HWIO), every parameter and running statistic; the
+    inverse of load_flax_weights."""
+    out = {}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        arr = t.detach().float().cpu().numpy()
+        if arr.ndim == 4:
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        out[flax_name(name)] = np.ascontiguousarray(arr)
+    return out
+
+
 def lama_torch_name(flax_key: str) -> str:
     """'params/block3/ffc1/g2g/reduce/kernel' →
     'blocks.3.ffc1.g2g.reduce.weight'."""
@@ -106,7 +158,9 @@ def to_state_dict(flat: Dict[str, np.ndarray], model: nn.Module,
             arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
         elif arr.ndim == 4:  # conv HWIO → OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
-        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        # a copy: the model's tensors must not share memory with the
+        # caller's arrays (training updates them in place)
+        t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
         if tuple(t.shape) != tuple(target[name].shape):
             raise ValueError(f"shape of '{key}' {tuple(t.shape)} != "
                              f"'{name}' {tuple(target[name].shape)}")

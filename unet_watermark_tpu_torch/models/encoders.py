@@ -9,18 +9,70 @@ encoder/layer{L}_0/downsample_conv).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.quant import QConv2d
 
 BN_EPS = 1e-5
 
+# set while torch.utils.checkpoint recomputes a forward in the backward
+# pass: the running statistics were updated by the first forward
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) in torch's form.
+
+    Normalization and its gradient are torch's (batch statistics in
+    training, the running ones in eval). The running variance is flax's:
+    it moves toward the biased batch variance (torch's module moves it
+    toward the unbiased one). The batch statistics come from the same call
+    that normalizes (native_batch_norm's mean and 1/sqrt(var + eps)), and
+    each buffer takes one lerp_ toward them. Nothing is updated while a
+    checkpointed forward is recomputed."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(invstd.pow(-2).sub_(self.eps),
+                                       self.momentum)
+        return y
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def remat(fn, *args):
+    """fn(*args) under torch.utils.checkpoint (MODEL.REMAT, jax.remat in
+    the JAX package): its activations are recomputed in the backward pass,
+    with the BatchNorm statistics left as the first forward set them."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
+
+
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch)
 
 
 class BasicBlock(nn.Module):
@@ -58,6 +110,11 @@ def resnet_out_channels(variant: str) -> Tuple[int, ...]:
 
 
 class ResNetEncoder(nn.Module):
+    """With `remat` set, each residual block runs under remat() in
+    training (the JAX encoder's nn.remat of each block)."""
+
+    remat = False
+
     def __init__(self, variant: str = "resnet34"):
         super().__init__()
         self.out_channels = resnet_out_channels(variant)
@@ -80,7 +137,9 @@ class ResNetEncoder(nn.Module):
         y = self.relu(self.bn1(self.conv1(x)))
         feats.append(y)
         y = self.maxpool(y)
+        ckpt = self.remat and self.training and torch.is_grad_enabled()
         for i in range(1, 5):
-            y = getattr(self, f"layer{i}")(y)
+            for block in getattr(self, f"layer{i}"):
+                y = remat(block, y) if ckpt else block(y)
             feats.append(y)
         return feats

@@ -1,14 +1,15 @@
-"""SegmentationModel and create_model_from_config (models/factory.py in
-the JAX package), for archs "Unet" and "UnetPlusPlus" (alias "unet++",
-canonical decoder)."""
+"""SegmentationModel, create_model_from_config and init_model
+(models/factory.py in the JAX package), for archs "Unet" and "UnetPlusPlus"
+(alias "unet++", canonical decoder)."""
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
-from .encoders import ResNetEncoder
+from .encoders import ResNetEncoder, remat
 from .unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder
 
 
@@ -19,8 +20,10 @@ class SegmentationModel(nn.Module):
 
     def __init__(self, arch: str = "Unet", encoder_name: str = "resnet34",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 classes: int = 1, decoder_impl: str = "canonical"):
+                 classes: int = 1, decoder_impl: str = "canonical",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         arch_l = arch.lower()
         if arch_l in ("unetplusplus", "unet++") and decoder_impl == "smp":
             raise NotImplementedError(
@@ -33,6 +36,7 @@ class SegmentationModel(nn.Module):
                 f"arch '{arch}' is not ported yet; the port has Unet and "
                 f"UnetPlusPlus (see ROADMAP.md for the queue)")
         self.encoder = ResNetEncoder(encoder_name)
+        self.encoder.remat = remat
         self.decoder = decoders[arch_l](self.encoder.out_channels,
                                         decoder_channels)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
@@ -48,17 +52,52 @@ class SegmentationModel(nn.Module):
                 f"{x.shape[1]}x{x.shape[2]}")
         dtype = next(self.parameters()).dtype
         feats = self.encoder(x.permute(0, 3, 1, 2).to(dtype))
-        y = self.segmentation_head(self.decoder(feats))
-        return y.permute(0, 2, 3, 1)
+        if self.remat and self.training and torch.is_grad_enabled():
+            y = remat(lambda *f: self.decoder(list(f)), *feats)
+        else:
+            y = self.decoder(feats)
+        return self.segmentation_head(y).permute(0, 2, 3, 1)
 
 
 def create_model_from_config(cfg) -> SegmentationModel:
-    """The model of cfg.MODEL, in float32 on the CPU; the caller moves it."""
+    """The model of cfg.MODEL, in float32 on the CPU; the caller moves it.
+    The JAX package's MODEL.FUSED_DECODER (its fused up-conv) computes the
+    same function as the plain upsample + concat form the port runs, so
+    the port has no such key."""
     return SegmentationModel(arch=cfg.MODEL.NAME,
                              encoder_name=cfg.MODEL.ENCODER_NAME,
                              decoder_channels=tuple(
                                  cfg.MODEL.DECODER_CHANNELS),
-                             decoder_impl=cfg.MODEL.DECODER_IMPL)
+                             decoder_impl=cfg.MODEL.DECODER_IMPL,
+                             remat=cfg.MODEL.REMAT)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# rescaled so that the truncated samples' std is sqrt(1 / fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fresh parameters from the distributions of the JAX package's
+    init_model: every conv kernel lecun_normal (fan_in = kh·kw·cin), conv
+    biases zero, BatchNorm scale 1 and bias 0, running mean 0 and var 1.
+    The draws come from a torch.Generator seeded with `seed` (they cannot
+    equal jax.random's)."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w = torch.empty(mod.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gen)
+            mod.weight.copy_(w)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+    return model
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import QConv2d, current_mode
-from .encoders import BN_EPS
+from .encoders import BatchNorm2d
 
 
 def conv_bn_relu(cin: int, ch: int, split=None) -> nn.Sequential:
@@ -30,8 +30,7 @@ def conv_bn_relu(cin: int, ch: int, split=None) -> nn.Sequential:
     `split` marks a block's first conv (QConv2d.split)."""
     conv = QConv2d(cin, ch, 3, 1, 1, bias=False)
     conv.split = split
-    return nn.Sequential(conv, nn.BatchNorm2d(ch, eps=BN_EPS),
-                         nn.ReLU(inplace=True))
+    return nn.Sequential(conv, BatchNorm2d(ch), nn.ReLU(inplace=True))
 
 
 def split_conv_bn_relu(block: nn.Sequential, x_low: torch.Tensor,

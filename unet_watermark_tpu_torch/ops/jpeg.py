@@ -9,11 +9,13 @@ of an image's blocks at once.
                      exact get estimates from the 5 x 5 block DCs around
                      them, and the DC too where no AC scan has begun; a
                      stencil over the quantized coefficients of all blocks
-  dequantize + IDCT  jidctint.c's islow IDCT: int32, CONST_BITS 13,
-                     PASS1_BITS 2, the column pass then the row pass, the
-                     final descale, the +128 level shift and the IDCT range
-                     limit (indices wrap mod 1024, as its table does); one
-                     IDCT over every block of every component
+  dequantize + IDCT  the islow IDCT (CONST_BITS 13, PASS1_BITS 2, the
+                     column pass then the row pass, the final descale and
+                     the +128 level shift) as libjpeg-turbo's SIMD code
+                     computes it in 16-bit lanes: the products and some
+                     sums wrap, each pass saturates, the DC-only column
+                     shortcut shifts in 16 bits; one IDCT over every
+                     block of every component
   upsample           jdsample.c's choice per component: fancy (triangle)
                      h2v1 and h2v2 where the downsampled width is over 2,
                      fancy h1v2, plain replication otherwise (h2v1/h2v2 at
@@ -55,19 +57,29 @@ def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x + (1 << (n - 1))) >> n
 
 
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """int32 values taken mod 2^16 as int16 (a 16-bit lane's add or
+    multiply)."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(c: Sequence[torch.Tensor]):
-    """jidctint.c's even and odd parts on the 8 inputs of one pass; returns
-    the 8 outputs before the pass's descale."""
+    """jidctint.c's even and odd parts on the 8 inputs of one pass, with
+    the sums that the SIMD code forms in 16-bit lanes (in0 +- in4, in7 +
+    in3, in5 + in1) wrapped there; the products and the other sums are
+    int32 (pmaddwd, paddd), which the scalar grouping below equals mod
+    2^32. Returns the 8 outputs before the pass's descale."""
     z2, z3 = c[2], c[6]
     z1 = (z2 + z3) * F0_541
     tmp2 = z1 + z3 * -F1_847
     tmp3 = z1 + z2 * F0_765
-    tmp0 = (c[0] + c[4]) << CONST_BITS
-    tmp1 = (c[0] - c[4]) << CONST_BITS
+    tmp0 = _wrap16(c[0] + c[4]) << CONST_BITS
+    tmp1 = _wrap16(c[0] - c[4]) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * F1_175
     t0, t1, t2, t3 = t0 * F0_298, t1 * F2_053, t2 * F3_072, t3 * F1_501
     z1, z2 = z1 * -F0_899, z2 * -F2_562
@@ -81,36 +93,35 @@ def _idct_1d(c: Sequence[torch.Tensor]):
 
 
 def dequantize(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
-    """(..., 64) int16 coefficients times the (64,) table, int32. The table
-    goes through int16 as libjpeg-turbo's SIMD build stores its
-    multipliers."""
-    return coef.to(torch.int32) * quant.to(torch.int16).to(torch.int32)
+    """(..., 64) int16 coefficients times the (64,) table as pmullw forms
+    it: the product's low 16 bits, as int32."""
+    return _wrap16(coef.to(torch.int32)
+                   * quant.to(torch.int16).to(torch.int32))
 
 
-def idct_islow(x: torch.Tensor) -> torch.Tensor:
-    """(..., 64) dequantized int32 coefficients in natural order → (..., 8,
-    8) uint8 samples."""
+def idct_islow(x: torch.Tensor, ac_rows_zero: torch.Tensor) -> torch.Tensor:
+    """(..., 64) dequantized coefficients (dequantize) in natural order →
+    (..., 8, 8) uint8 samples, as libjpeg-turbo's SIMD islow IDCT
+    (jidctint-avx2.asm) computes them in 16-bit lanes: a block whose raw
+    coefficients in rows 1..7 are all zero (`ac_rows_zero`, (...,) bool)
+    takes the column pass's shortcut, row 0 shifted left by PASS1_BITS in
+    16 bits; each pass's descaled outputs saturate to int16, and the
+    samples saturate to [-128, 127] before the +128 level shift. On the
+    values a real file gives this equals jidctint.c with its range-limit
+    table; where a cut file's zero bits decode to coefficients far out of
+    range, it is what cv2.imread gives."""
     x = x.view(*x.shape[:-1], 8, 8)  # rows: vertical frequency
     # pass 1: columns (the 8 inputs of a column are its 8 rows)
     ws = _idct_1d([x[..., k, :] for k in range(8)])
-    ws = [_descale(w, CONST_BITS - PASS1_BITS) for w in ws]
-    ws = torch.stack(ws, dim=-2)  # (..., 8 rows, 8 cols)
+    ws = torch.stack([_descale(w, CONST_BITS - PASS1_BITS)
+                      .clamp(-32768, 32767) for w in ws], dim=-2)
+    dc = _wrap16(x[..., :1, :] << PASS1_BITS).expand_as(ws)
+    ws = torch.where(ac_rows_zero[..., None, None], dc, ws)
     # pass 2: rows
     out = _idct_1d([ws[..., :, k] for k in range(8)])
     out = torch.stack([_descale(o, CONST_BITS + PASS1_BITS + 3)
                        for o in out], dim=-1)
-    return _idct_range_limit(out)
-
-
-def _idct_range_limit(x: torch.Tensor) -> torch.Tensor:
-    """jdmaster.c's post-IDCT table at x & 1023: x + 128 for x in [-128,
-    127], 255 above, 0 below, wrapping mod 1024."""
-    i = x & 1023
-    out = torch.where(i < 128, i + 128,
-                      torch.where(i < 512, torch.full_like(i, 255),
-                                  torch.where(i < 896, torch.zeros_like(i),
-                                              i - 896)))
-    return out.to(torch.uint8)
+    return (out.clamp(-128, 127) + 128).to(torch.uint8)
 
 
 # jdcoefct.c's estimates: (zigzag index, natural position, kernel over the
@@ -232,7 +243,7 @@ def _planes(header, coefs: Sequence[torch.Tensor], needed) -> dict:
     from one IDCT over all of their blocks."""
     comps = header.components
     smoothing = jpeg.block_smoothing(header)
-    x = []
+    x, zero = [], []
     for ci in needed:
         if smoothing is not None and smoothing.cur[ci] is not None:
             coefs = list(coefs)
@@ -244,7 +255,9 @@ def _planes(header, coefs: Sequence[torch.Tensor], needed) -> dict:
             torch.from_numpy(quant)
         x.append(dequantize(coefs[ci], quant.to(coefs[ci].device)
                             ).reshape(-1, 64))
-    px = idct_islow(torch.cat(x))  # (blocks, 8, 8)
+        zero.append((coefs[ci].reshape(-1, 8, 8)[:, 1:] == 0)
+                    .flatten(1).all(1))
+    px = idct_islow(torch.cat(x), torch.cat(zero))  # (blocks, 8, 8)
     planes, start = {}, 0
     for ci in needed:
         comp = comps[ci]

@@ -196,6 +196,12 @@ def exif_orientation(body: bytes) -> int:
     return 1
 
 
+# what libjpeg's stdio source manager inserts, again and again, when the
+# file has no more bytes (jdatasrc.c fill_input_buffer, "Premature end of
+# JPEG file"); enough for a segment of any length
+_FAKE_EOI = b"\xff\xd9" * 32768
+
+
 def _next_marker(arr: np.ndarray, pos: int) -> int:
     """Index of the 0xFF that starts the first marker other than RST0-7 at
     or after pos (a run of 0xFF fill bytes counts from its first byte), or
@@ -251,13 +257,22 @@ def parse(data: bytes, headers_only: bool = False) -> Header:
             continue  # a stray RST (or TEM): no body
         if marker == 0xD8:
             raise JPEGError("SOI inside the file")
-        if pos + 2 > n:
-            raise JPEGError(f"marker 0x{marker:02X} cut off")
-        length = _u16(data, pos)
-        if length < 2 or pos + length > n:
-            raise JPEGError(f"segment 0x{marker:02X} cut off or bad length")
-        body = data[pos + 2:pos + length]
-        pos += length
+        cut = pos + 2 > n or pos + _u16(data, pos) > n
+        if cut and not scans:
+            raise JPEGError(f"segment 0x{marker:02X} cut off")
+        if cut:
+            # after the first scan cv2's source manager reads past the
+            # end of the data as EOI markers (FF D9 FF D9 ...): the cut
+            # segment is read from those bytes, then the file ends
+            src = data[pos:] + _FAKE_EOI
+            length = _u16(src, 0)
+            body, pos = src[2:length], n
+        else:
+            length = _u16(data, pos)
+            body = data[pos + 2:pos + length]
+            pos += length
+        if length < 2:
+            raise JPEGError(f"segment 0x{marker:02X}: bad length")
         if marker in _SOF_REFUSED:
             _refuse(_SOF_REFUSED[marker])
         if marker == 0xCC:
@@ -304,11 +319,13 @@ def parse(data: bytes, headers_only: bool = False) -> Header:
             if headers_only:
                 scans.append(scan)
                 break
-            pos = _next_marker(arr, pos)
+            pos = _next_marker(arr, pos) if pos < n else n
             scan.end = pos
             scans.append(scan)
         # COM, other APPn, DNL, JPGn and reserved markers with a length:
         # skipped
+        if cut:
+            break
     if frame is None:
         raise JPEGError("no frame (SOF) marker")
     if not scans:

@@ -1,27 +1,34 @@
 """Shipped weights: where they are (resolve, the unified registry of
-utils/shipping.py in the JAX package) and the .npz reader.
+utils/shipping.py in the JAX package), the .npz reader and writer.
 
 A float leaf is stored as a uint16 view of its bfloat16 bits under the key
-"BF16::<flax path>"; every other entry is stored as it is.
+"BF16::<flax path>"; every other entry is stored as it is. The JAX package's
+load_params_npz reads what save_params_npz writes.
 """
 from __future__ import annotations
 
 import os
+import zipfile
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 WEIGHTS_DIR = REPO_ROOT / "unet_watermark_tpu" / "weights"
 
 
-def seg_weights_path(model_name: str, encoder_name: str) -> Path:
-    """The shipped segmentation weights of one arch/encoder pair, named as
-    the JAX package's seg_weights_filename names them (the alias "unet++"
-    finds UnetPlusPlus's file)."""
+def seg_weights_filename(model_name: str, encoder_name: str) -> str:
+    """seg_<arch>_<encoder>.npz, as the JAX package's seg_weights_filename
+    names it (the alias "unet++" gives UnetPlusPlus's name)."""
     name = model_name.lower().replace("unet++", "unetplusplus")
-    return WEIGHTS_DIR / f"seg_{name}_{encoder_name.lower()}.npz"
+    return f"seg_{name}_{encoder_name.lower()}.npz"
+
+
+def seg_weights_path(model_name: str, encoder_name: str) -> Path:
+    """The shipped segmentation weights of one arch/encoder pair."""
+    return WEIGHTS_DIR / seg_weights_filename(model_name, encoder_name)
 
 
 # kind → (env var, cfg attr under PREDICT, shipped file of a config,
@@ -79,3 +86,27 @@ def load_npz(path) -> Dict[str, np.ndarray]:
             else:
                 out[k] = v
     return out
+
+
+def encode_bf16(x: np.ndarray) -> np.ndarray:
+    """float values → the uint16 bits of their bfloat16 roundings (to
+    nearest, ties to even, as jnp's astype)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def save_params_npz(path, flat: Dict[str, np.ndarray]) -> str:
+    """{flax path: array} → one compressed .npz in the shipped format:
+    float arrays as "BF16::<path>" uint16 views, others as they are. The
+    archive is np.savez_compressed's, deflated at level 1 (np.load reads
+    any level; level 6 takes ~4x longer for a 25 M-parameter model)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=1) as zf:
+        for k, v in flat.items():
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.floating):
+                k, v = "BF16::" + k, encode_bf16(v)
+            with zf.open(k + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, v, allow_pickle=False)
+    return str(path)

@@ -8,7 +8,9 @@ folder of user images holds some that have none. text_images draws lines
 of block capitals from a 5x7 bitmap font over such images, as a text
 watermark lies over a photo, and returns each line's box and the pixels
 its glyphs cover. encode_jpeg writes JPEG files of them (the GPU machine
-has no cv2 or PIL to write one). Used by chip_smoke.py and the tests; no
+has no cv2 or PIL to write one); encode_jpeg_blocks writes a gray file of
+given quantized coefficients and quantizer, as a test pins a decoder's
+arithmetic on values no photo gives. Used by chip_smoke.py and the tests; no
 entry point of the port exposes them.
 """
 from __future__ import annotations
@@ -442,3 +444,57 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, sampling: str = "420",
                     np.arange(grid.shape[0]), [tabs[c]], ss, se, restart))
     out.append(b"\xff\xd9")
     return b"".join(out)
+
+
+def encode_jpeg_blocks(blocks: np.ndarray, quant: np.ndarray) -> bytes:
+    """A gray baseline JPEG of (bh, bw, 64) quantized coefficients in
+    natural (row-major) order with the (64,) natural-order quantizer
+    (1..255). The standard tables code DC differences up to 2047 and AC
+    values up to 1023 in magnitude."""
+    blocks = np.asarray(blocks, np.int64)
+    quant = np.asarray(quant, np.int64)
+    bh, bw = blocks.shape[:2]
+    zz = blocks.reshape(-1, 64)[:, _ZIGZAG]
+    dc = zz[:, 0]
+    if (np.abs(np.diff(dc, prepend=0)) > 2047).any() or \
+            (np.abs(zz[:, 1:]) > 1023).any() or \
+            quant.min() < 1 or quant.max() > 255:
+        raise ValueError("a value the standard tables cannot code")
+    codes = (_huff_codes(jpeg.STD_DC_LUMA), _huff_codes(jpeg.STD_AC_LUMA))
+    dht = b"".join(bytes([cls << 4]) + bytes(bits) + bytes(vals)
+                   for cls, (bits, vals) in ((0, jpeg.STD_DC_LUMA),
+                                             (1, jpeg.STD_AC_LUMA)))
+    n = zz.shape[0]
+    return b"".join([
+        b"\xff\xd8",
+        _segment(0xDB, b"\x00" + bytes(quant[_ZIGZAG].astype(np.uint8))),
+        _segment(0xC0, struct.pack(">BHHB", 8, 8 * bh, 8 * bw, 1)
+                 + b"\x01\x11\x00"),
+        _segment(0xC4, dht),
+        _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00"),
+        _scan_bytes(zz, np.zeros(n, np.int64), np.arange(n), [codes], 0, 63,
+                    0),
+        b"\xff\xd9"])
+
+
+def write_training_folder(root, n: int, size: int, seed: int = 0,
+                          masks: int = 0) -> None:
+    """A training folder in the data contract: root/watermarked and
+    root/clean with n PNGs each (watermarked_images with and without the
+    logos), and root/masks with the logo masks (0/255) of the first
+    `masks` files; the rest get theirs from the clean images."""
+    import os
+
+    from .image_io import write_png
+
+    marked, logos = watermarked_images(n, size, seed)
+    clean, _ = watermarked_images(n, size, seed, clean=n)
+    for sub in ("watermarked", "clean", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    to_u8 = lambda x: np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)  # noqa
+    for i in range(n):
+        name = f"img_{i:04d}.png"
+        write_png(os.path.join(root, "watermarked", name), to_u8(marked[i]))
+        write_png(os.path.join(root, "clean", name), to_u8(clean[i]))
+        if i < masks:
+            write_png(os.path.join(root, "masks", name), to_u8(logos[i]))

@@ -226,13 +226,13 @@ def host_ms(fn, iters: int) -> float:
     return ms
 
 
-def profiled_ms(fn, kernel: str, iters: int) -> float:
-    """Mean device time of one launch of the kernel named `kernel` over
-    `iters` calls of fn(), from torch.profiler's rows of that __global__
-    function (over the launches the profiler recorded). A window in which
-    the profiler recorded fewer than half of the launches is measured
-    again, up to 3 windows: on a busy host it has dropped most of a
-    window's kernel records (17 of 50 in one run)."""
+def profiled_ms(fn, kernel: str, iters: int, per_call: int = 1) -> float:
+    """Mean device time of one fn() call's `per_call` launches of the kernel
+    named `kernel` over `iters` calls, from torch.profiler's rows of that
+    __global__ function (over the launches the profiler recorded). A window
+    in which the profiler recorded fewer than half of the launches is
+    measured again, up to 3 windows: on a busy host it has dropped most of
+    a window's kernel records (17 of 50 in one run)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -248,8 +248,9 @@ def profiled_ms(fn, kernel: str, iters: int) -> float:
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and kernel in e.key]
         launches = sum(e.count for e in rows)
-        if iters // 2 <= launches <= iters:
-            return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+        if iters * per_call // 2 <= launches <= iters * per_call:
+            return (sum(e.self_device_time_total for e in rows) / 1e3
+                    / launches * per_call)
         counts.append(launches)
     raise AssertionError(f"the profiler saw {counts} launches of {kernel} "
                          f"in 3 windows of {iters} calls")
@@ -1214,21 +1215,22 @@ PEAK_INT8_OPS_PER_S = 1979e12
 def conv_s8_bound(call) -> tuple:
     """(operations, bytes) of one int8 conv that the function must do: 2 per
     multiply-add of its non-zero taps (the lhs-dilated 4x4 conv has 4 an
-    output), each input read once (activation, weight, scale) and the
-    output written once."""
+    output) over the weight's input channels, each input read once (the
+    activation at the weight's input channels: the stem's 3, not the 16 of
+    its padded operand; weight, scale) and the output written once."""
     from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
 
     xq, wq, scale, kw = call
-    n, cin, h, w = xq.shape
-    cout, _, kh, kwid = wq.shape
+    n, _, h, w = xq.shape
+    cout, cin, kh, kwid = wq.shape
     ho = k8.out_size(h, kh, kw["stride"], kw["padding"], kw["dilation"])
     wo = k8.out_size(w, kwid, kw["stride"], kw["padding"], kw["dilation"])
     taps = 4 if kw["dilation"] == 2 else kh * kwid
     out_bytes = 2 if kw["out_dtype"].is_floating_point and \
         kw["out_dtype"].itemsize == 2 else 4
     ops = 2 * n * ho * wo * cout * cin * taps
-    return ops, xq.numel() + wq.numel() + 4 * cout + n * ho * wo * cout * \
-        out_bytes
+    return ops, n * h * w * cin + wq.numel() + 4 * cout + \
+        n * ho * wo * cout * out_bytes
 
 
 def conv_s8_library(call):
@@ -1238,7 +1240,7 @@ def conv_s8_library(call):
     import torch.nn.functional as F
 
     xq, wq, scale, kw = call
-    xb, wb = xq.bfloat16(), wq.bfloat16()
+    xb, wb = xq[:, :wq.shape[1]].bfloat16(), wq.bfloat16()
     if kw["dilation"] == 2:
         wt = wb.flip(2, 3).transpose(0, 1).contiguous()
         return lambda: F.conv_transpose2d(xb, wt, stride=2, padding=1)
@@ -1260,7 +1262,7 @@ def conv_s8_int_mm(call):
     kp = -(-k // 8) * 8
     if cout % 8:
         return None
-    x = xq.half()
+    x = xq[:, :cin].half()
     b = torch.zeros(kp, cout, dtype=torch.int8, device=xq.device)
     b[:k] = wq.reshape(cout, k).t()
 
@@ -1275,17 +1277,50 @@ def conv_s8_int_mm(call):
     return run
 
 
+def int8_hooks(real_conv, real_quantize, convs: list, quantizes: list):
+    """Wrappers of conv_s8.conv_s8 and conv_s8.quantize_s8 that hold each
+    launch bit for bit against its plain version on the card
+    (quant.conv_s8_plain, quant.quantize_s8_plain) and record its inputs
+    in `convs` and `quantizes`."""
+    import torch
+    from unet_watermark_tpu_torch.ops import quant
+
+    def conv(xq, wq, scale, **kw):
+        y = real_conv(xq, wq, scale, **kw)
+        ref = quant.conv_s8_plain(xq, wq, scale, kw["stride"],
+                                  kw["padding"], kw["dilation"],
+                                  kw["out_dtype"])
+        if not torch.equal(y, ref):
+            err = (y.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"uwt_conv_s8 differs from its plain "
+                                 f"version by {err} on {tuple(xq.shape)}"
+                                 f" x {tuple(wq.shape)} {kw}")
+        convs.append((xq, wq, scale, dict(kw)))
+        return y
+
+    def quantize(x, inv, channels=None):
+        xq = real_quantize(x, inv, channels)
+        if not torch.equal(xq, quant.quantize_s8_plain(x, inv, channels)):
+            raise AssertionError(f"uwt_quantize_s8 differs from its plain "
+                                 f"version on {tuple(x.shape)} {x.dtype}")
+        quantizes.append((x, inv, channels))
+        return xq
+    return conv, quantize
+
+
 def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
                     dev) -> dict:
-    """Phase 3g: the int8 tier (PREDICT.QUANT) through uwt_conv_s8. For each
-    arch, one forward at BATCH x SIZE² with every launch held bit for bit
-    against conv_s8_plain on the card, and the launch count; the masks
-    against the bf16 tier's; the default fused fn with LaMa under
-    PREDICT.QUANT (checks of phase 3c, timed beside the bf16 fn in turns);
-    the network in turns with bf16 for both archs; the UNet++ forward's
-    convs timed as a whole and by shape beside the plain version, cuDNN's
-    bf16 conv and im2col + torch._int_mm; `repair --quant --no-ocr` on 4 of
-    3d's files. Returns the kernel line's entry and the timing fields."""
+    """Phase 3g: the int8 tier (PREDICT.QUANT) through uwt_quantize_s8 and
+    uwt_conv_s8. For each arch, one forward at BATCH x SIZE² with every
+    launch of both held bit for bit against its plain version on the card,
+    and the launch counts; the masks against the bf16 tier's; the default
+    fused fn with LaMa under PREDICT.QUANT (checks of phase 3c, timed
+    beside the bf16 fn in turns); the network in turns with bf16 for both
+    archs; the UNet++ forward's quantizes and convs replayed back to back
+    beside their bound and plain versions (the convs also beside cuDNN's
+    bf16 conv, and by shape beside im2col + torch._int_mm); `repair --quant
+    --no-ocr` on 4 of 3d's files, every launch held as in the forwards.
+    Returns the kernel line's two entries and the timing fields."""
     import numpy as np
     import torch
     from unet_watermark_tpu_torch.configs import get_cfg_defaults
@@ -1295,8 +1330,8 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
     from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
 
     t_phase = time.perf_counter()
-    real, real_quantize = k8.conv_s8, quant._quantize
-    qpreds, forward_calls, agree = {}, {}, {}
+    real, real_quantize = k8.conv_s8, k8.quantize_s8
+    qpreds, forward_calls, forward_quantizes, agree = {}, {}, {}, {}
     for arch, expect in INT8_CONVS.items():
         cfg = get_cfg_defaults()
         cfg.MODEL.NAME = arch
@@ -1305,45 +1340,19 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
         if len(pq._quant_plans) != expect:
             raise AssertionError(f"{arch}: {len(pq._quant_plans)} int8 plans, "
                                  f"not {expect}")
-        calls = []
-
-        def hooked(xq, wq, scale, **kw):
-            y = real(xq, wq, scale, **kw)
-            ref = quant.conv_s8_plain(xq, wq, scale, kw["stride"],
-                                      kw["padding"], kw["dilation"],
-                                      kw["out_dtype"])
-            if not torch.equal(y, ref):
-                err = (y.float() - ref.float()).abs().max().item()
-                raise AssertionError(f"uwt_conv_s8 differs from its plain "
-                                     f"version by {err} on {tuple(xq.shape)}"
-                                     f" x {tuple(wq.shape)} {kw}")
-            calls.append((xq, wq, scale, dict(kw)))
-            return y
-
-        def quantize_hooked(x, inv):
-            # the scalar multiply on the card against a float32 tensor's
-            xq = real_quantize(x, inv)
-            inv32 = torch.tensor(inv, dtype=torch.float32, device=x.device)
-            ref = torch.clamp(torch.round(x.float() * inv32), -127.0,
-                              127.0).to(torch.int8)
-            if not torch.equal(xq, ref):
-                raise AssertionError(f"the activation quantize on the card "
-                                     f"differs from float32 x * f32(1/sx) "
-                                     f"on {tuple(x.shape)}")
-            quantized.append(inv)
-            return xq
-
-        quantized = []
+        calls, quantized = [], []
         k8.reset_launch_counts()
-        k8.conv_s8, quant._quantize = hooked, quantize_hooked
+        k8.conv_s8, k8.quantize_s8 = int8_hooks(real, real_quantize, calls,
+                                                quantized)
         try:
             raw_q = pq.predict_masks(images)
             torch.cuda.synchronize()
         finally:
-            k8.conv_s8, quant._quantize = real, real_quantize
-        if len(quantized) != expect:
-            raise AssertionError(f"{arch}: {len(quantized)} activations "
-                                 f"quantized, not {expect}")
+            k8.conv_s8, k8.quantize_s8 = real, real_quantize
+        if real_quantize.launches != expect or len(quantized) != expect:
+            raise AssertionError(f"{arch}: {real_quantize.launches} launches "
+                                 f"of uwt_quantize_s8 in a forward, not "
+                                 f"{expect}")
         if real.launches != expect or len(calls) != expect:
             raise AssertionError(f"{arch}: {real.launches} launches of "
                                  f"uwt_conv_s8 in a forward, not {expect}")
@@ -1354,9 +1363,12 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
                                  f"only {agree[arch]:.4%} of pixels")
         qpreds[arch] = pq
         forward_calls[arch] = calls
+        forward_quantizes[arch] = quantized
         log("int8_forward", arch=arch, images=list(images.shape),
-            launches=real.launches, every_launch_equals_plain=True,
-            every_quantize_equals_float32=True,
+            launches=real.launches,
+            quantize_launches=real_quantize.launches,
+            every_launch_equals_plain=True,
+            every_quantize_equals_plain=True,
             int8_vs_bf16_mask_agreement=round(agree[arch], 6),
             scales=len(pq._quant_scales))
 
@@ -1368,10 +1380,10 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
     k8.reset_launch_counts()
     repaired_q, mask_q = fused_q(images)
     torch.cuda.synchronize()
-    fused_launches = real.launches
-    if fused_launches != INT8_CONVS["UnetPlusPlus"]:
-        raise AssertionError(f"the int8 fused fn launched uwt_conv_s8 "
-                             f"{fused_launches} times")
+    fused_launches = (real.launches, real_quantize.launches)
+    if fused_launches != (INT8_CONVS["UnetPlusPlus"],) * 2:
+        raise AssertionError(f"the int8 fused fn launched uwt_conv_s8 and "
+                             f"uwt_quantize_s8 {fused_launches} times")
     check_repair(images, repaired_q, mask_q)
     raw_q = pq.predict_masks(images)
     for i, mk in enumerate(raw_q):
@@ -1426,6 +1438,9 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
         plain_ms = cuda_ms(replay(lambda c: quant.conv_s8_plain(
             c[0], c[1], c[2], c[3]["stride"], c[3]["padding"],
             c[3]["dilation"], c[3]["out_dtype"])), 1, warmup=1)
+        conv_device_ms = profiled_ms(kernel_all, "conv_s8_kernel", 5,
+                                     per_call=len(calls))
+        conv_host_ms = host_ms(kernel_all, 3) / len(calls)
         shapes = []
         for path in INT8_SHAPES:
             c = calls[paths.index(path)]
@@ -1458,10 +1473,46 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
     ops_ms, bytes_ms = (work_ops / PEAK_INT8_OPS_PER_S * 1e3,
                         work_bytes / PEAK_BYTES_PER_S * 1e3)
     log("int8_convs", arch="UnetPlusPlus", launches=len(calls), ms=ms,
-        plain_ms=plain_ms, cudnn_bf16_ms=library_ms, bound_ms=bound * 1e3,
+        device_ms=conv_device_ms, host_ms_a_call=conv_host_ms,
+        plain_ms=plain_ms,
+        cudnn_bf16_ms=library_ms, bound_ms=bound * 1e3,
         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
         gop=work_ops / 1e9, mb=work_bytes / 1e6, rounds_ms=t_rounds,
         cudnn_up_conv_rel_err=lib_err, shapes=shapes)
+
+    # the UNet++ forward's quantizes back to back: the kernel in turns with
+    # the torch chain it replaced (quant._quantize, five passes); the plain
+    # version (the chain, the stem's operand padded to 16 channels). The
+    # bound reads x and writes one byte an element of x: the stem's padding
+    # is the conv kernel's need, not the function's.
+    qcalls = forward_quantizes["UnetPlusPlus"]
+    q_bytes = sum(x.numel() * (x.element_size() + 1) for x, _, _ in qcalls)
+    with torch.inference_mode():
+        q_timed = {
+            "ms": lambda: [real_quantize(*q) for q in qcalls],
+            "replaced_torch_chain_ms": lambda: [
+                quant._quantize(x, inv) for x, inv, _ in qcalls]}
+        q_rounds = {k: [] for k in q_timed}
+        for r in range(4):
+            for key in (list(q_timed) if r % 2 == 0 else
+                        list(q_timed)[::-1]):
+                q_rounds[key].append(cuda_ms(q_timed[key], 5, warmup=1))
+        q_plain_ms = cuda_ms(lambda: [quant.quantize_s8_plain(*q)
+                                      for q in qcalls], 3, warmup=1)
+        q_device_ms = profiled_ms(q_timed["ms"], "quantize_s8", 5,
+                                  per_call=len(qcalls))
+        q_host_ms = host_ms(q_timed["ms"], 3) / len(qcalls)
+        stem = next(q for q in qcalls if q[2] and q[2] != q[0].shape[1])
+        stem_ms = cuda_ms(lambda: real_quantize(*stem), 20)
+    q_ms = float(np.median(q_rounds["ms"]))
+    chain_ms = float(np.median(q_rounds["replaced_torch_chain_ms"]))
+    log("int8_quantizes", arch="UnetPlusPlus", launches=len(qcalls),
+        ms=q_ms, device_ms=q_device_ms, host_ms_a_call=q_host_ms,
+        plain_ms=q_plain_ms,
+        replaced_torch_chain_ms=chain_ms,
+        bound_ms=q_bytes / PEAK_BYTES_PER_S * 1e3, mb=q_bytes / 1e6,
+        stem_padded_to_16_ms=stem_ms, stem_shape=list(stem[0].shape),
+        rounds_ms=q_rounds)
 
     # `repair --quant --no-ocr` on 4 of 3d's files
     folder = work / "in_q"
@@ -1471,19 +1522,28 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
     argv = ["repair", "--input", str(folder), "--output", str(work / "out_q"),
             "--no-ocr", "--quant"]
     k8.reset_launch_counts()
-    rc, wall, _ = run_cli(argv, dev, timer=False)
-    cli_launches = real.launches
+    cli_convs, cli_quantizes = [], []
+    k8.conv_s8, k8.quantize_s8 = int8_hooks(real, real_quantize, cli_convs,
+                                            cli_quantizes)
+    try:
+        rc, wall, _ = run_cli(argv, dev, timer=False)
+        torch.cuda.synchronize()
+    finally:
+        k8.conv_s8, k8.quantize_s8 = real, real_quantize
+    del cli_convs, cli_quantizes
+    cli_launches = (real.launches, real_quantize.launches)
     summary = json.loads((work / "out_q" / "repair_summary.json").read_text())
     if rc != 0 or summary.get("status") != "success" or \
             summary.get("engine_used") != "ffc-lama" or \
             summary.get("engine_failures"):
         raise AssertionError(f"repair --quant: rc {rc}, {summary}")
-    if cli_launches != INT8_CONVS["UnetPlusPlus"]:  # one step-1 batch
-        raise AssertionError(f"repair --quant launched uwt_conv_s8 "
-                             f"{cli_launches} times")
+    if cli_launches != (INT8_CONVS["UnetPlusPlus"],) * 2:  # one batch
+        raise AssertionError(f"repair --quant launched uwt_conv_s8 and "
+                             f"uwt_quantize_s8 {cli_launches} times")
     masks = sorted(os.listdir(work / "out_q" / "step1_masks"))
     log("repair_cli_quant", argv=argv[:1] + argv[5:], rc=rc,
-        launches=cli_launches, wall_s=wall, step1_masks=len(masks),
+        launches=cli_launches[0], quantize_launches=cli_launches[1],
+        every_launch_equals_plain=True, wall_s=wall, step1_masks=len(masks),
         status=summary["status"], engine=summary["engine_used"])
     timing = {"batch": n, "size": images.shape[1],
               "fused_lama_bf16_ms": fused_ms["fused_bf16_ms"],
@@ -1500,16 +1560,31 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
         "name": "uwt_conv_s8", "route": "cuda",
         "source": f"{PORT}/csrc/conv_s8.cu",
         "replaces": "unet_watermark_tpu/ops/quant.py:160",
-        "launches": fused_launches,
+        "launches": fused_launches[0],
         "unet_forward_launches": INT8_CONVS["Unet"],
-        "repair_cli_quant_launches": cli_launches,
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound * 1e3,
+        "repair_cli_quant_launches": cli_launches[0],
+        "max_abs_err": 0.0, "ms": ms, "device_ms": conv_device_ms,
+        "host_ms_a_call": conv_host_ms,
+        "plain_ms": plain_ms, "bound_ms": bound * 1e3,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": library_ms,
         "what": "the 68 convs of one UNet++ int8 forward at 8 x 512², "
                 "back to back"}
-    return {"timing": timing, "kernel": kernel}
+    quantize_kernel = {
+        "name": "uwt_quantize_s8", "route": "cuda",
+        "source": f"{PORT}/csrc/conv_s8.cu",
+        "replaces": "unet_watermark_tpu/ops/quant.py:112",
+        "launches": fused_launches[1],
+        "unet_forward_launches": INT8_CONVS["Unet"],
+        "repair_cli_quant_launches": cli_launches[1],
+        "max_abs_err": 0.0, "ms": q_ms, "device_ms": q_device_ms,
+        "host_ms_a_call": q_host_ms,
+        "plain_ms": q_plain_ms, "replaced_torch_chain_ms": chain_ms,
+        "bound_ms": q_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "what": "the 68 activation quantizes of one UNet++ int8 forward at "
+                "8 x 512², back to back"}
+    return {"timing": timing, "kernels": [kernel, quantize_kernel]}
 
 
 # phase 3h: the train command's folder (40 files of SIZE², masks for the
@@ -2298,7 +2373,7 @@ def main(argv=None) -> int:
         if err != 0.0:
             raise AssertionError(f"{fn.__name__} differs from its plain "
                                  f"version by {err}")
-    kernels.append(int8["kernel"])
+    kernels.extend(int8["kernels"])
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -306,41 +306,73 @@ def test_jpeg_card_route_equals_cpu(cuda, form):
 
 # uwt_conv_s8 (csrc/conv_s8.cu): every conv form of the two archs, at small
 # shapes with ragged tiles and at shapes of the 8 x 512² forward, bf16 and
-# fp32 outputs, held bit for bit against its plain version on the card.
+# fp32 outputs, held bit for bit against its plain version on the card: each
+# output-channel tile width (Cout 16, 32, 64, 128, and 256 and 512 as two
+# and four 128-wide tiles), output-pixel counts that are no multiple of the
+# tile, the up-conv's four phases at odd sizes, the stem at 8 x 512², and
+# the TMA modes (conv_s8.conv_mode: 3x3 stride-1 convs and up-convs; halo
+# where the output row holds whole tiles, taps where a tile holds whole
+# rows), with partial channel chunks, the 160 -> 32 conv of the UNet++
+# decoder at 8 x 256², and Cout of no 16-byte output row (the epilogue's
+# pairwise stores).
 # (kernel, stride, padding, lhs dilation, cin, cout, n, side)
 CONV_S8_FORMS = [(7, 2, 3, 1, 3, 64, 2, 36), (3, 1, 1, 1, 16, 16, 1, 19),
                  (3, 2, 1, 1, 64, 128, 2, 17), (1, 2, 0, 1, 64, 128, 2, 17),
                  (4, 1, 2, 2, 32, 16, 2, 13), (3, 1, 1, 1, 48, 40, 1, 7),
                  (7, 2, 3, 1, 3, 64, 8, 512), (3, 1, 1, 1, 64, 64, 8, 128),
                  (3, 1, 1, 1, 512, 512, 8, 16), (4, 1, 2, 2, 32, 16, 8, 256),
-                 (4, 1, 2, 2, 512, 256, 8, 16)]
+                 (4, 1, 2, 2, 512, 256, 8, 16),
+                 (3, 1, 1, 1, 32, 16, 2, 21), (3, 1, 1, 1, 32, 32, 2, 21),
+                 (3, 1, 1, 1, 32, 64, 2, 21), (3, 1, 1, 1, 32, 128, 2, 21),
+                 (3, 1, 1, 1, 32, 256, 2, 21), (3, 1, 1, 1, 32, 512, 1, 11),
+                 (4, 1, 2, 2, 16, 8, 1, 5), (4, 1, 2, 2, 48, 40, 1, 7),
+                 (4, 1, 2, 2, 160, 96, 3, 9), (3, 1, 1, 1, 160, 32, 1, 33),
+                 (7, 2, 3, 1, 3, 64, 1, 37), (3, 1, 1, 1, 32, 32, 1, 64),
+                 (3, 1, 1, 1, 160, 32, 1, 128), (4, 1, 2, 2, 48, 40, 1, 64),
+                 (3, 1, 1, 1, 16, 16, 2, 128), (3, 1, 1, 1, 96, 32, 2, 64),
+                 (3, 1, 1, 1, 192, 64, 1, 64), (3, 1, 1, 1, 128, 64, 1, 128),
+                 (3, 1, 1, 1, 64, 32, 1, 128), (3, 1, 1, 1, 160, 32, 8, 256),
+                 (4, 1, 2, 2, 64, 32, 1, 64), (4, 1, 2, 2, 48, 24, 2, 128),
+                 (3, 1, 1, 1, 256, 256, 2, 32), (3, 1, 1, 1, 160, 32, 2, 16),
+                 (4, 1, 2, 2, 64, 32, 2, 32), (3, 1, 1, 1, 48, 40, 1, 8),
+                 (3, 1, 1, 1, 16, 12, 1, 19), (3, 2, 1, 1, 32, 5, 2, 16)]
 
 
 @pytest.mark.parametrize("form", CONV_S8_FORMS, ids=lambda f: "-".join(
     map(str, f)))
 def test_conv_s8_bit_exact(cuda, form):
+    """An activation of 3 channels is given at 16 (quantize_s8's padded
+    stem operand), with random bytes in the padding: they meet zero
+    weights. Small forms run with both output-pixel tiles; each form in
+    the TMA mode that takes it (conv_s8.conv_mode) and in the gather
+    mode."""
     from unet_watermark_tpu_torch.ops import quant
     from unet_watermark_tpu_torch.ops.kernels import conv_s8
     k, stride, pad, dil, cin, cout, n, side = form
     g = torch.Generator().manual_seed(sum(form))
-    x = torch.randint(-127, 128, (n, cin, side, side), generator=g,
-                      dtype=torch.int8).to(cuda)
-    x = x.contiguous(memory_format=torch.channels_last)
+    x = torch.randint(-127, 128, (n, conv_s8.padded_channels(cin), side,
+                                  side), generator=g, dtype=torch.int8)
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
     w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
                       dtype=torch.int8).to(cuda)
     scale = torch.rand(cout, generator=g).to(cuda) * 1e-3
     scale[0] = 1e-17  # a dead operand's f32(sx) * sw: not flushed
+    tiles = (None, 64, 128) if n * side * side <= 4096 else (None,)
     for dtype in (torch.bfloat16, torch.float32):
         ref = quant.conv_s8_plain(x, w, scale, stride, pad, dil, dtype)
-        before = conv_s8.conv_s8.launches
-        out = conv_s8.conv_s8(x, w, scale, stride=stride, padding=pad,
-                              dilation=dil, out_dtype=dtype)
-        torch.cuda.synchronize()
-        assert conv_s8.conv_s8.launches == before + 1
-        assert out.shape == ref.shape and out.dtype == dtype
-        assert out.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(out, ref)
-        assert (out[:, 0] != 0).any() or not ref[:, 0].any()
+        for tile_m in tiles:
+            for mode in (None, "gather"):
+                before = conv_s8.conv_s8.launches
+                out = conv_s8._conv_s8(x, w, scale, stride=stride,
+                                       padding=pad, dilation=dil,
+                                       out_dtype=dtype, tile_m=tile_m,
+                                       mode=mode)
+                torch.cuda.synchronize()
+                assert conv_s8.conv_s8.launches == before + 1
+                assert out.shape == ref.shape and out.dtype == dtype
+                assert out.is_contiguous(memory_format=torch.channels_last)
+                assert torch.equal(out, ref), (tile_m, mode)
+                assert (out[:, 0] != 0).any() or not ref[:, 0].any()
 
 
 def test_conv_s8_refuses_what_it_does_not_take(cuda):
@@ -348,10 +380,75 @@ def test_conv_s8_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 16, 8, 8, dtype=torch.int8, device=cuda)
     w = torch.zeros(8, 16, 3, 3, dtype=torch.int8, device=cuda)
     s = torch.ones(8, device=cuda)
+    cl = torch.channels_last
     with pytest.raises(ValueError, match="channels_last"):
         conv_s8.conv_s8(x, w, s)
     with pytest.raises(TypeError):
         conv_s8.conv_s8(x.float(), w, s)
+    x3 = torch.zeros(1, 3, 8, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        conv_s8.conv_s8(x3.contiguous(memory_format=cl), w[:, :3], s)
+    with pytest.raises(ValueError, match="up-conv"):
+        conv_s8.conv_s8(x.contiguous(memory_format=cl), w, s, dilation=2)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_s8._conv_s8(x.contiguous(memory_format=cl), w, s, mode="gather",
+                         packed=conv_s8.pack_weight(w[:, :, :1, :1]))
+    with pytest.raises(ValueError, match="halo mode"):  # a 9-pixel row
+        conv_s8._conv_s8(torch.zeros(1, 16, 9, 9, dtype=torch.int8,
+                                     device=cuda).contiguous(
+                                         memory_format=cl),
+                         w, s, mode="halo")
+    with pytest.raises(ValueError, match="mode"):
+        conv_s8._conv_s8(x.contiguous(memory_format=cl), w, s, mode="tma")
+    # the quantize
+    xf = torch.zeros(1, 3, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_s8.quantize_s8(xf, 1.0)
+    with pytest.raises(TypeError):
+        conv_s8.quantize_s8(x.contiguous(memory_format=cl), 1.0)
+    with pytest.raises(ValueError, match="output channels"):
+        conv_s8.quantize_s8(xf.contiguous(memory_format=cl), 1.0, 8)
+    with pytest.raises(TypeError):
+        conv_s8.quantize_s8(xf.half().contiguous(memory_format=cl), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 17, 19), (1, 3, 512, 512),
+                                   (3, 5, 7, 9), (8, 96, 64, 64),
+                                   (1, 1, 1, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_quantize_s8_bit_exact(cuda, dtype, shape, aligned):
+    """uwt_quantize_s8 against its plain version (the torch chain on the
+    CPU): exact .5 ties of x * f32(1/sx), values far beyond ±127, amax
+    1e-12 (1/sx ~ 1.3e14), ragged sizes and, unaligned, the scalar path;
+    3- and 5-channel inputs also padded to 16 channels with zeros."""
+    from unet_watermark_tpu_torch.ops import quant
+    from unet_watermark_tpu_torch.ops.kernels import conv_s8
+    n, c, h, w = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    for amax in (1e-12, 0.37, 6.35, 1e4):
+        sx, inv = quant.activation_scale(amax)
+        x = torch.randn(n, h, w, c, generator=g) * amax * 1.5
+        ties = torch.arange(-130, 130.5, 0.5, dtype=torch.float64) * sx
+        m = min(ties.numel(), x.numel())
+        x.view(-1)[:m] = ties[:m].float()
+        x = x.to(dtype)
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        nhwc = (flat[:x.numel()] if aligned else flat[1:]).view(n, h, w, c)
+        xc = nhwc.copy_(x).permute(0, 3, 1, 2)
+        assert xc.is_contiguous(memory_format=torch.channels_last)
+        for channels in {c, conv_s8.padded_channels(c)}:
+            if channels != c and c > 8:
+                continue
+            ref = quant.quantize_s8_plain(x.permute(0, 3, 1, 2), inv,
+                                          channels)
+            before = conv_s8.quantize_s8.launches
+            out = conv_s8.quantize_s8(xc, inv, channels)
+            torch.cuda.synchronize()
+            assert conv_s8.quantize_s8.launches == before + 1
+            assert out.dtype == torch.int8 and out.shape == ref.shape
+            assert out.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(out.cpu(), ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -355,3 +355,238 @@ def test_predictor_quant_tier(arch, monkeypatch, caplog):
     with caplog.at_level("WARNING"):
         plain = WatermarkPredictor(cfg(True), device="cpu")
     assert plain._quant_scales is None and "staying" in caplog.text
+
+
+# -- the int8 kernels' layouts (ops/kernels/conv_s8.py), held on the CPU ----
+def _int8(rng, shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("h,w", [(5, 7), (6, 6), (7, 4)])
+@pytest.mark.parametrize("cin", [3, 16, 32, 48])
+@pytest.mark.parametrize("cout", [8, 16, 40])
+def test_up_conv_phases_equal_the_dilated_conv_and_jax(h, w, cin, cout):
+    """The lhs-dilated 4x4 up-conv (padding 2) as its four 2x2 output
+    phases (quant.phase_kernels, conv_sums_phases_plain) gives the int32
+    sums of the zero-interleaved conv and of XLA's s8 x s8 -> s32 conv with
+    lhs_dilation (2, 2), exactly."""
+    rng = np.random.default_rng(h * 100 + w * 10 + cin + cout)
+    xq, wq = _int8(rng, (2, cin, h, w)), _int8(rng, (cout, cin, 4, 4))
+    phases = tq.conv_sums_phases_plain(xq, wq)
+    assert phases.dtype == torch.int32 and phases.shape == (2, cout, 2 * h,
+                                                            2 * w)
+    assert torch.equal(phases, tq.conv_sums_plain(xq, wq, 1, 2, 2))
+    jsum = lax.conv_general_dilated(
+        jnp.asarray(xq.permute(0, 2, 3, 1).numpy()),
+        jnp.asarray(wq.permute(2, 3, 1, 0).numpy()), (1, 1),
+        [(2, 2), (2, 2)], lhs_dilation=(2, 2), dimension_numbers=jq._DN,
+        preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(np.asarray(jsum),
+                                  phases.permute(0, 2, 3, 1).numpy())
+
+
+# (kernel, stride, padding, lhs dilation, cin, cout): the packed forms
+PACK_FORMS = [(7, 2, 3, 1, 3, 64), (3, 1, 1, 1, 16, 16), (3, 2, 1, 1, 64, 40),
+              (1, 2, 0, 1, 64, 128), (3, 1, 1, 1, 160, 32),
+              (4, 1, 2, 2, 32, 16), (4, 1, 2, 2, 48, 40), (3, 1, 1, 1, 96, 8),
+              (3, 1, 1, 1, 64, 32), (3, 1, 1, 1, 192, 64),
+              (3, 1, 1, 1, 32, 32), (3, 1, 1, 1, 48, 64),
+              (4, 1, 2, 2, 64, 32), (4, 1, 2, 2, 48, 24)]
+# each form packed densely, and for the halo mode where it takes the form
+PACK_CASES = [(f, taps) for f in PACK_FORMS for taps in (False, True)
+              if not taps or conv_s8.tma_form(f[0], f[0], *f[1:4])]
+PACK_IDS = ["-".join(map(str, f)) + ("-taps" if taps else "")
+            for f, taps in PACK_CASES]
+
+
+def _unswizzle(packed: torch.Tensor) -> torch.Tensor:
+    """The packing's rows (of b bytes) with their 16-byte pieces back in K
+    order: piece j of row r was stored at piece j ^ ((r * b >> 7) % (b /
+    16)), the swizzle of b-byte rows."""
+    cout_pad, b = packed.shape[-2:]
+    r, pieces = torch.arange(cout_pad), b // 16
+    idx = (torch.arange(pieces)[None, :] ^ ((r[:, None] * b >> 7) % pieces))
+    t = packed.reshape(-1, cout_pad, pieces, 16)
+    return torch.gather(t, 2, idx.view(cout_pad, pieces, 1).expand(
+        t.shape)).reshape(packed.shape)
+
+
+def _phase_gemm_b(packed, taps, cout, channels, th, tw):
+    """(phases, cout, channels, th, tw) from a packed weight."""
+    b = _unswizzle(packed)
+    if taps:  # [P][chunks][th][tw][cout_pad][chunk]
+        p, chunks, row = b.shape[0], b.shape[1], b.shape[-1]
+        w = b.permute(0, 4, 1, 5, 2, 3).reshape(p, -1, chunks * row, th, tw)
+        return w[:, :cout, :channels]
+    p, steps, cout_pad, _ = b.shape  # [P][steps][cout_pad][128]
+    rows = b.permute(0, 2, 1, 3).reshape(p, cout_pad, steps * 128)
+    k = th * tw * channels
+    return rows[:, :cout, :k].reshape(p, cout, th, tw, channels).permute(
+        0, 1, 4, 2, 3)
+
+
+@pytest.mark.parametrize("form,taps", PACK_CASES, ids=PACK_IDS)
+def test_packed_weight_round_trips_to_oihw(form, taps):
+    """pack_weight's layouts (the dense [phases][K / 128][Cout_pad][128]
+    and the TMA modes' [phases][chunks][kh][kw][Cout_pad][chunk], rows in
+    the swizzle of their width) give back the OIHW weight: the phases
+    interleave into the 4x4 kernel, the stem's padded channels and every
+    padding byte are zero."""
+    k, stride, pad, dil, cin, cout = form
+    wq = _int8(np.random.default_rng(sum(form)), (cout, cin, k, k))
+    channels = conv_s8.padded_channels(cin)
+    packed = conv_s8.pack_weight(wq, dil, channels, taps=taps)
+    th, tw = (2, 2) if dil == 2 else (k, k)
+    kernels = _phase_gemm_b(packed, taps, cout, channels, th, tw)
+    assert not kernels[:, :, cin:].any()
+    if dil == 2:
+        back = torch.zeros_like(wq)
+        for z, ph in enumerate(kernels[:, :, :cin]):
+            back[:, :, z // 2::2, z % 2::2] = ph
+    else:
+        back = kernels[0, :, :cin]
+    assert torch.equal(back, wq)
+    # every tap once (the phases split the 16), zeros elsewhere
+    assert int(packed.abs().sum()) == int(wq.abs().sum())
+
+
+def _gemm_model(xq, wq, stride, pad, dil, taps):
+    """The int32 sums as the kernel forms them: each phase's GEMM of the
+    im2col rows (the kernel's A) in its K order against the unswizzled
+    packed B, the outputs written to the phase's places."""
+    n, cin, h, w = xq.shape
+    cout, _, k, _ = wq.shape
+    packed = conv_s8.pack_weight(wq, dil, cin, taps=taps)
+    if dil == 2:
+        th = tw = 2
+        geo = [(1 - a, 1 - b, a, b) for a in (0, 1) for b in (0, 1)]
+        mh, mw, ho, wo, step = h, w, 2 * h, 2 * w, 2
+    else:
+        th = tw = k
+        geo = [(pad, pad, 0, 0)]
+        mh = ho = (h + 2 * pad - k) // stride + 1
+        mw = wo = (w + 2 * pad - k) // stride + 1
+        step = 1
+    kern = _phase_gemm_b(packed, taps, cout, cin, th, tw).long()
+    x = xq.long().permute(0, 2, 3, 1)
+    out = torch.zeros((n, ho, wo, cout), dtype=torch.long)
+    oy, ox = torch.meshgrid(torch.arange(mh), torch.arange(mw),
+                            indexing="ij")
+    for z, (py, px, ya, xa) in enumerate(geo):
+        acc = torch.zeros((n, mh, mw, cout), dtype=torch.long)
+        for ty in range(th):
+            for tx in range(tw):
+                iy, ix = oy * stride - py + ty, ox * stride - px + tx
+                ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                a = x[:, iy.clamp(0, h - 1), ix.clamp(0, w - 1)] * \
+                    ok[None, ..., None]
+                acc += a @ kern[z, :, :, ty, tx].T
+        out[:, ya::step, xa::step] = acc
+    return out.permute(0, 3, 1, 2).to(torch.int32)
+
+
+@pytest.mark.parametrize("form,taps", PACK_CASES, ids=PACK_IDS)
+def test_packed_gemm_equals_the_conv(form, taps):
+    """The packed operand in the kernel's K order, against the im2col rows
+    of each phase, gives conv_sums_plain's sums exactly (the stem with its
+    activation padded to 16 channels of random bytes: they meet zero
+    weights)."""
+    k, stride, pad, dil, cin, cout = form
+    rng = np.random.default_rng(sum(form) + 7)
+    xq = _int8(rng, (2, conv_s8.padded_channels(cin), 9, 7))
+    wq = _int8(rng, (cout, cin, k, k))
+    ref = tq.conv_sums_plain(xq, wq, stride, pad, dil)
+    assert torch.equal(ref, tq.conv_sums_plain(xq[:, :cin], wq, stride, pad,
+                                               dil))
+    assert torch.equal(_gemm_model(xq, wq, stride, pad, dil, taps), ref)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("channels", [None, 16])
+def test_quantize_s8_cpu_route_equals_quantize(dt, channels):
+    """quantize_s8 on a CPU tensor is _quantize (the torch chain), with
+    zero channels appended up to `channels` (the stem's operand)."""
+    rng = np.random.default_rng(12)
+    x = _to_torch(rng.normal(0, 3, (2, 3, 5, 6)), DTYPES[dt][1])
+    _, inv = tq.activation_scale(2.5)
+    before = conv_s8.quantize_s8.launches
+    got = conv_s8.quantize_s8(x, inv, channels)
+    assert conv_s8.quantize_s8.launches == before  # no kernel on the CPU
+    assert got.dtype == torch.int8
+    assert torch.equal(got[:, :3], tq._quantize(x, inv))
+    assert got.shape[1] == (channels or 3) and not got[:, 3:].any()
+    with pytest.raises(ValueError, match="output channels"):
+        conv_s8.quantize_s8(x, inv, 8)
+
+
+@pytest.mark.parametrize("form,grid,tile_m,mode", [
+    ((3, 1, 1, 1), (256, 256), 128, "halo"),
+    ((3, 1, 1, 1), (64, 64), 64, "halo"),
+    ((3, 1, 1, 1), (32, 32), 64, "taps"),
+    ((3, 1, 1, 1), (16, 16), 128, "taps"),
+    ((3, 1, 1, 1), (19, 19), 64, "gather"),
+    ((3, 1, 1, 1), (6, 32), 128, "gather"),  # a tile would span images
+    ((4, 1, 2, 2), (128, 128), 128, "halo"),
+    ((4, 1, 2, 2), (16, 16), 64, "taps"),
+    ((3, 2, 1, 1), (64, 64), 64, "gather"),
+    ((1, 2, 0, 1), (64, 64), 64, "gather"),
+    ((7, 2, 3, 1), (256, 256), 128, "gather")])
+def test_conv_mode(form, grid, tile_m, mode):
+    """How the kernel loads A: a TMA box a row where a tile lies in one
+    output row, a box a tap where a tile is whole rows of one image, the
+    cp.async gather otherwise (stride 2, the stem, ragged rows)."""
+    k, stride, pad, dil = form
+    assert conv_s8.conv_mode(k, k, stride, pad, dil, *grid, tile_m) == mode
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_plan_forms_are_the_forward_convs(arch, monkeypatch):
+    """quant_weights gives build_plans each conv's (stride, padding, lhs
+    dilation) as the forward runs it, so that make_plan packs the TMA
+    modes' weight only where conv_s8.tma_form takes the conv."""
+    model = SegmentationModel(arch, "resnet34")
+    load_flax_weights(model, load_npz(seg_weights_path(arch, "resnet34")))
+    forms = {p: f for m in model.modules()
+             if isinstance(m, tq.QConv2d) and m.quant_path
+             for p, _, f in m.quant_weights()}
+    seen, real = {}, tq.conv2d_maybe_quant
+
+    def record(x, w, *, stride=1, padding=1, dilation=1, path=""):
+        seen[path] = (stride, padding, dilation)
+        return real(x, w, stride=stride, padding=padding, dilation=dilation,
+                    path=path)
+
+    monkeypatch.setattr(tq, "conv2d_maybe_quant", record)
+    with tq.quant_observe({}), torch.no_grad():
+        model(torch.zeros(1, 64, 64, 3))
+    assert len(seen) == ARCHS[arch] and seen == forms
+    tma = {p for p, f in forms.items()
+           if conv_s8.tma_form(*((4, 4) if f[2] == 2 else (3, 3)), *f)}
+    assert all(f[0] == 1 for p, f in forms.items() if p in tma)
+    assert any(f[0] == 2 for f in forms.values())
+
+
+@pytest.mark.parametrize("conv,want", [
+    # (n, h, w, cout, k, stride, padding, dilation): (tile_m, mode)
+    ((8, 128, 128, 64, 3, 1, 1, 1), (128, "halo")),
+    ((8, 16, 16, 512, 3, 1, 1, 1), (64, "taps")),
+    ((8, 32, 32, 256, 3, 1, 1, 1), (64, "taps")),
+    ((8, 64, 64, 128, 3, 1, 1, 1), (64, "taps")),
+    ((8, 256, 256, 16, 4, 1, 2, 2), (128, "halo")),
+    ((8, 512, 512, 64, 7, 2, 3, 1), (128, "gather")),
+    ((8, 64, 64, 128, 3, 2, 1, 1), (64, "gather")),
+    ((1, 19, 19, 16, 3, 1, 1, 1), (64, "gather"))])
+def test_launch_config(conv, want):
+    """The wrapper's own tile and A mode on shapes of the 8 x 512² forward
+    (132 SMs); forcing gather takes every conv, forcing a TMA mode that
+    does not take the conv raises."""
+    n, h, w, cout, k, stride, pad, dil = conv
+    form = (n, h, w, cout, k, k, stride, pad, dil, 132)
+    assert conv_s8.launch_config(*form) == want
+    assert conv_s8.launch_config(*form, mode="gather")[1] == "gather"
+    for mode in ("halo", "taps"):
+        if mode != want[1]:
+            with pytest.raises(ValueError, match=f"the {mode} mode"):
+                conv_s8.launch_config(*form, mode=mode)
+    with pytest.raises(ValueError, match="tile_m"):
+        conv_s8.launch_config(*form, tile_m=32)

@@ -17,10 +17,12 @@ conv2d_maybe_quant with a calibrated path in int8; `with
 quant_observe(store): model(x)` records each conv's input amax (the
 calibration hook). Outside both, a conv is the plain float conv.
 
-The int8 conv is ops/kernels/conv_s8.py's wrapper of the hand-written
-kernel csrc/conv_s8.cu on a CUDA tensor; conv_s8_plain below is its plain
-version (float64 F.conv2d on int8 values, exact since every |sum| < 2^53),
-which the wrapper takes on a CPU tensor.
+The activation quantize and the int8 conv are ops/kernels/conv_s8.py's
+wrappers of the hand-written kernels of csrc/conv_s8.cu on a CUDA tensor
+(uwt_quantize_s8, uwt_conv_s8); quantize_s8_plain (the torch chain
+_quantize) and conv_s8_plain (float64 F.conv2d on int8 values, exact since
+every |sum| < 2^53) below are their plain versions, which the wrappers take
+on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -117,6 +119,19 @@ def _quantize(x: torch.Tensor, inv: float) -> torch.Tensor:
                        127.0).to(torch.int8)
 
 
+def quantize_s8_plain(x: torch.Tensor, inv: float,
+                      channels: Optional[int] = None) -> torch.Tensor:
+    """uwt_quantize_s8's plain version: _quantize(x, inv), with zero
+    channels appended up to `channels`."""
+    xq = _quantize(x, inv)
+    n, c, h, w = xq.shape
+    if channels is None or channels == c:
+        return xq
+    out = xq.new_zeros((n, channels, h, w))
+    out[:, :c] = xq
+    return out
+
+
 def fuse_up_kernel(w3: torch.Tensor) -> torch.Tensor:
     """Fold nearest-2x upsampling into a 3x3 OIHW kernel (models/unet.py's
     fuse_up_kernel in the JAX package): K[a, b] = Σ W[a - da, b - db] over
@@ -139,11 +154,41 @@ def dilate2(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def phase_kernels(k: torch.Tensor) -> torch.Tensor:
+    """The four output phases of the lhs-dilated 4x4 up-conv (padding 2,
+    dilation 2): (4, O, I, 2, 2), phase 2a + b = k[:, :, a::2, b::2]. Output
+    (2p + a, 2q + b) reads only taps ky = a + 2 ty, kx = b + 2 tx, at input
+    (p - 1 + a + ty, q - 1 + b + tx): a 2x2 stride-1 conv of the undilated
+    input."""
+    return torch.stack([k[:, :, a::2, b::2] for a in (0, 1) for b in (0, 1)])
+
+
+def conv_sums_phases_plain(xq: torch.Tensor, wq: torch.Tensor
+                           ) -> torch.Tensor:
+    """The exact int32 sums of the lhs-dilated 4x4 up-conv, as its four
+    phases (phase_kernels): each a 2x2 conv of xq padded by 1 - a above
+    and a below (1 - b left, b right), written to its interleaved places."""
+    x = xq.double()
+    n, _, h, w = x.shape
+    out = x.new_zeros((n, wq.shape[0], 2 * h, 2 * w))
+    for z, k in enumerate(phase_kernels(wq.double())):
+        a, b = divmod(z, 2)
+        xp = F.pad(x, (1 - b, b, 1 - a, a))
+        out[:, :, a::2, b::2] = F.conv2d(xp, k)
+    return out.to(torch.int32)
+
+
 def conv_sums_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int,
                     padding: int, dilation: int) -> torch.Tensor:
     """The exact int32 sums of an int8 conv: F.conv2d in float64 on the
     int8 values (|sum| <= 127² · K < 2^53), with the lhs-dilated input
-    zero-interleaved."""
+    zero-interleaved. An activation whose channels were padded to a
+    multiple of 16 (quantize_s8) meets zero weights past wq's."""
+    from .kernels.conv_s8 import padded_channels
+
+    if xq.shape[1] != wq.shape[1] and \
+            xq.shape[1] == padded_channels(wq.shape[1]):
+        xq = xq[:, :wq.shape[1]]
     x = xq.double()
     if dilation == 2:
         x = dilate2(x)
@@ -165,25 +210,40 @@ def conv_s8_plain(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 @dataclasses.dataclass
 class ConvPlan:
     """One conv's int8 operands, built once: the int8 weight (OIHW), its
-    scales sw, 1 / sx, and the epilogue's factor f32(sx) * sw; `packed` is
-    the kernel's [Cout][K rounded up] layout on a CUDA device (None on the
-    CPU)."""
+    scales sw, 1 / sx, and the epilogue's factor f32(sx) * sw; `channels`,
+    the quantized activation's channel count (the input's, padded to a
+    multiple of 16: the stem's 3 become 16); `packed` is the conv kernel's
+    weight operand (conv_s8.pack_weight: the up-conv's four phase kernels
+    for dilation 2) on a CUDA device, None on the CPU; `packed_taps` the
+    TMA modes' where conv_s8.tma_form takes the conv (the 3x3 stride-1
+    convs and the up-conv), on a CUDA device."""
     wq: torch.Tensor
     sw: torch.Tensor
     inv_sx: float
     scale: torch.Tensor
+    channels: int
     packed: Optional[torch.Tensor] = None
+    packed_taps: Optional[torch.Tensor] = None
 
 
-def make_plan(w: torch.Tensor, amax: float) -> ConvPlan:
-    """The plan of a conv whose weight, in the model dtype, is w (OIHW)."""
+def make_plan(w: torch.Tensor, amax: float, stride: int = 1,
+              padding: int = 1, dilation: int = 1) -> ConvPlan:
+    """The plan of a conv whose weight, in the model dtype, is w (OIHW),
+    at that stride, padding and lhs dilation."""
     from .kernels import conv_s8
 
     wq, sw = quantize_weight(w)
     sx, inv = activation_scale(amax)
     scale = torch.tensor(sx, dtype=torch.float32, device=sw.device) * sw
-    packed = conv_s8.pack_weight(wq) if wq.is_cuda else None
-    return ConvPlan(wq, sw, inv, scale, packed)
+    channels = conv_s8.padded_channels(wq.shape[1])
+    plan = ConvPlan(wq, sw, inv, scale, channels)
+    if wq.is_cuda:
+        plan.packed = conv_s8.pack_weight(wq, dilation, channels)
+        kh, kw = wq.shape[2:]
+        if conv_s8.tma_form(kh, kw, stride, padding, dilation):
+            plan.packed_taps = conv_s8.pack_weight(wq, dilation, channels,
+                                                   taps=True)
+    return plan
 
 
 def _float_conv(x, w, stride, padding, dilation):
@@ -222,11 +282,13 @@ def conv2d_maybe_quant(x: torch.Tensor, w, *, stride: int = 1,
 
     plan = mode.plans.get(path) if mode.plans is not None else None
     if plan is None:
-        plan = make_plan(w() if callable(w) else w, amax)
-    xq = _quantize(x, plan.inv_sx)
+        plan = make_plan(w() if callable(w) else w, amax, stride, padding,
+                         dilation)
+    xq = conv_s8.quantize_s8(x, plan.inv_sx, plan.channels)
     return conv_s8.conv_s8(xq, plan.wq, plan.scale, stride=stride,
                            padding=padding, dilation=dilation,
-                           out_dtype=x.dtype, packed=plan.packed)
+                           out_dtype=x.dtype, packed=plan.packed,
+                           packed_taps=plan.packed_taps)
 
 
 class QConv2d(nn.Conv2d):
@@ -256,13 +318,16 @@ class QConv2d(nn.Conv2d):
         return w[:, w.shape[1] - n_up:], w[:, :w.shape[1] - n_up]
 
     def quant_weights(self):
-        """(path, weight maker) of each int8 conv this module runs."""
+        """(path, weight maker, (stride, padding, lhs dilation)) of each
+        int8 conv this module runs."""
         p = self.quant_path
         if self.split is None:
-            return [(p, lambda: self.weight)]
-        out = [(p + ":up", lambda: fuse_up_kernel(self._up_skip()[0]))]
+            return [(p, lambda: self.weight,
+                     (self.stride[0], self.padding[0], 1))]
+        out = [(p + ":up", lambda: fuse_up_kernel(self._up_skip()[0]),
+                (1, 2, 2))]
         if self._up_skip()[1].shape[1]:
-            out.append((p + ":skip", lambda: self._up_skip()[1]))
+            out.append((p + ":skip", lambda: self._up_skip()[1], (1, 1, 1)))
         return out
 
     def forward_split(self, x_low: torch.Tensor,
@@ -290,9 +355,10 @@ def build_plans(model: nn.Module, scales: Dict[str, float]
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, QConv2d) and mod.quant_path:
-                for path, weight in mod.quant_weights():
+                for path, weight, form in mod.quant_weights():
                     if scales.get(path, 0.0) > 0.0:
-                        plans[path] = make_plan(weight(), scales[path])
+                        plans[path] = make_plan(weight(), scales[path],
+                                                *form)
     return plans
 
 

@@ -124,11 +124,36 @@ Phases, each printing its own line:
      WatermarkPredictor's default fused fn (K1 and K2 launched, masks
      equal to the best checkpoint's weights held in memory); one float32
      step (Unet, 64², batch 4, no augmentation) on the card against the
-     CPU from the same state; on one resident batch after 5 full-width
+     CPU from the same state; on one resident batch after 3 full-width
      steps of warmup: one step under torch's sync debug mode (no
-     synchronizing call), 20 steps timed as one window (img/s, the loss
-     falling), 20 synced steps timed by stage (augment,
+     synchronizing call), 10 steps timed as one window (img/s, the loss
+     falling), 10 synced steps timed by stage (augment,
      forward+backward, optimizer); a profile of 3 steps
+  3i the fill trainers at full width on a folder of 16 clean 512² PNGs
+     (utils/synthetic): (a) train_inpaint, FFC-LaMa ('lama': 9 FFC
+     blocks, 512 channels at /8) against the PatchGAN, 256², batch 8,
+     GAN on after 4 warmup steps, 16 steps, a log every 4 (finite g_loss,
+     d_loss, hole_psnr); the directory and its .npz through
+     get_engine("lama") ("ffc-lama"); `repair --no-ocr --inpaint-weights
+     <dir>` on 4 of 3d's files, 2 of them without a logo (rc 0, engine
+     "ffc-lama", K1 and K2 launched, pixels outside the step-1 masks the
+     input's);
+     --resume-from <dir>.npz; one float32 G + D step (2 x 64²) on the
+     card against the CPU; on the resident corpus one GAN step under
+     torch's sync debug mode (no synchronizing call), 10 steps timed as
+     one window (ms a step, img/s, peak MiB, inpaint_train_mfu: the
+     convs' operations from their shapes, 3 generator and 7
+     discriminator forwards a step, over the window at the bf16 peak), 10
+     synced steps split (generator forward+backward, discriminator step,
+     both optimizers), a profile of 2 steps. (b) train_latent_diffusion,
+     256², batch 16, 8 autoencoder and 8 denoiser steps, shipped to a
+     temporary .npz; `repair --no-ocr --watermark-model diffusion` with
+     DIFFUSION_WEIGHTS there (rc 0, engine "latent-diffusion": a
+     push-pull fallback fails, K1 and K2 launched, pixels outside the
+     step-1 masks the input's); the float32 sampler on the card against
+     the CPU (1 x 64², 4 steps, the same noise); the engine's 20-step
+     fill of 8 x 512² timed with these weights and, where the tree has
+     it, the shipped latent_diffusion.npz, and its kernel launches
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -280,6 +305,7 @@ def profile_window(fn, calls: int) -> dict:
     rows.sort(key=lambda r: -r[2])
     return {"calls": calls, "window_ms": window_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / window_ms if device_ms else None,
+            "kernel_launches": sum(r[1] for r in rows),
             "top": [{"name": k[:90], "count": c, "ms": round(ms, 4)}
                     for k, c, ms in rows[:15]]}
 
@@ -301,13 +327,15 @@ def lama_segment(name: str) -> str:
     raise KeyError(name)
 
 
-def conv_flops(model, *inputs) -> dict:
+def conv_flops(model, *inputs, segment=lama_segment) -> dict:
     """Operations (an FMA counts two) of the convolutions of one model(*inputs)
-    call by LaMa segment, from the shapes each conv sees; the FFTs and
-    elementwise ops are not counted."""
+    call by segment (segment(module name); LaMa's by default), from the
+    shapes each conv sees; the FFTs and elementwise ops are not counted."""
+    import collections
+
     import torch
 
-    flops = {seg: 0.0 for seg, _ in LAMA_SEGMENTS}
+    flops = collections.defaultdict(float)
 
     def count(name):
         def hook(mod, args, out):
@@ -316,7 +344,7 @@ def conv_flops(model, *inputs) -> dict:
             # ConvTranspose2d, which every input element is spread by
             transposed = isinstance(mod, torch.nn.ConvTranspose2d)
             pixels = args[0] if transposed else out
-            flops[lama_segment(name)] += 2.0 * pixels.numel() * \
+            flops[segment(name)] += 2.0 * pixels.numel() * \
                 mod.weight[0].numel()
         return hook
 
@@ -1590,9 +1618,9 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
 # phase 3h: the train command's folder (40 files of SIZE², masks for the
 # first 20; 32 train and 8 val at TRAIN_RATIO 0.8, 4 steps an epoch at the
 # yaml's batch 8), its epochs, and the full-width step's warmup and timed
-# steps
+# steps (cut from 5 and 20 to 3 and 10 to make room for phase 3i)
 TRAIN_FILES, TRAIN_MASKS, TRAIN_EPOCHS = 40, 20, 3
-TRAIN_WARMUP, TRAIN_STEPS = 5, 20
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # the card-against-CPU step: Unet at 64², batch 4, float32, no augmentation
 # (the tolerances of tests/test_torch_train.py)
 STEP_SIZE, STEP_BATCH = 64, 4
@@ -1841,6 +1869,407 @@ def training_phase(work: Path, seed: int, dev) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"timing": timing, "launches": serve_launches}
+
+
+# phase 3i: the fill trainers' clean folder (utils/synthetic, 512²), the
+# GAN run (lama at full width, 256², batch 8, warmup 4 of 16 steps, a log
+# every 4), its timed steps, the latent-diffusion run (256², batch 16, 8 +
+# 8 steps), the diffusion engine's timed call (8 x 512², 20 DDIM steps)
+# and the card-against-CPU checks' shapes
+FILL_FILES = 16
+GAN_SIZE, GAN_BATCH, GAN_STEPS, GAN_WARMUP, GAN_LOG = 256, 8, 16, 4, 4
+GAN_TIMED = 10
+LD_SIZE, LD_BATCH, LD_AE_STEPS, LD_DN_STEPS = 256, 16, 8, 8
+LD_SERVE_STEPS = 20
+# the serving runs' files, from 3d's folder: two with logos, and the two
+# without, which step 1 types as watermarks in their batch (K1 and K2)
+# before it skips them as empty
+FILL_CLI_FILES = ("a00", "a01", "a10", "a11")
+FILL_CHECK_SIZE, GAN_CHECK_BATCH, LD_CHECK_STEPS = 64, 2, 4
+# a G + D step card against CPU, TF32 off. In float32: the losses to rel
+# 1e-4, the running statistics to 1e-4, the parameters after Adam's first
+# step to 2·lr (each moves by about ±lr, so a gradient near zero may take
+# the other sign); the float32 gradients themselves are not held: through
+# BatchNorm at init they carry rounding of up to ~14 % of a tensor's
+# largest between any two implementations (tests/test_torch_train.py
+# finds the same for the segmentation net against float64). In float64
+# (the FFTs in float64 too; the feature matching casts to float32 as
+# JAX's does): each gradient to 1e-6 of its tensor's largest (observed
+# 5.3e-8), with a floor of 1e-12 for the biases before the InstanceNorms,
+# which get no gradient (both sides hold ~1e-16 noise there). The
+# sampler's fill to 1e-3.
+GAN_LOSS_RTOL, GAN_STATS_TOL, GAN_GRAD64_TOL, GAN_GRAD64_FLOOR = \
+    1e-4, 1e-4, 1e-6, 1e-12
+LD_SAMPLE_TOL = 1e-3
+
+
+def gan_step_card_vs_cpu(dev, seed: int) -> dict:
+    """One G + D step of the full-width trainer from the same init on the
+    card and on the CPU (2 x 64², the same images and masks), in float32
+    (losses, running statistics, stepped parameters) and in float64 (the
+    gradients)."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.training import train_inpaint as ti
+
+    s, n = FILL_CHECK_SIZE, GAN_CHECK_BATCH
+    x = torch.from_numpy(np.random.default_rng(seed).random(
+        (n, s, s, 3)).astype(np.float32))
+    masks = ti.random_mask_batch(torch.Generator().manual_seed(seed), n, s,
+                                 "cpu")
+    out = {"size": s, "batch": n}
+    for dtype in (torch.float32, torch.float64):
+        got = []
+        for where in (dev, torch.device("cpu")):
+            tr = ti.build_trainer(seed=seed, device=where, compute_dtype=None)
+            tr.model.to(dtype)
+            tr.disc.to(dtype)
+            tr = ti.InpaintTrainer(tr.model, tr.disc, compute_dtype=None)
+            xs, ms = x.to(where, dtype), masks.to(where, dtype)
+            gl, fake, g = tr.g_loss_grads(xs, ms, True)
+            dl, dg = tr.d_loss_grads(xs, fake)
+            # a copy: the optimizer clips the gradients in place
+            grads = [t.detach().cpu().clone() for t in list(g) + list(dg)]
+            tr.opt.step(g)
+            tr.d_opt.step(dg)
+            got.append((float(gl), float(dl), grads, {
+                **tr.weights(), **{"disc/" + k: v for k, v in
+                                   ti.module_to_flax(
+                                       tr.disc, ti.lama_flax_path).items()}}))
+            del tr
+        (gl, dl, g, w), (gl_c, dl_c, g_c, w_c) = got
+        grad_err = max(((a - b).abs().max() / (
+            b.abs().max() + GAN_GRAD64_FLOOR / GAN_GRAD64_TOL)).item()
+            for a, b in zip(g, g_c))
+        tag = "fp32" if dtype == torch.float32 else "fp64"
+        out.update({f"{tag}_g_loss_card": gl, f"{tag}_g_loss_cpu": gl_c,
+                    f"{tag}_d_loss_card": dl, f"{tag}_d_loss_cpu": dl_c,
+                    f"{tag}_grad_err_of_scale": grad_err})
+        if dtype == torch.float32:
+            out["fp32_batch_stats_max_abs"] = max(
+                float(np.abs(w[k] - v).max()) for k, v in w_c.items()
+                if k.startswith("batch_stats/"))
+            out["fp32_params_max_abs"] = max(
+                float(np.abs(w[k] - v).max()) for k, v in w_c.items()
+                if not k.startswith("batch_stats/"))
+        ok = abs(gl - gl_c) <= GAN_LOSS_RTOL * abs(gl_c) and \
+            abs(dl - dl_c) <= GAN_LOSS_RTOL * abs(dl_c)
+        if dtype == torch.float32:
+            lr = 2e-4  # InpaintTrainer's default, the larger of the two
+            ok = ok and out["fp32_batch_stats_max_abs"] <= GAN_STATS_TOL \
+                and out["fp32_params_max_abs"] <= 2 * lr + 1e-6
+        else:
+            ok = ok and grad_err <= GAN_GRAD64_TOL
+        if not ok:
+            raise AssertionError(f"{tag} GAN step card vs CPU: {out}")
+    return out
+
+
+def ld_sampler_card_vs_cpu(weights: str, dev, seed: int) -> dict:
+    """The float32 DDIM fill on the card against the CPU's with the same
+    noise (1 x 64², LD_CHECK_STEPS steps)."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.diffusion.latent_diffusion import \
+        LatentInpainter
+
+    s = FILL_CHECK_SIZE
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((1, s, s, 3)).astype(np.float32))
+    m = torch.zeros(1, s, s, 1)
+    m[:, 12:40, 20:52] = 1
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(1, s // 8, s // 8, 4, generator=g)
+    noise = torch.randn(LD_CHECK_STEPS, 1, s // 8, s // 8, 4, generator=g)
+    outs = [LatentInpainter(weights, device=where, dtype=None).sample(
+        x.to(where), m.to(where), z.to(where), noise.to(where)).cpu()
+        for where in (dev, torch.device("cpu"))]
+    err = (outs[0] - outs[1]).abs().max().item()
+    if err > LD_SAMPLE_TOL:
+        raise AssertionError(f"float32 sampler card vs CPU: {err}")
+    return {"size": s, "steps": LD_CHECK_STEPS, "max_abs": err}
+
+
+def check_outside_masks(folder: Path, out: Path) -> int:
+    """Every repaired file's pixels outside its step-1 mask equal the
+    input's; returns the number of files checked."""
+    import numpy as np
+    from unet_watermark_tpu_torch.utils.image_io import read_gray, read_rgb
+
+    checked = 0
+    for src in sorted(folder.iterdir()):
+        final = out / "step2_watermark_repaired" / src.name
+        mask = out / "step1_masks" / f"{src.stem}_mask.png"
+        if not (final.exists() and mask.exists()):
+            continue
+        keep = read_gray(mask) <= 127
+        if not np.array_equal(read_rgb(final)[keep], read_rgb(src)[keep]):
+            raise AssertionError(f"{src.name}: repaired pixels outside the "
+                                 f"step-1 mask differ from the input's")
+        checked += 1
+    if not checked:
+        raise AssertionError(f"no repaired file with a mask in {out}")
+    return checked
+
+
+def fill_training_phase(work: Path, seed: int, dev) -> dict:
+    """Phase 3i: train_inpaint (FFC-LaMa against the PatchGAN) and
+    train_latent_diffusion at full width on the card, each served through
+    the `repair` command (K1 and K2 launched by its step 1), the GAN step
+    checked for host syncs and timed, and float32 card-against-CPU checks
+    of a GAN step and of the DDIM sampler. Returns the timing fields and
+    the serving runs' launches."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.diffusion.latent_diffusion import \
+        LatentInpainter
+    from unet_watermark_tpu_torch.inference import engines
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.training import train_inpaint as ti
+    from unet_watermark_tpu_torch.training import train_latent_diffusion \
+        as tld
+    from unet_watermark_tpu_torch.utils.image_io import write_png
+    from unet_watermark_tpu_torch.utils.shipping import WEIGHTS_DIR
+    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+    t_phase = time.perf_counter()
+    clean = work / "fill_clean"
+    clean.mkdir()
+    imgs, _ = watermarked_images(FILL_FILES, SIZE, seed=seed + 11,
+                                 clean=FILL_FILES)
+    for i, img in enumerate(imgs):
+        write_png(clean / f"c{i:02d}.png",
+                  np.rint(img * 255).astype(np.uint8))
+    serve_in = work / "in_fill"
+    serve_in.mkdir()
+    for stem in FILL_CLI_FILES:
+        shutil.copy(work / "in" / f"{stem}.png", serve_in / f"{stem}.png")
+
+    # (a) train_inpaint at full width
+    out = work / "fill_out" / "lama"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = ti.train_inpaint(str(clean), str(out), "lama", GAN_SIZE, GAN_BATCH,
+                         GAN_STEPS, seed=seed, log_every=GAN_LOG,
+                         warmup_steps=GAN_WARMUP, device=dev)
+    train_s = time.perf_counter() - t0
+    hist = r["history"]
+    if len(hist) != GAN_STEPS // GAN_LOG or not all(
+            np.isfinite([h["g_loss"], h["d_loss"], h["hole_psnr"]]).all()
+            for h in hist) or not all(h["d_loss"] > 0 for h in hist
+                                      if h["step"] > GAN_WARMUP):
+        raise AssertionError(f"train_inpaint history: {hist}")
+    log("train_inpaint", variant="lama", size=GAN_SIZE, batch=GAN_BATCH,
+        steps=GAN_STEPS, warmup=GAN_WARMUP, wall_s=train_s, history=hist,
+        peak_allocated_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    names = {}
+    for path in (str(out), str(out) + ".npz"):
+        names[Path(path).name] = engines.get_engine(
+            "lama", weights_path=path, device=dev).name
+    if set(names.values()) != {"ffc-lama"}:
+        raise AssertionError(f"the trained weights serve as {names}")
+    argv = ["repair", "--input", str(serve_in), "--output",
+            str(work / "out_fill_lama"), "--no-ocr", "--inpaint-weights",
+            str(out)]
+    kc.reset_launch_counts()
+    rc, wall, _ = run_cli(argv, dev, timer=False)
+    torch.cuda.synchronize()
+    lama_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    summary = json.loads((work / "out_fill_lama" /
+                          "repair_summary.json").read_text())
+    if rc != 0 or summary.get("status") != "success" or \
+            summary.get("engine_used") != "ffc-lama" or \
+            summary.get("engine_failures") or \
+            min(lama_launches.values()) < 1:
+        raise AssertionError(f"repair --inpaint-weights: rc {rc}, "
+                             f"{summary}, launches {lama_launches}")
+    checked = check_outside_masks(serve_in, work / "out_fill_lama")
+    t0 = time.perf_counter()
+    resumed = ti.train_inpaint(str(clean), str(work / "fill_out" / "again"),
+                               "lama", GAN_SIZE, GAN_BATCH, 2, seed=seed,
+                               log_every=2, warmup_steps=0,
+                               resume_from=str(out) + ".npz", device=dev)
+    resume_s = time.perf_counter() - t0
+    if not np.isfinite(resumed["final_loss"]):
+        raise AssertionError(f"--resume-from: {resumed}")
+    log("train_inpaint_serving", engines=names, argv=argv[:1] + argv[5:],
+        rc=rc, wall_s=wall, engine=summary["engine_used"],
+        launches=lama_launches, outside_mask_equal_files=checked,
+        resume_from_npz_final_loss=resumed["final_loss"],
+        resume_wall_s=resume_s)
+    log("gan_step_card_vs_cpu", **gan_step_card_vs_cpu(dev, seed))
+
+    # the GAN step at full width on the resident corpus, from the trained
+    # generator
+    trainer = ti.build_trainer(seed=seed, device=dev,
+                               resume_from=str(out) + ".npz")
+    sample, _ = ti.device_clean_sampler(str(clean), GAN_BATCH, GAN_SIZE,
+                                        device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    batch = sample(gen)
+    for _ in range(3):
+        trainer.step(batch, gen, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.step(sample(gen), gen, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "synchroniz" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"a GAN step synchronizes: {syncs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(GAN_TIMED):
+        trainer.step(sample(gen), gen, True)
+    b.record()
+    torch.cuda.synchronize()
+    window_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    events = []
+
+    @contextlib.contextmanager
+    def timed(name):
+        x = torch.cuda.Event(enable_timing=True)
+        y = torch.cuda.Event(enable_timing=True)
+        x.record()
+        yield
+        y.record()
+        events.append((name, x, y))
+
+    steps = []
+    for _ in range(GAN_TIMED):
+        events.clear()
+        x = torch.cuda.Event(enable_timing=True)
+        y = torch.cuda.Event(enable_timing=True)
+        x.record()
+        trainer.step(batch, gen, True, part=timed)
+        y.record()
+        torch.cuda.synchronize()
+        part = {n: p.elapsed_time(q) for n, p, q in events}
+        steps.append({"step_ms": x.elapsed_time(y),
+                      "generator_ms": part["generator"],
+                      "discriminator_ms": part["discriminator"],
+                      "optimizers_ms": part["g_optimizer"]
+                      + part["d_optimizer"]})
+    med = {k: float(np.median([st[k] for st in steps])) for k in steps[0]}
+    masks = ti.random_mask_batch(gen, GAN_BATCH, GAN_SIZE, dev)
+    whole = lambda name: "all"  # noqa: E731
+    g_flops = conv_flops(trainer.model, batch, masks, segment=whole)["all"]
+    d_flops = conv_flops(trainer.disc, batch, segment=whole)["all"]
+    # a step's convs: the generator forward and backward (3 forwards), the
+    # discriminator on the fake with its input gradient (2), on the real
+    # image without gradient (1), and both again in its own step with
+    # weight gradients (2 + 2)
+    step_flops = 3 * g_flops + 7 * d_flops
+    step_ms = window_ms / GAN_TIMED
+    prof = profile_window(lambda: trainer.step(batch, gen, True), 2)
+    gan = {"size": GAN_SIZE, "batch": GAN_BATCH, "steps": GAN_TIMED,
+           "host_syncs_per_step": len(syncs), "window_ms": window_ms,
+           "gan_step_ms": step_ms,
+           "img_per_s": GAN_BATCH * GAN_TIMED / (window_ms / 1e3),
+           **{f"median_{k}": v for k, v in med.items()},
+           "device_busy_share": prof["device_busy_share"],
+           "peak_allocated_mib": peak,
+           "generator_forward_conv_tflop": g_flops / 1e12,
+           "discriminator_forward_conv_tflop": d_flops / 1e12,
+           "step_conv_tflop": step_flops / 1e12,
+           "step_bound_ms": step_flops / PEAK_BF16_FLOPS_PER_S * 1e3,
+           "inpaint_train_mfu": step_flops / (step_ms * 1e-3
+                                              * PEAK_BF16_FLOPS_PER_S)}
+    log("gan_step_timing", **gan, step_rounds_ms=[
+        round(st["step_ms"], 4) for st in steps])
+    log("profile_gan_step", **prof)
+    del trainer, sample, batch
+    torch.cuda.empty_cache()
+
+    # (b) train_latent_diffusion at full width, its weights served
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r_ld = tld.train_latent_diffusion(
+        str(clean), str(work / "fill_out" / "ld"), LD_SIZE, LD_BATCH,
+        LD_AE_STEPS, LD_DN_STEPS, seed=seed, log_every=4, device=dev)
+    ld_s = time.perf_counter() - t0
+    shipped = tld.ship_weights(r_ld["params"],
+                               str(work / "fill_out" / "ld_ship.npz"))
+    log("train_latent_diffusion", size=LD_SIZE, batch=LD_BATCH,
+        ae_steps=LD_AE_STEPS, dn_steps=LD_DN_STEPS, wall_s=ld_s,
+        peak_allocated_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    argv = ["repair", "--input", str(serve_in), "--output",
+            str(work / "out_fill_ld"), "--no-ocr", "--watermark-model",
+            "diffusion"]
+    saved_env = os.environ.get("DIFFUSION_WEIGHTS")
+    os.environ["DIFFUSION_WEIGHTS"] = shipped
+    try:
+        kc.reset_launch_counts()
+        rc, wall_ld, _ = run_cli(argv, dev, timer=False)
+        torch.cuda.synchronize()
+    finally:
+        if saved_env is None:
+            os.environ.pop("DIFFUSION_WEIGHTS", None)
+        else:
+            os.environ["DIFFUSION_WEIGHTS"] = saved_env
+    ld_launches = {k.__name__: k.launches for k in kc.KERNELS}
+    summary = json.loads((work / "out_fill_ld" /
+                          "repair_summary.json").read_text())
+    if rc != 0 or summary.get("status") != "success" or \
+            summary.get("engine_used") != "latent-diffusion" or \
+            summary.get("engine_failures") or \
+            min(ld_launches.values()) < 1:
+        raise AssertionError(f"repair --watermark-model diffusion: rc {rc}, "
+                             f"{summary}, launches {ld_launches}")
+    checked = check_outside_masks(serve_in, work / "out_fill_ld")
+    log("diffusion_serving", argv=argv[:1] + argv[5:], rc=rc,
+        wall_s=wall_ld, engine=summary["engine_used"], launches=ld_launches,
+        outside_mask_equal_files=checked)
+    log("diffusion_sampler_card_vs_cpu",
+        **ld_sampler_card_vs_cpu(shipped, dev, seed))
+
+    # the engine's 20-step fill of a 512² batch, with these weights and,
+    # where the tree has it, the shipped latent_diffusion.npz
+    imgs_t = torch.from_numpy(watermarked_images(BATCH, SIZE, seed=seed)[0]
+                              ).to(dev)
+    holes = torch.zeros(BATCH, SIZE, SIZE, 1, device=dev)
+    holes[:, SIZE // 4:SIZE // 2, SIZE // 3:2 * SIZE // 3] = 1
+    engine_ms = {}
+    for label, path in (("phase_weights", shipped),
+                        ("shipped", WEIGHTS_DIR / "latent_diffusion.npz")):
+        if not Path(path).exists():
+            engine_ms[label] = None
+            continue
+        inp = LatentInpainter(str(path), device=dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: inp.inpaint(imgs_t, holes, LD_SERVE_STEPS),
+                         3, warmup=1)
+        engine_ms[label] = ms
+        if label == "phase_weights":
+            with torch.inference_mode():
+                prof_ld = profile_window(lambda: inp.inpaint(
+                    imgs_t, holes, LD_SERVE_STEPS), 1)
+        del inp
+    log("timing_diffusion_engine", batch=BATCH, size=SIZE,
+        ddim_steps=LD_SERVE_STEPS, ms=engine_ms,
+        img_per_s=BATCH / (engine_ms["phase_weights"] / 1e3),
+        kernel_launches_a_call=prof_ld["kernel_launches"],
+        device_busy_share=prof_ld["device_busy_share"])
+    log("profile_diffusion_engine", **prof_ld)
+    timing = {**{f"gan_{k}": v for k, v in gan.items()},
+              "train_inpaint_wall_s": train_s,
+              "train_latent_diffusion_wall_s": ld_s,
+              "diffusion_engine_ms": engine_ms,
+              "diffusion_engine_img_per_s": BATCH / (
+                  engine_ms["phase_weights"] / 1e3),
+              "diffusion_engine_kernel_launches": prof_ld["kernel_launches"],
+              "phase_s": time.perf_counter() - t_phase}
+    return {"timing": timing,
+            "launches": {"trained_lama": lama_launches,
+                         "diffusion": ld_launches}}
 
 
 def main(argv=None) -> int:
@@ -2186,6 +2615,8 @@ def main(argv=None) -> int:
                                fused_l, images_d, args.seed, dev)
         # -- 3h: the train command -----------------------------------------
         training = training_phase(work, args.seed, dev)
+        # -- 3i: the fill trainers -----------------------------------------
+        fill = fill_training_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2311,6 +2742,7 @@ def main(argv=None) -> int:
     log("timing_repair_cli_ocr", **ocr_timing, card=card)
     log("timing_int8_tier", **int8["timing"], card=card)
     log("timing_train", **training["timing"], card=card)
+    log("timing_fill_training", **fill["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -2364,6 +2796,10 @@ def main(argv=None) -> int:
             "repair_cli_ocr_launches": ocr_timing["launches"][fn.__name__],
             "repair_cli_jpeg_launches": jpeg_timing["launches"][fn.__name__],
             "trained_weights_launches": training["launches"][fn.__name__],
+            "trained_lama_launches":
+                fill["launches"]["trained_lama"][fn.__name__],
+            "diffusion_repair_launches":
+                fill["launches"]["diffusion"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

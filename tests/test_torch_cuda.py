@@ -466,3 +466,74 @@ def test_quantize_on_card_equals_cpu(cuda, dtype):
         cpu, _ = quant.quantize_activation(x, amax)
         card, _ = quant.quantize_activation(x.to(cuda), amax)
         assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["fp32", "fp64"])
+def test_gan_step_on_card_matches_cpu(cuda, no_tf32, dtype):
+    """One G + D step of the full-width inpainting trainer from the same
+    init on the card and on the CPU (2 x 64², the same images and masks),
+    TF32 off. float32: the losses to rel 1e-4, the running statistics to
+    1e-4, the stepped parameters to Adam's 2·lr (the float32 gradients
+    carry rounding of up to ~14 % of a tensor's largest through BatchNorm
+    at init: not held). float64 (the FFTs too; the feature matching casts
+    to float32 as JAX's does): each gradient to 1e-6 of its tensor's
+    largest (observed 5.3e-8), a floor of
+    1e-12 for the biases before the discriminator's InstanceNorms, which
+    get no gradient."""
+    from unet_watermark_tpu_torch.training import train_inpaint as ti
+
+    x = torch.from_numpy(np.random.default_rng(11).random(
+        (2, 64, 64, 3))).to(dtype)
+    masks = ti.random_mask_batch(torch.Generator().manual_seed(11), 2, 64,
+                                 "cpu").to(dtype)
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        tr = ti.build_trainer(seed=0, device=dev, compute_dtype=None)
+        tr = ti.InpaintTrainer(tr.model.to(dtype), tr.disc.to(dtype),
+                               compute_dtype=None)
+        gl, fake, g = tr.g_loss_grads(x.to(dev), masks.to(dev), True)
+        dl, dg = tr.d_loss_grads(x.to(dev), fake)
+        # a copy: the optimizer clips the gradients in place
+        grads = [t.detach().cpu().clone() for t in g + dg]
+        tr.opt.step(g)
+        tr.d_opt.step(dg)
+        got.append((float(gl), float(dl), grads, tr.weights()))
+    (gl, dl, g, w), (gl_c, dl_c, g_c, w_c) = got
+    assert gl == pytest.approx(gl_c, rel=1e-4)
+    assert dl == pytest.approx(dl_c, rel=1e-4)
+    if dtype == torch.float64:
+        for a, b in zip(g, g_c):
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max() + 1e-12
+        return
+    for k, v in w_c.items():
+        tol = 1e-4 if k.startswith("batch_stats/") else 2 * 2e-4 + 1e-6
+        assert np.abs(w[k] - v).max() <= tol, k
+
+
+def test_ddim_sampler_fp32_on_card_matches_cpu(cuda, no_tf32, tmp_path):
+    """The float32 latent-diffusion fill with flax-initialized weights
+    (written as the shipped format; copies of the tree may lack the
+    shipped file), 4 DDIM steps at 1 x 64² with the same noise, card
+    against CPU: max abs 1e-3 (chip_smoke.py's 3i observed 2.5e-6 with
+    trained weights); pixels outside the mask the input's on both."""
+    from unet_watermark_tpu_torch.diffusion.latent_diffusion import (
+        LatentInpainter, init_ld_modules, ld_weights)
+    from unet_watermark_tpu_torch.utils.shipping import save_params_npz
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.random((1, 64, 64, 3)).astype(np.float32))
+    m = torch.zeros(1, 64, 64, 1)
+    m[:, 12:40, 20:52] = 1
+    g = torch.Generator().manual_seed(12)
+    z = torch.randn(1, 8, 8, 4, generator=g)
+    noise = torch.randn(4, 1, 8, 8, 4, generator=g)
+    path = save_params_npz(tmp_path / "ld.npz",
+                           ld_weights(*init_ld_modules(12)))
+    outs = [LatentInpainter(path, device=dev, dtype=None).sample(
+        x.to(dev), m.to(dev), z.to(dev), noise.to(dev)).cpu()
+        for dev in (cuda, torch.device("cpu"))]
+    assert (outs[0] - outs[1]).abs().max() <= 1e-3
+    keep = (m == 0).expand_as(x)
+    for out in outs:
+        assert torch.equal(out[keep], x[keep])

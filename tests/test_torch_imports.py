@@ -35,7 +35,11 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.training.state",
         "unet_watermark_tpu_torch.training.checkpoint",
         "unet_watermark_tpu_torch.training.train",
-        "unet_watermark_tpu_torch.utils.async_ckpt"]
+        "unet_watermark_tpu_torch.utils.async_ckpt",
+        "unet_watermark_tpu_torch.training.train_inpaint",
+        "unet_watermark_tpu_torch.training.train_latent_diffusion",
+        "unet_watermark_tpu_torch.diffusion",
+        "unet_watermark_tpu_torch.diffusion.latent_diffusion"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """
@@ -69,7 +73,7 @@ def _run(code_or_args, cwd, timeout=120):
 def test_port_imports_nothing_of_jax():
     proc = _run(IMPORT_ALL.format(blocked=BLOCKED, must=MUST), REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 53  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 57  # every module was imported
 
 
 def test_chip_smoke_fails_without_a_card():

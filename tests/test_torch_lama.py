@@ -331,8 +331,21 @@ def test_resolve_defaults_only_if_on_disk(tmp_path, monkeypatch):
     (tmp_path / "weights" / "lama_ffc").mkdir(parents=True)
     assert shipping.resolve("inpaint") == str(tmp_path / "weights" /
                                               "lama_ffc")
+    # the diffusion kind as JAX resolves it, in the same directories
+    monkeypatch.delenv("DIFFUSION_WEIGHTS", raising=False)
+    monkeypatch.setattr(jshipping, "weights_dir",
+                        lambda: str(tmp_path / "weights"))
+    monkeypatch.setattr(jshipping, "_repo_root", lambda: str(tmp_path))
+    assert shipping.resolve("diffusion") is None
+    assert jshipping.resolve("diffusion") is None
+    (tmp_path / "models" / "latent_diffusion").mkdir(parents=True)
+    assert shipping.resolve("diffusion") == jshipping.resolve(
+        "diffusion") == str(tmp_path / "models" / "latent_diffusion")
+    (tmp_path / "weights" / "latent_diffusion.npz").write_bytes(b"")
+    assert shipping.resolve("diffusion") == jshipping.resolve(
+        "diffusion") == str(tmp_path / "weights" / "latent_diffusion.npz")
     with pytest.raises(ValueError, match="unknown weights kind"):
-        shipping.resolve("diffusion")
+        shipping.resolve("sd3")
 
 
 @pytest.mark.parametrize("variant", ["lama", "big-lama", "mat"])
@@ -392,16 +405,18 @@ def test_get_engine_lama_and_pushpull(generator32, monkeypatch):
                                   pushpull.numpy())
 
 
-def test_get_engine_refuses_what_is_not_ported(tmp_path):
-    """A torch checkpoint JAX would import, and the diffusion engine, raise
-    NotImplementedError naming ROADMAP.md: never a silent push-pull."""
+def test_get_engine_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A torch checkpoint JAX would import raises NotImplementedError
+    naming ROADMAP.md: never a silent push-pull. The three diffusion names
+    give the latent-diffusion engine with the shipped weights."""
     ckpt = tmp_path / "big-lama.ckpt"
     ckpt.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         engines.get_engine("big-lama", str(ckpt), device="cpu")
+    monkeypatch.delenv("DIFFUSION_WEIGHTS", raising=False)
     for name in ("diffusion", "latent-diffusion", "ld"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            engines.get_engine(name, device="cpu")
+        assert engines.get_engine(name, device="cpu").name == \
+            "latent-diffusion"
     with pytest.raises(ValueError, match="unknown inpaint engine"):
         engines.get_engine("photoshop", device="cpu")
     if not torch.cuda.is_available():

@@ -7,9 +7,13 @@ Every engine has one interface:
   * "pushpull" / "fast" / "telea" — ops/inpaint.py's multiscale fill (no
     weights needed; the fallback)
   * "lama" / "big-lama" / "mat" — models/lama.py's FFC generator with
-    the shipped (or given) trained weights; push-pull with a warning when
-    no weights resolve
-  * "diffusion" — not ported yet (ROADMAP.md §A.8)
+    the shipped (or given) trained weights: a shipped-format .npz or the
+    checkpoint directory training/train_inpaint.py writes; push-pull with
+    a warning when no weights resolve
+  * "diffusion" / "latent-diffusion" / "ld" — the latent-diffusion
+    inpainter (diffusion/latent_diffusion.py) with the shipped (or
+    DIFFUSION_WEIGHTS, or given) weights, 20 DDIM steps; push-pull with a
+    warning when no weights resolve
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from ..models.convert import load_lama_weights
 from ..models.lama import LamaGenerator, create_lama
 from ..ops.inpaint import inpaint_pushpull
 from ..utils.device import resolve_device
-from ..utils.shipping import load_npz, resolve
+from ..training.checkpoint import read_weights
+from ..utils.shipping import resolve
 
 logger = logging.getLogger(__name__)
 
@@ -33,7 +38,8 @@ Engine = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 def load_lama(path, variant: str = "lama", device="cuda",
               dtype: torch.dtype = torch.bfloat16
               ) -> Tuple[Optional[LamaGenerator], Optional[str]]:
-    """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping) into
+    """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping, or a
+    port checkpoint directory: training/checkpoint.read_weights) into
     whichever variant's parameters it matches: the requested depth first,
     then 'lama', then 'big-lama' (a checkpoint trained as one variant
     serves the other engine names too). Returns (model in eval mode on
@@ -50,11 +56,7 @@ def load_lama(path, variant: str = "lama", device="cuda",
             f"{path}: the public big-lama torch checkpoint goes through the "
             f"JAX package's models/lama_import.py, which is not ported yet "
             f"(ROADMAP.md §A.8)")
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax training checkpoints are not ported yet "
-            f"(ROADMAP.md §A.7); export the weights as .npz")
-    flat = load_npz(path)
+    flat = read_weights(path)  # an orbax directory raises (§A.7)
     for cand in dict.fromkeys((variant, "lama", "big-lama")):
         with torch.device("meta"):  # shapes only: the weights replace them
             model = create_lama(cand, torch.float32)
@@ -115,6 +117,24 @@ def _make_lama_engine(variant: str, weights_path: Optional[str],
     return _on(device, model, f"ffc-{cand}")
 
 
+def _make_diffusion_engine(weights_path: Optional[str],
+                           device: torch.device) -> Engine:
+    """The latent-diffusion inpainter as an engine; push-pull with a
+    warning when no trained weights resolve. As in the JAX package, the
+    weights come from `weights_path`, DIFFUSION_WEIGHTS or the shipped
+    file, not from the config."""
+    from ..diffusion.latent_diffusion import LatentInpainter
+
+    try:
+        inpainter = LatentInpainter(weights_path, device=device)
+    except FileNotFoundError:
+        logger.warning(
+            "no trained weights for the diffusion engine — falling back "
+            "to pushpull (train with training/train_latent_diffusion.py)")
+        return _pushpull(device)
+    return _on(device, inpainter.inpaint, "latent-diffusion")
+
+
 def get_engine(name: str = "pushpull", weights_path: Optional[str] = None,
                cfg=None, device: str = "cuda") -> Engine:
     """The engine `name` on `device` ("cuda" unless the caller asks for
@@ -127,7 +147,5 @@ def get_engine(name: str = "pushpull", weights_path: Optional[str] = None,
         return _make_lama_engine(name, resolve_inpaint_weights(
             weights_path, cfg), dev)
     if name in ("diffusion", "latent-diffusion", "ld"):
-        raise NotImplementedError(
-            f"inpaint engine '{name}' (the latent-diffusion inpainter) is "
-            f"not ported yet (ROADMAP.md §A.8)")
+        return _make_diffusion_engine(weights_path, dev)
     raise ValueError(f"unknown inpaint engine '{name}'")

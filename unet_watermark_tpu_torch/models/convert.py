@@ -12,20 +12,32 @@ JAX package, copied) → the port's state_dict.
   params/decoder/final_block/convJ/bn  → decoder.final_block.convJ.1
   params/segmentation_head/conv        → segmentation_head.0
 
-and the FFC-LaMa generator's (models/lama.py; lama_torch_name):
+and the FFC-LaMa generator's and discriminator's (models/lama.py;
+lama_torch_name):
 
   params/stem/kernel                   → stem.weight
   params/block{i}/ffc1/g2g/reduce/...  → blocks.{i}.ffc1.g2g.reduce....
   params/up{i}/kernel                  → up{i}.weight (ConvTranspose2d)
+  params/conv{i}/{kernel,bias}         → conv{i}.{weight,bias} (PatchGAN)
+  params/norm{i}/{scale,bias}          → norm{i}.{weight,bias} (GroupNorm)
+  params/head/{kernel,bias}            → head.{weight,bias}
 
-A conv kernel goes HWIO → OIHW. A ConvTranspose2d kernel goes (kh, kw, in,
-out) → (in, out, kh, kw), flipped in both spatial axes: flax's
-ConvTranspose (transpose_kernel=False) convolves the dilated input with
-the kernel as it is, torch's with the kernel flipped.
+and the latent-diffusion models' (diffusion/latent_diffusion.py; ld_torch_name,
+keys without a collection, as that .npz holds them):
+
+  ae/enc/down0/kernel                  → ae.enc.down0.weight
+  denoiser/down0a/emb/kernel           → denoiser.down0a.emb.weight (Dense)
+
+A conv kernel goes HWIO → OIHW, a dense kernel (in, out) → (out, in). A
+ConvTranspose2d kernel goes (kh, kw, in, out) → (in, out, kh, kw), flipped
+in both spatial axes: flax's ConvTranspose (transpose_kernel=False)
+convolves the dilated input with the kernel as it is, torch's with the
+kernel flipped.
 
 flax_name inverts torch_name, and to_flax takes a segmentation model's
 state_dict back to flat flax weights (OIHW → HWIO), the tree a trained
-model is saved as (utils/shipping.save_params_npz).
+model is saved as (utils/shipping.save_params_npz); module_to_flax does
+the same for the LaMa and latent-diffusion modules by module type.
 """
 from __future__ import annotations
 
@@ -134,6 +146,56 @@ def lama_torch_name(flax_key: str) -> str:
     return ".".join(segs) + "." + leaf
 
 
+def lama_flax_path(module_name: str) -> str:
+    """'blocks.3.ffc1.g2g.reduce' → 'block3/ffc1/g2g/reduce'."""
+    return re.sub(r"^blocks\.(\d+)", r"block\1", module_name).replace(
+        ".", "/")
+
+
+def ld_torch_name(flax_key: str) -> str:
+    """'denoiser/down0a/emb/kernel' → 'denoiser.down0a.emb.weight'."""
+    parts, leaf = _path_and_leaf("params/" + flax_key)
+    return ".".join(parts) + "." + leaf
+
+
+def ld_flax_path(module_name: str) -> str:
+    return module_name.replace(".", "/")
+
+
+_NORMS = (nn.BatchNorm2d, nn.GroupNorm)
+
+
+def module_to_flax(model: nn.Module, path_fn: Callable[[str], str],
+                   params: str = "params/", stats: str = "batch_stats/"
+                   ) -> Dict[str, np.ndarray]:
+    """`model`'s parameters and running statistics as flat flax float32
+    arrays, named by module type: a conv, transposed conv or dense
+    weight is a kernel (laid out as flax lays it), a norm's weight a
+    scale; `path_fn` maps a module's name to its flax path. The inverse
+    of load_flax_weights with the matching name map."""
+    out = {}
+    for mname, mod in model.named_modules():
+        leaves = dict(mod.named_parameters(recurse=False))
+        leaves.update((k, v) for k, v in mod.named_buffers(recurse=False)
+                      if k.startswith("running_"))
+        for leaf, t in leaves.items():
+            arr = t.detach().float().cpu().numpy()
+            if leaf == "weight" and isinstance(mod, nn.ConvTranspose2d):
+                arr = np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1))
+            elif leaf == "weight" and isinstance(mod, nn.Linear):
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = np.transpose(arr, (2, 3, 1, 0))
+            if leaf.startswith("running_"):
+                key = f"{stats}{path_fn(mname)}/{leaf[len('running_'):]}"
+            else:
+                name = "bias" if leaf == "bias" else (
+                    "scale" if isinstance(mod, _NORMS) else "kernel")
+                key = f"{params}{path_fn(mname)}/{name}"
+            out[key] = np.ascontiguousarray(arr)
+    return out
+
+
 def to_state_dict(flat: Dict[str, np.ndarray], model: nn.Module,
                   name_fn: Callable[[str], str] = torch_name
                   ) -> Dict[str, torch.Tensor]:
@@ -147,6 +209,8 @@ def to_state_dict(flat: Dict[str, np.ndarray], model: nn.Module,
     target = model.state_dict()
     transposed = {f"{m}.weight" for m, mod in model.named_modules()
                   if isinstance(mod, nn.ConvTranspose2d)}
+    dense = {f"{m}.weight" for m, mod in model.named_modules()
+             if isinstance(mod, nn.Linear)}
     out = {}
     for key, arr in flat.items():
         name = name_fn(key)
@@ -156,6 +220,8 @@ def to_state_dict(flat: Dict[str, np.ndarray], model: nn.Module,
             raise KeyError(f"two weights map to '{name}'")
         if name in transposed:  # (kh, kw, in, out) → (in, out, kh, kw)
             arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        elif name in dense:  # (in, out) → (out, in)
+            arr = arr.T
         elif arr.ndim == 4:  # conv HWIO → OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
         # a copy: the model's tensors must not share memory with the

@@ -79,15 +79,19 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Fresh parameters from the distributions of the JAX package's
-    init_model: every conv kernel lecun_normal (fan_in = kh·kw·cin), conv
-    biases zero, BatchNorm scale 1 and bias 0, running mean 0 and var 1.
-    The draws come from a torch.Generator seeded with `seed` (they cannot
-    equal jax.random's)."""
+    """Fresh parameters from the distributions of flax's defaults, as the
+    JAX package's init_model and init_lama draw them: every conv,
+    transposed conv and dense kernel lecun_normal (fan_in = kh·kw·cin, or
+    the dense layer's inputs), biases zero, BatchNorm and GroupNorm scale 1
+    and bias 0, running mean 0 and var 1. The draws come from a
+    torch.Generator seeded with `seed` (they cannot equal jax.random's)."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # ConvTranspose2d's weight is (cin, cout, kh, kw)
+            fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d)
+                      else mod.weight[0].numel())
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             w = torch.empty(mod.weight.shape)
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
@@ -95,7 +99,7 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
             mod.reset_parameters()
     return model
 

@@ -10,7 +10,17 @@
 
 NHWC in and out at the public boundary, as the JAX module; inside NCHW (a
 permuted NHWC tensor is channels-last in memory, which cuDNN takes as it
-is). Convs run in the model dtype; the spectral path runs in float32.
+is). Convs run in the model dtype; the spectral path, the sigmoid and the
+discriminator's logits run in float32 (in float64 where the model is
+float64, as checks run it; the JAX package casts them to float32 in
+any dtype).
+Serving casts the model to bf16 (create_lama); training keeps float32
+parameters and runs the convs under bf16 autocast, flax's dtype /
+param_dtype split (training/train_inpaint.py). The BatchNorms are
+encoders.BatchNorm2d: in training their running variance follows flax's
+(the biased batch variance), not torch's.
+
+LamaDiscriminator is the PatchGAN the generator trains against.
 
 The JAX package computes the orthonormal 2D DFT as dense matmuls because
 its TPU runtime has no FFT; here it is torch.fft (cuFFT on the card), the
@@ -27,26 +37,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .encoders import BN_EPS
+from .encoders import BatchNorm2d
 
 # engine name → number of FFC blocks; 'mat' maps to big-lama as in JAX
 VARIANTS = {"lama": 9, "big-lama": 18, "mat": 18}
+GN_EPS = 1e-6  # flax.linen.GroupNorm's epsilon (torch's default is 1e-5)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in float64 where it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def dft2(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Orthonormal 2D DFT over the last two axes (H, W of NCHW), in
-    float32. Returns (real, imag)."""
-    f = torch.fft.fft2(x.float(), norm="ortho")
+    float32 (float64 for a float64 x). Returns (real, imag)."""
+    f = torch.fft.fft2(_f32(x), norm="ortho")
     return f.real, f.imag
 
 
 def idft2_real(real: torch.Tensor, imag: torch.Tensor) -> torch.Tensor:
     """Real part of the orthonormal inverse 2D DFT over the last two axes."""
-    return torch.fft.ifft2(torch.complex(real.float(), imag.float()),
+    return torch.fft.ifft2(torch.complex(_f32(real), _f32(imag)),
                            norm="ortho").real
 
 
@@ -68,7 +84,7 @@ class SpectralTransform(nn.Module):
         y = F.relu(self.reduce_bn(self.reduce(x)))
         fr_r, fr_i = dft2(y)
         fr = torch.cat([fr_r, fr_i], dim=1).to(dtype)
-        fr = F.relu(self.fourier_bn(self.fourier_conv(fr))).float()
+        fr = _f32(F.relu(self.fourier_bn(self.fourier_conv(fr))))
         half = fr.shape[1] // 2
         y2 = idft2_real(fr[:, :half], fr[:, half:]).to(dtype)
         return self.project(y2)
@@ -147,8 +163,39 @@ class LamaGenerator(nn.Module):
         for i in range(3):
             x = F.relu(getattr(self, f"up{i}_bn")(getattr(self, f"up{i}")(x)))
         x = self.head(F.pad(x, (3, 3, 3, 3), mode="reflect"))
-        out = torch.sigmoid(x.float()).permute(0, 2, 3, 1)
+        out = torch.sigmoid(_f32(x)).permute(0, 2, 3, 1)
         return out * mask + image * (1.0 - mask)
+
+
+class LamaDiscriminator(nn.Module):
+    """PatchGAN discriminator (models/lama.py:223-250 in the JAX package):
+    four 4x4 convs with bias and padding 1 at strides 2, 2, 2, 1 to base,
+    2, 4 and 8 x base channels, InstanceNorm (flax's GroupNorm with one
+    channel a group, affine, epsilon 1e-6) after convs 1-3, leaky_relu
+    0.2, and a 4x4 head to one channel. NHWC in; returns (float32 patch
+    logits NHWC, the four feature maps NCHW)."""
+
+    def __init__(self, base: int = 64):
+        super().__init__()
+        cin = 3
+        for i, ch in enumerate((base, base * 2, base * 4, base * 8)):
+            setattr(self, f"conv{i}", nn.Conv2d(cin, ch, 4, 2 if i < 3
+                                                else 1, 1))
+            if i > 0:
+                setattr(self, f"norm{i}", nn.GroupNorm(ch, ch, eps=GN_EPS))
+            cin = ch
+        self.head = nn.Conv2d(cin, 1, 4, 1, 1)
+
+    def forward(self, x):
+        y = x.permute(0, 3, 1, 2).to(self.conv0.weight.dtype)
+        feats = []
+        for i in range(4):
+            y = getattr(self, f"conv{i}")(y)
+            if i > 0:
+                y = getattr(self, f"norm{i}")(y)
+            y = F.leaky_relu(y, 0.2)
+            feats.append(y)
+        return _f32(self.head(y)).permute(0, 2, 3, 1), feats
 
 
 def create_lama(variant: str = "lama", dtype: torch.dtype = torch.bfloat16

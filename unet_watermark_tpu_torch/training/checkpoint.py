@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.convert import flax_name
+from ..utils.shipping import load_npz
 
 logger = logging.getLogger(__name__)
 
@@ -82,9 +83,13 @@ def save_checkpoint(directory: str, name: str, state, meta: Dict[str, Any]
 
 
 def _require_port_checkpoint(path: str) -> str:
+    """The tree.npz of the port's checkpoint directory `path`. A directory
+    without one is taken for an orbax checkpoint of the JAX package (its
+    training checkpoints hold a tree/ folder, train_inpaint's and
+    train_latent_diffusion's the orbax files themselves) and raises."""
     tree = os.path.join(path, "tree.npz")
     if not os.path.exists(tree):
-        if os.path.isdir(os.path.join(path, "tree")):
+        if os.path.isdir(path):
             raise NotImplementedError(
                 f"{path}: an orbax checkpoint of the JAX package; the port "
                 f"reads its own tree.npz checkpoints and shipped .npz "
@@ -104,6 +109,20 @@ def restore_raw(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         with open(meta_path) as f:
             meta = json.load(f)
     return tree, meta
+
+
+def read_weights(path: str) -> Dict[str, np.ndarray]:
+    """Flat flax weights from a shipped-format .npz or from the tree.npz
+    of a port checkpoint directory (its params/ and batch_stats/ entries
+    where it has them, else every array but the step). An orbax directory
+    raises naming ROADMAP.md §A.7."""
+    if not os.path.isdir(path):
+        return load_npz(path)
+    tree, _ = restore_raw(path)
+    weights = {k: v for k, v in tree.items()
+               if k.startswith(("params/", "batch_stats/"))}
+    return weights or {k: v for k, v in tree.items()
+                       if k != "step" and not k.startswith("opt_state/")}
 
 
 @torch.no_grad()

@@ -37,7 +37,7 @@ from ..ops import augment as aug
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
 from ..utils.async_ckpt import AsyncSaver
-from ..utils.device import resolve_device
+from ..utils.device import compute_autocast, resolve_device
 from ..utils.shipping import load_npz, save_params_npz, seg_weights_filename
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
                          save_checkpoint, snapshot)
@@ -64,8 +64,8 @@ def _autocast(cfg, device: torch.device):
     """bf16 compute over fp32 parameters where MODEL.DTYPE is bfloat16
     (flax's dtype/param_dtype split); nothing for float32."""
     dtype = torch_dtype(cfg.MODEL.DTYPE)
-    return torch.autocast(device.type, dtype=dtype,
-                          enabled=dtype != torch.float32)
+    return compute_autocast(device, None if dtype == torch.float32
+                            else dtype)
 
 
 def _masked(logits, masks, valid):

@@ -6,7 +6,7 @@
 Phases, each printing its own line:
   0  versions, and the card's name and power limit (nvidia-smi)
   1  build the native sources (nvcc → .so for each .cu, cc for the JPEG
-     entropy decoder; all compiler calls started together; ctypes) and
+     entropy coder; all compiler calls started together; ctypes) and
      report the build time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
@@ -75,7 +75,7 @@ Phases, each printing its own line:
      mask, text mask), that is repainted by step 2 or step 4 (step 3 sees
      step 2's files, in which the LaMa fill has already removed the part
      of a line that step 1 masked; each line's cover by each mask is
-     logged). Then the command again with each stage timed,
+     logged). The command runs once, each stage timed;
      _enhance_text_features on a 1080 x 1920 image on the card equal to
      the CPU's (timed whole, and split into its parts by events in one
      run whose parts add up to that run's total), and
@@ -97,8 +97,8 @@ Phases, each printing its own line:
      "success", engine "ffc-lama", no engine or OCR failure, K1 and K2
      launched by its step 1, masks and finals at each image's upright
      size, step 2's pixels outside the step-1 mask equal to the decoded
-     input. Then the command again with each stage timed (the decode
-     stage's entropy and pixel parts apart), --no-unet on 4 of the files
+     input. The command runs once, each stage timed (the decode stage's
+     entropy and pixel parts apart); --no-unet on 4 of the files
      (steps 3-4 read the JPEGs copied under .png names), and the decode of
      a 1080 x 1920 baseline, a progressive and the phone file timed by
      part
@@ -154,6 +154,21 @@ Phases, each printing its own line:
      the CPU (1 x 64², 4 steps, the same noise); the engine's 20-step
      fill of 8 x 512² timed with these weights and, where the tree has
      it, the shipped latent_diffusion.npz, and its kernel launches
+  3j the `auto` command as users type it (`cli.main(["auto", ...])`, one
+     cycle, the default configuration with the yaml at full width:
+     UNet++/resnet34, 512², batch 8, bf16, 1 epoch) reusing the earlier
+     phases: 3h's folder as the training folder and the held-out triads
+     (32), 3h's 4 checkpoints in the loop's checkpoint folder, 8 of 3d's
+     files as the test folder, 3i's clean folder and 3 RGBA logos for
+     step 5. Checks: rc 0 and status "success"; step 1 one vmapped forward
+     over the 4 checkpoints, and the vmapped probabilities within twice
+     the bf16 forward's own error (each checkpoint's bf16 forward against
+     its float32 one, max over pixels) of each checkpoint's own bf16
+     forward, their masks agreeing on >= AUTO_VMAP_AGREE; step 5's files
+     on the card equal byte for byte to the same generation on the host;
+     the video's MP4 boxes parsed, 8 x 15 samples and 8 sync samples; the held-out evaluation over 32
+     triads; K1 and K2 launched by the cycle. Logs each step's seconds,
+     gen_data samples/s on the card and on the host, and video frames/s
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -849,10 +864,11 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
         raise AssertionError(f"the builtin detector on the card covers the "
                              f"drawn lines {recall}")
 
-    # (a) the command as users type it
+    # the command as users type it, once, each stage timed (one run since
+    # phase 3j: the untimed run before it bought 3j its time)
     kc.reset_launch_counts()
-    rc, wall_cold, _ = run_cli(argv + ["--output", str(work / "out_ocr")],
-                               dev, timer=False)
+    rc, wall_timed, split = run_cli(
+        argv + ["--output", str(work / "out_ocr")], dev, timer=True)
     launches = {k.__name__: k.launches for k in kc.KERNELS}
     if rc != 0:
         raise AssertionError(f"repair (OCR on) exited {rc}")
@@ -867,14 +883,9 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
         text_lines={k: [list(b) for b in v] for k, v in text_boxes.items()},
         detector_line_coverage_as_written=recall, **checks,
         final_keep_step2_outside_text_mask=True)
-    # (b) again, each stage timed
-    rc, wall_timed, split = run_cli(
-        argv + ["--output", str(work / "out_ocr2")], dev, timer=True)
-    if rc != 0:
-        raise AssertionError(f"repair (OCR on, timed) exited {rc}")
     n = len(sizes)
 
-    # (c) the text surfaces: _enhance_text_features on a 1080 x 1920 image,
+    # the text surfaces: _enhance_text_features on a 1080 x 1920 image,
     # and predict_mask's text type in float32, card against CPU
     cfg = get_cfg_defaults()
     cfg.MODEL.DTYPE = "float32"
@@ -935,7 +946,6 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
         raise AssertionError(f"predict_mask text: card and CPU agree on "
                              f"{agree:.5f} of pixels")
     return {"images": n, "text_images": len(text_boxes),
-            "wall_cold_s": wall_cold, "img_per_s_cold": n / wall_cold,
             "wall_timed_s": wall_timed, "img_per_s_timed": n / wall_timed,
             "split_s": {k: split.get(k, 0.0) for k in STAGES},
             "other_s": wall_timed - sum(split.values()),
@@ -1157,13 +1167,22 @@ def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
     if device != "cuda":  # the flag's default
         argv += ["--device", device]
 
-    # (a) the command as users type it
+    # the command as users type it, once, each stage timed (the decode
+    # stage's JPEG parts apart) with the card's peak allocation over the
+    # run (one run since phase 3j: the untimed run before it bought 3j its
+    # time)
     kc.reset_launch_counts()
-    rc, wall_cold, _ = run_cli(argv + ["--output", str(work / "out_jpeg")],
-                               dev, timer=False)
+    parts = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rc, wall_timed, split = run_cli(
+        argv + ["--output", str(work / "out_jpeg")], dev, timer=True,
+        parts=parts)
     launches = {k.__name__: k.launches for k in kc.KERNELS}
     if rc != 0:
         raise AssertionError(f"repair (JPEG folder) exited {rc}")
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20 \
+        if dev.type == "cuda" else None
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"the JPEG run's step 1 never launched "
@@ -1178,19 +1197,7 @@ def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
         write_folder_s=write_s, card_route_equals_plain=True,
         plain_entropy_s=routes["plain_entropy_s"], **checks,
         repaired_keep_unmasked_bytes=True)
-    # (b) again, each stage timed; the decode stage's JPEG parts apart,
-    # and the card's peak allocation over the run
-    parts = {}
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    rc, wall_timed, split = run_cli(
-        argv + ["--output", str(work / "out_jpeg2")], dev, timer=True,
-        parts=parts)
-    if rc != 0:
-        raise AssertionError(f"repair (JPEG folder, timed) exited {rc}")
-    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20 \
-        if dev.type == "cuda" else None
-    # (c) --no-unet: each file copied to step 2's folder as {stem}.png,
+    # --no-unet: each file copied to step 2's folder as {stem}.png,
     # which steps 3 and 4 read as the JPEG it is
     sub = work / "in_jpeg_no_unet"
     sub.mkdir()
@@ -1217,8 +1224,7 @@ def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
             "ocr_engine_used", "ocr_failures")})
     n = len(files)
     return {"images": n, "jpeg_decode_ms": jpeg_decode_ms(files, dev),
-            "wall_cold_s": wall_cold,
-            "img_per_s_cold": n / wall_cold, "wall_timed_s": wall_timed,
+            "wall_timed_s": wall_timed,
             "img_per_s_timed": n / wall_timed,
             "split_s": {k: split.get(k, 0.0) for k in STAGES},
             "decode_parts_s": parts, "peak_alloc_mib": peak_mib,
@@ -2272,6 +2278,227 @@ def fill_training_phase(work: Path, seed: int, dev) -> dict:
                          "diffusion": ld_launches}}
 
 
+# phase 3j: the `auto` loop's test folder (the first files of 3d's
+# folder), its logos, its held-out limit, the video's frames an image
+# (1.0 s at 15 fps, the loop's VideoGenerator), and the bf16 tolerance of
+# the vmapped forward against each checkpoint's own
+AUTO_TEST_FILES, AUTO_LOGOS, AUTO_HELDOUT = 8, 3, 32
+AUTO_FRAMES_AN_IMAGE = int(1.0 * 15)
+AUTO_VMAP_AGREE = 0.999
+
+
+def mp4_boxes(data: bytes, start: int = 0, end: int = None) -> list:
+    """(kind, offset of the body, size of the body) of each box in
+    data[start:end], raising where a size runs past the end."""
+    end = len(data) if end is None else end
+    out, pos = [], start
+    while pos < end:
+        size, kind = int.from_bytes(data[pos:pos + 4], "big"), \
+            data[pos + 4:pos + 8].decode("latin-1")
+        if size < 8 or pos + size > end:
+            raise AssertionError(f"box {kind!r} at {pos}: size {size}")
+        out.append((kind, pos + 8, size - 8))
+        pos += size
+    return out
+
+
+def mp4_sample_count(path: Path) -> tuple:
+    """(top-level box kinds, the video track's stsz sample count, its stss
+    count) of an MP4 file, every box on the way parsed."""
+    data = path.read_bytes()
+    top = mp4_boxes(data)
+    box = {k: (o, n) for k, o, n in top}
+
+    def child(parent, kind):
+        o, n = parent
+        for k, co, cn in mp4_boxes(data, o, o + n):
+            if k == kind:
+                return co, cn
+        raise AssertionError(f"no {kind} box")
+
+    stbl = child(child(child(child(box["moov"], "trak"), "mdia"), "minf"),
+                 "stbl")
+    stsz, stss = child(stbl, "stsz"), child(stbl, "stss")
+    count = int.from_bytes(data[stsz[0] + 8:stsz[0] + 12], "big")
+    sync = int.from_bytes(data[stss[0] + 4:stss[0] + 8], "big")
+    return [k for k, _, _ in top], count, sync
+
+
+def auto_phase(work: Path, seed: int, dev, test_files=AUTO_TEST_FILES,
+               heldout=AUTO_HELDOUT, device="cuda") -> dict:
+    """Phase 3j: the `auto` command as users type it (one cycle, the
+    default configuration with the yaml, epochs 1) on the card, reusing
+    the earlier phases: 3h's folder as the training folder and the
+    held-out triads, 3h's checkpoints in the loop's checkpoint folder (step
+    1 chooses among them in one vmapped forward), the first files of 3d's
+    folder as the test folder, 3i's clean folder with RGBA logos
+    (utils/synthetic.logo_images) for step 5. Checks: rc 0 and the cycle's
+    status "success", step 1's forward vmapped over >= 2 checkpoints and
+    equal to each checkpoint's own forward within the bf16 tolerance,
+    step 5's files on the card equal byte for byte to the same generation
+    on the host, the MP4's boxes parsed with images x 15 samples, K1 and K2
+    launched by the cycle. Returns the timing fields and the launches."""
+    import copy
+
+    import torch
+    from unet_watermark_tpu_torch import cli
+    from unet_watermark_tpu_torch.configs import DEFAULT_CONFIG
+    from unet_watermark_tpu_torch.data import gen_data
+    from unet_watermark_tpu_torch.ops.augment import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.ops.resize import resize_linear_u8
+    from unet_watermark_tpu_torch.scripts import model_selector as ms
+    from unet_watermark_tpu_torch.training import auto_train as at
+    from unet_watermark_tpu_torch.utils import image_io
+    from unet_watermark_tpu_torch.utils.synthetic import logo_images
+
+    t_phase = time.perf_counter()
+    root = work / "auto"
+    test, logos = root / "data" / "test", root / "data" / "logos"
+    test.mkdir(parents=True)
+    logos.mkdir()
+    for p in sorted((work / "in").iterdir())[:test_files]:
+        shutil.copy(p, test / p.name)
+    for i, logo in enumerate(logo_images(AUTO_LOGOS, seed + 30)):
+        image_io.write_png(logos / f"logo{i}.png", logo)
+    train_dir = work / "train_data"
+    out = root / "models" / "auto"  # the --output-dir default
+    ckpt = out / "checkpoints"
+    shutil.copytree(work / "train_out" / "checkpoints", ckpt)
+    given = sorted(os.listdir(ckpt))
+    existing = len(os.listdir(train_dir / "watermarked"))
+    overrides = root / "auto.json"
+    overrides.write_text(json.dumps({
+        "train_data_dir": str(train_dir),
+        "clean_data_dir": str(work / "fill_clean"),
+        "heldout_eval_dir": str(train_dir), "heldout_eval_limit": heldout}))
+    argv = ["auto", "-c", str(DEFAULT_CONFIG), "--project-root", str(root),
+            "--max-cycles", "1", "--epochs", "1",
+            "--prediction-limit", str(test_files),
+            "--config-file", str(overrides)]
+    if device != "cuda":  # the flag's default
+        argv += ["--device", device]
+
+    loops, forwards = [], []
+    real_loop, real_forward = at.AutoTrainingLoop, ms.ModelSelector.forward_all
+
+    class Loop(real_loop):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            loops.append(self)
+
+    def forward_all(self, models, norm, vmap=None):
+        out = real_forward(self, models, norm, vmap)
+        forwards.append((self.vmapped, len(models)))
+        return out
+
+    at.AutoTrainingLoop, ms.ModelSelector.forward_all = Loop, forward_all
+    kc.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        at.AutoTrainingLoop, ms.ModelSelector.forward_all = \
+            real_loop, real_forward
+    launches = {k.__name__: k.launches for k in kc.KERNELS}
+    info = json.loads((out / "cycle_0_info.json").read_text())
+    if rc != 0 or info["status"] != "success":
+        raise AssertionError(f"auto: rc {rc}, cycle {info.get('status')}: "
+                             f"{info.get('error')}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the auto cycle never launched {name}")
+    loop = loops[0]
+    steps = info["steps"]
+    if not forwards or forwards[0] != (True, len(given)) or len(given) < 2:
+        raise AssertionError(f"step 1's forwards {forwards} over {given}")
+
+    # step 1's forward, vmapped, against each checkpoint's own (bf16)
+    sel = ms.ModelSelector(str(ckpt), str(test), str(root / "vmap"),
+                           config=loop.cfg, device=device)
+    models = [sel._load_model(p) for p in sel.discover_checkpoints()]
+    s = loop.cfg.DATA.IMG_SIZE
+    x = torch.stack([resize_linear_u8(image_io.read_rgb_tensor(p, dev),
+                                      (s, s))
+                     for p in sorted(test.iterdir())]).float() / 255.0
+    norm = (x - torch.tensor(IMAGENET_MEAN, device=dev)) / torch.tensor(
+        IMAGENET_STD, device=dev)
+    pv = sel.forward_all(models, norm, vmap=True)
+    po = sel.forward_all(models, norm, vmap=False)
+    # the bf16 error of the forward itself: each checkpoint in float32
+    cfg32 = copy.deepcopy(loop.cfg)
+    cfg32.MODEL.DTYPE = "float32"
+    sel32 = ms.ModelSelector(str(ckpt), str(test), str(root / "vmap32"),
+                             config=cfg32, device=device)
+    p32 = sel32.forward_all([sel32._load_model(p) for p in
+                             sel32.discover_checkpoints()], norm, vmap=False)
+    vmap_err = (pv - po).abs().max().item()
+    bf16_err = (po - p32).abs().max().item()
+    vmap_agree = ((pv > 0.5) == (po > 0.5)).float().mean().item()
+    if vmap_err > 2 * bf16_err or vmap_agree < AUTO_VMAP_AGREE:
+        raise AssertionError(f"vmapped probabilities differ from each "
+                             f"checkpoint's own by {vmap_err}, over twice "
+                             f"the bf16 forward's own error {bf16_err} "
+                             f"(masks agree on {vmap_agree})")
+    del models, pv, po, p32
+
+    # step 5 again on the host: the same files, byte for byte
+    new_count = max(int(existing * loop.config.data_growth), 10)
+    host_dir = root / "gen_host"
+    t0 = time.perf_counter()
+    host_stats = gen_data.generate_dataset(
+        str(work / "fill_clean"), str(host_dir), str(logos),
+        count=new_count, ratios=loop.augmentation_ratios(), seed=1000,
+        device="cpu")
+    host_s = time.perf_counter() - t0
+    made = 0
+    for sub in ("watermarked", "clean", "masks"):
+        for name in sorted(os.listdir(host_dir / sub)):
+            made += 1
+            if (host_dir / sub / name).read_bytes() != \
+                    (train_dir / sub / name).read_bytes():
+                raise AssertionError(f"step 5's {sub}/{name} on the card "
+                                     f"differs from the host's")
+    gen = steps["data_augmentation"]["generated"]
+    if gen < 1 or made != 3 * gen:
+        raise AssertionError(f"step 5 made {gen}, the host {made} files")
+
+    video = Path(steps["video"]["path"])
+    top, samples, sync = mp4_sample_count(video)
+    pairs = len(os.listdir(test))
+    if top != ["ftyp", "mdat", "moov"] or \
+            samples != pairs * AUTO_FRAMES_AN_IMAGE or sync != pairs:
+        raise AssertionError(f"the cycle's MP4: boxes {top}, {samples} "
+                             f"samples, {sync} sync")
+    held = steps["heldout_eval"]
+    if held["error"] is not None or held["n_images"] != heldout:
+        raise AssertionError(f"held-out eval {held}")
+    sec = loop.step_seconds
+    log("auto", argv=argv[:1] + argv[3:], rc=rc, wall_s=wall,
+        checkpoints_given=given, step1_forwards=forwards,
+        best_model=Path(steps["model_selection"]["best_model"]).name,
+        training=steps["training"], prediction=steps["prediction"],
+        video_bytes=video.stat().st_size, video_samples=samples,
+        video_sync_samples=sync, data_augmentation=steps[
+            "data_augmentation"], step5_card_equals_host=True,
+        heldout_eval=held, vmap_vs_own_max_abs=vmap_err,
+        own_bf16_vs_fp32_max_abs=bf16_err,
+        vmap_vs_own_mask_agreement=vmap_agree, launches=launches)
+    timing = {"wall_s": wall, "step_s": sec,
+              "gen_data_samples_per_s_card": gen / sec["data_augmentation"],
+              "gen_data_samples_per_s_host": sum(
+                  v for k, v in host_stats.items() if k != "skipped")
+              / host_s,
+              "video_frames_per_s": samples / sec["video"],
+              "video_images_per_s": pairs / sec["video"],
+              "phase_s": time.perf_counter() - t_phase}
+    return {"timing": timing, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2617,6 +2844,8 @@ def main(argv=None) -> int:
         training = training_phase(work, args.seed, dev)
         # -- 3i: the fill trainers -----------------------------------------
         fill = fill_training_phase(work, args.seed, dev)
+        # -- 3j: the auto command ------------------------------------------
+        auto = auto_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2743,6 +2972,7 @@ def main(argv=None) -> int:
     log("timing_int8_tier", **int8["timing"], card=card)
     log("timing_train", **training["timing"], card=card)
     log("timing_fill_training", **fill["timing"], card=card)
+    log("timing_auto", **auto["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -2800,6 +3030,7 @@ def main(argv=None) -> int:
                 fill["launches"]["trained_lama"][fn.__name__],
             "diffusion_repair_launches":
                 fill["launches"]["diffusion"][fn.__name__],
+            "auto_launches": auto["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

@@ -537,3 +537,48 @@ def test_ddim_sampler_fp32_on_card_matches_cpu(cuda, no_tf32, tmp_path):
     keep = (m == 0).expand_as(x)
     for out in outs:
         assert torch.equal(out[keep], x[keep])
+
+
+def test_pil_ops_and_jpeg_encoder_on_card_equal_cpu(cuda):
+    """gen_data's image ops and the JPEG encoder's pixel stage are integer
+    ops: the card gives the CPU's bytes."""
+    from unet_watermark_tpu_torch.ops import pil
+    from unet_watermark_tpu_torch.utils import image_io
+
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.integers(0, 256, (37, 53, 4),
+                                        dtype=np.uint8))
+    for fn in (lambda x: pil.rotate_expand(x, 33.3),
+               lambda x: pil.resize_lanczos(x, (20, 71)),
+               lambda x: pil.gaussian_blur(x, 1.23),
+               lambda x: pil.composite_over(x, x.flip(0))):
+        assert torch.equal(fn(img.to(cuda)).cpu(), fn(img))
+    rgb = img[..., :3].contiguous()
+    assert image_io.encode_jpeg(rgb.to(cuda)) == image_io.encode_jpeg(rgb)
+
+
+def test_gen_data_on_card_equals_cpu(cuda, tmp_path):
+    import os
+
+    from unet_watermark_tpu_torch.data.gen_data import generate_dataset
+    from unet_watermark_tpu_torch.utils import image_io
+    from unet_watermark_tpu_torch.utils.synthetic import logo_images
+
+    clean, logos = tmp_path / "c", tmp_path / "l"
+    clean.mkdir()
+    logos.mkdir()
+    images, _ = watermarked_images(2, 96, seed=2, clean=2)
+    for i in range(2):
+        image_io.write_png(clean / f"c{i}.png",
+                           (images[i] * 255).astype(np.uint8))
+    for i, logo in enumerate(logo_images(2, 3)):
+        image_io.write_png(logos / f"l{i}.png", logo)
+    for dev in ("cuda", "cpu"):
+        generate_dataset(str(clean), str(tmp_path / dev), str(logos),
+                         count=8, seed=5, device=dev)
+    for sub in ("watermarked", "clean", "masks"):
+        names = sorted(os.listdir(tmp_path / "cpu" / sub))
+        assert names == sorted(os.listdir(tmp_path / "cuda" / sub))
+        for n in names:
+            assert (tmp_path / "cpu" / sub / n).read_bytes() == \
+                (tmp_path / "cuda" / sub / n).read_bytes()

@@ -640,7 +640,7 @@ def test_cli_writes_the_jax_summary_keys(preds, folder, tmp_path,
     (["--device", "cpu", "--no-ocr"], None),
     (["--device", "cpu"], None),
     (["--device", "cpu", "--no-ocr", "--quant"], None),
-    (["--device", "cpu", "--no-ocr", "--video"], NotImplementedError),
+    (["--device", "cpu", "--no-ocr", "--video"], None),
     (["--device", "tpu", "--no-ocr"], ValueError)],
     ids=["ok", "ocr", "quant", "video", "tpu"])
 def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
@@ -649,7 +649,9 @@ def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
     the builtin detector without easyocr; --text-model telea here) and with
     --quant (the int8 tier, PREDICT.QUANT set after --opts, against the JAX
     CLI's --quant run) the same values apart from times, and the port's
-    four extra keys."""
+    four extra keys. --video writes comparison_video.mp4, three-way (the
+    output has masks/), at the JAX CLI's 1920 x 1080, 30 fps and 2 s an
+    image."""
     opts = ["--watermark-model", "telea", "--text-model", "telea", "--opts",
             "DATA.IMG_SIZE", "64", "MODEL.DTYPE", "float32"]
     args = ["repair", "--input", str(folder), "--output",
@@ -661,6 +663,21 @@ def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
                                 lambda *a, **k: made.append(
                                     WatermarkPredictor(*a, **k)) or made[-1])
         assert cli.main(args) == 0
+        if "--video" in extra:
+            import cv2
+
+            cap = cv2.VideoCapture(str(tmp_path / "o" /
+                                       "comparison_video.mp4"))
+            triplets = len(os.listdir(tmp_path / "o" / "masks"))
+            assert triplets > 0
+            assert (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                    cap.get(cv2.CAP_PROP_FPS),
+                    int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                    int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))) == (
+                        triplets * 60, 30.0, 1920, 1080)
+            ok, frame = cap.read()
+            assert ok and frame.shape == (1080, 1920, 3)
+            cap.release()
         if "--no-ocr" in extra and "--quant" not in extra:
             return
         jpred = preds[0]
@@ -697,16 +714,14 @@ def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
 
 def test_cli_cuda_without_a_card_and_training_raise(folder, tmp_path):
     """Without a card "cuda" raises for both commands; what of training is
-    not ported (the `auto` loop, --use-blurred-mask) raises naming its
-    ROADMAP.md item."""
+    not ported (--use-blurred-mask) raises naming its ROADMAP.md item (the
+    `auto` loop runs: tests/test_torch_auto_train.py)."""
     if not torch.cuda.is_available():
         for args in (["repair", "--input", str(folder), "--output",
                       str(tmp_path / "o"), "--no-ocr"],
                      ["train", "--data-dir", str(tmp_path / "d")]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli.main(args)
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        cli.main(["auto"])
     with pytest.raises(NotImplementedError, match="§A.7"):
         cli.main(["train", "--device", "cpu", "--use-blurred-mask",
                   "--data-dir", str(tmp_path / "d")])

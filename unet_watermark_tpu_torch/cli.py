@@ -1,10 +1,13 @@
-"""The port's command line (cli.py in the JAX package): the `train` and
-`repair` subcommands, with the JAX CLI's flags and defaults.
+"""The port's command line (cli.py in the JAX package): the `train`,
+`repair` and `auto` subcommands, with the JAX CLI's flags and defaults.
 
     python -m unet_watermark_tpu_torch.cli train -c <yaml> --data-dir D \\
         [--epochs N] [--resume DIR] [--init-weights W.npz] [--opts K V ...]
     python -m unet_watermark_tpu_torch.cli repair --input D --output O \\
-        [--device cuda|cpu] [--no-ocr] [--ocr-engine easy|builtin|paddle]
+        [--device cuda|cpu] [--no-ocr] [--ocr-engine easy|builtin|paddle] \\
+        [--video [--video-width W --video-height H --duration S --fps F]]
+    python -m unet_watermark_tpu_torch.cli auto --project-root R \\
+        [--max-cycles N] [--epochs K] [--config-file overrides.json]
 
 `train` follows the JAX CLI's order, CLI flags over --opts over the YAML
 over the defaults, and writes checkpoints, training_history.json and the
@@ -14,9 +17,13 @@ Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
 builtin detector where easyocr is not installed, as there). --device is
 "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda"); "cuda" without
 a card raises. What the port does not run yet raises NotImplementedError
-naming its ROADMAP.md item: --video, --use-blurred-mask and the `auto`
-subcommand. --quant runs the int8 tier (PREDICT.QUANT, set after --opts
-are merged). The LaMa weights of --inpaint-weights go into the config
+naming its ROADMAP.md item: --use-blurred-mask. --video writes
+comparison_video.mp4 (scripts/video_generator.py: three-way where the
+output has masks/, else side by side); a writer error is logged as in the
+JAX CLI, an input form the port does not read yet is raised. `auto` runs
+training/auto_train.AutoTrainingLoop with the JAX CLI's flags, a JSON
+--config-file's keys over them. --quant runs the int8 tier
+(PREDICT.QUANT, set after --opts are merged). The LaMa weights of --inpaint-weights go into the config
 (PREDICT.INPAINT_WEIGHTS) where the JAX CLI sets the
 PREDICT_INPAINT_WEIGHTS environment variable.
 """
@@ -89,10 +96,6 @@ def train_command(args) -> int:
 def repair_command(args) -> int:
     """WatermarkPredictor.process_folder_batch on the --input folder, then
     repair_summary.json in --output."""
-    if args.video:
-        raise NotImplementedError("--video: the comparison video needs a "
-                                  "video writer, not ported yet (ROADMAP.md "
-                                  "§A.5, --video)")
     device = setup_device(args.device)
     cfg = _load_cfg(args)
     if args.opts:
@@ -109,10 +112,12 @@ def repair_command(args) -> int:
     if args.model and model_path is None:
         logger.warning("model %s not found; using the shipped weights",
                        args.model)
-    if model_path is not None and not model_path.endswith(".npz"):
+    if model_path is not None and not (model_path.endswith(".npz") or
+                                       os.path.isdir(model_path)):
         raise NotImplementedError(
-            f"{model_path}: the port reads .npz weights; .pth imports and "
-            f"orbax checkpoints are not ported yet (ROADMAP.md §A.7, §A.8)")
+            f"{model_path}: the port reads .npz weights and its own "
+            f"checkpoint directories; .pth imports are not ported yet "
+            f"(ROADMAP.md §A.7, §A.8)")
     predictor = WatermarkPredictor(cfg, weights_path=model_path,
                                    device=device)
     stats = predictor.process_folder_batch(
@@ -134,13 +139,65 @@ def repair_command(args) -> int:
     with open(summary_path, "w") as f:
         json.dump(stats, f, indent=2)
     logger.info("summary written: %s", summary_path)
+
+    if args.video and stats.get("status") == "success":
+        from .scripts.video_generator import VideoGenerator
+
+        try:
+            gen = VideoGenerator(width=args.video_width,
+                                 height=args.video_height,
+                                 duration_per_image=args.duration,
+                                 fps=args.fps, device=device)
+            video_path = os.path.join(args.output, "comparison_video.mp4")
+            mask_dir = os.path.join(args.output, "masks")
+            if os.path.isdir(mask_dir):
+                gen.create_three_way_comparison_video(
+                    args.video_input or args.input, args.output, mask_dir,
+                    video_path)
+            else:
+                gen.create_side_by_side_video(
+                    args.video_input or args.input, args.output, video_path)
+            logger.info("comparison video: %s", video_path)
+        except NotImplementedError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            logger.error("video generation failed: %s", e)
     return 0 if stats.get("status") == "success" else 1
 
 
 def auto_train_command(args) -> int:
-    raise NotImplementedError(
-        "the 'auto' subcommand (the self-improving train loop) is not "
-        "ported yet (ROADMAP.md §A.7)")
+    """training.auto_train.AutoTrainingLoop over the JAX CLI's flags, with
+    a --config-file JSON's keys set over them."""
+    device = setup_device(args.device)
+    cfg = _load_cfg(args)
+
+    from .training.auto_train import AutoTrainConfig, AutoTrainingLoop
+
+    auto_cfg = AutoTrainConfig(
+        project_root=args.project_root or os.getcwd(),
+        config_path=args.config or str(DEFAULT_CONFIG),
+        max_cycles=args.max_cycles,
+        epochs_per_cycle=args.epochs,
+        batch_size=args.batch_size,
+        learning_rate=args.learning_rate,
+        output_dir=args.output_dir,
+        samples=args.samples,
+        prediction_limit=args.prediction_limit,
+        transparent_ratio=args.transparent_ratio,
+        text_watermark_ratio=args.text_watermark_ratio,
+        mixed_watermark_ratio=args.mixed_watermark_ratio,
+    )
+    if args.config_file and os.path.exists(args.config_file):
+        with open(args.config_file) as f:
+            overrides = json.load(f)
+        for k, v in overrides.items():
+            if hasattr(auto_cfg, k):
+                setattr(auto_cfg, k, v)
+    loop = AutoTrainingLoop(auto_cfg, base_cfg=cfg, device=device)
+    report = loop.run_all_cycles()
+    logger.info("auto-train finished: %d cycles",
+                report.get("cycles_completed", 0))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -201,7 +258,7 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--ocr-languages", type=str, nargs="+",
                     default=["en", "ch_sim"])
     rp.add_argument("--video", action="store_true",
-                    help="comparison video (not ported yet)")
+                    help="write comparison_video.mp4 into --output")
     rp.add_argument("--video-input", type=str, default=None)
     rp.add_argument("--video-width", type=int, default=1920)
     rp.add_argument("--video-height", type=int, default=1080)
@@ -210,9 +267,22 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--opts", nargs="*", default=None)
     rp.set_defaults(func=repair_command)
 
-    ap = sub.add_parser("auto", help="self-improving train loop (not "
-                                     "ported yet)")
-    ap.add_argument("rest", nargs=argparse.REMAINDER)
+    ap = sub.add_parser("auto", help="self-improving train loop")
+    ap.add_argument("--config-file", type=str,
+                    help="JSON of AutoTrainConfig fields set over the flags")
+    ap.add_argument("--config", "-c", type=str, default=str(DEFAULT_CONFIG))
+    ap.add_argument("--project-root", type=str)
+    ap.add_argument("--max-cycles", type=int, default=100)
+    ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--epochs", type=int, default=50)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--learning-rate", type=float, default=0.001)
+    ap.add_argument("--output-dir", type=str, default="models/auto")
+    ap.add_argument("--samples", type=int, default=1000)
+    ap.add_argument("--prediction-limit", type=int, default=100)
+    ap.add_argument("--transparent-ratio", type=float, default=0.6)
+    ap.add_argument("--text-watermark-ratio", type=float, default=0.5)
+    ap.add_argument("--mixed-watermark-ratio", type=float, default=0.2)
     ap.set_defaults(func=auto_train_command)
     return parser
 

@@ -7,6 +7,12 @@
  * blocks, the four progressive scan kinds with EOB runs, and restart
  * intervals with jpeg_resync_to_restart's rules.
  *
+ * uwt_jpeg_encode_scan is the other direction, as libjpeg's jchuff.c
+ * writes a baseline scan without restarts: the blocks of an interleaved
+ * scan in coding order, each DC as the difference from the previous block
+ * of its component, the AC coefficients as run/size symbols with ZRL and
+ * EOB, 0xFF bytes stuffed with 0x00 and the last byte padded with 1-bits.
+ *
  * Built by ops/kernels/build.py with the host compiler (cc -O2 -shared
  * -fPIC) and called through ctypes by ops/kernels/jpeg_entropy.py. Huffman
  * tables come as 65536-entry lookups from utils/jpeg.huffman_lookup: entry
@@ -302,4 +308,92 @@ int uwt_jpeg_decode_scan(const uint8_t *data, int64_t start, int64_t end,
     if (b.short_ && !short_) short_ = 1, cut = mcu;
   }
   return cut;
+}
+
+/* ------------------------------------------------------------------------
+ * Baseline Huffman encoding.
+ * blocks: (n, 64) int16 quantized coefficients in zigzag order, in coding
+ * order; comp[i]: the block's table set and DC predictor (0..ncomp-1);
+ * codes/lens: for each table set, 256 DC codes then 256 AC codes (code
+ * value, length in bits; length 0 where the symbol has no code).
+ * Writes at most cap bytes to out; returns the count, or -1 if cap is too
+ * small, -2 for a symbol without a code. */
+
+typedef struct {
+  uint8_t *out;
+  int64_t n, cap;
+  uint64_t acc;  /* bits not yet written, right-aligned */
+  int nb;
+  int overflow;
+} wbits_t;
+
+static inline void put_bits(wbits_t *w, uint32_t code, int len) {
+  w->acc = (w->acc << len) | (code & ((1u << len) - 1u));
+  w->nb += len;
+  while (w->nb >= 8) {
+    uint8_t byte = (uint8_t)(w->acc >> (w->nb - 8));
+    w->nb -= 8;
+    if (w->n + 2 > w->cap) {
+      w->overflow = 1;
+      return;
+    }
+    w->out[w->n++] = byte;
+    if (byte == 0xFF) w->out[w->n++] = 0x00;
+  }
+}
+
+static inline int nbits(int v) {
+  int a = v < 0 ? -v : v, s = 0;
+  while (a) {
+    s++;
+    a >>= 1;
+  }
+  return s;
+}
+
+int64_t uwt_jpeg_encode_scan(const int16_t *blocks, int64_t n,
+                             const int32_t *comp, int32_t ncomp,
+                             const uint32_t *codes, const int32_t *lens,
+                             uint8_t *out, int64_t cap) {
+  wbits_t w = {out, 0, cap, 0, 0, 0};
+  int last_dc[4] = {0, 0, 0, 0};
+  if (ncomp < 1 || ncomp > 4) return -3;
+  for (int64_t i = 0; i < n; i++) {
+    const int16_t *b = blocks + i * 64;
+    int c = comp[i];
+    const uint32_t *dcc = codes + c * 512, *acc = dcc + 256;
+    const int32_t *dcl = lens + c * 512, *acl = dcl + 256;
+    int diff = b[0] - last_dc[c];
+    last_dc[c] = b[0];
+    int s = nbits(diff);
+    if (!dcl[s]) return -2;
+    put_bits(&w, dcc[s], dcl[s]);
+    if (s) put_bits(&w, (uint32_t)(diff < 0 ? diff - 1 : diff), s);
+    int run = 0;
+    for (int k = 1; k < 64; k++) {
+      int v = b[k];
+      if (!v) {
+        run++;
+        continue;
+      }
+      while (run > 15) {
+        if (!acl[0xF0]) return -2;
+        put_bits(&w, acc[0xF0], acl[0xF0]);
+        run -= 16;
+      }
+      s = nbits(v);
+      int sym = (run << 4) | s;
+      if (!acl[sym]) return -2;
+      put_bits(&w, acc[sym], acl[sym]);
+      put_bits(&w, (uint32_t)(v < 0 ? v - 1 : v), s);
+      run = 0;
+    }
+    if (run) {
+      if (!acl[0]) return -2;
+      put_bits(&w, acc[0], acl[0]);
+    }
+    if (w.overflow) return -1;
+  }
+  if (w.nb) put_bits(&w, 0x7F, 8 - w.nb); /* pad with 1-bits */
+  return w.overflow ? -1 : w.n;
 }

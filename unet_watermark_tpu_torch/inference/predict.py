@@ -74,7 +74,8 @@ from ..ops.inpaint import inpaint_pushpull
 from ..ops.resize import resize_linear_f32, resize_linear_u8, resize_nearest
 from ..utils import image_io
 from ..utils.device import resolve_device
-from ..utils.shipping import load_npz, resolve
+from ..training.checkpoint import read_weights
+from ..utils.shipping import resolve
 from . import engines, maskproc
 from .tiled import pad_to_multiple, predict_tiled
 
@@ -154,8 +155,10 @@ def _decode_part(name: str):
 
 class WatermarkPredictor:
     """Holds the segmentation model on `device` with the shipped (or given)
-    .npz weights. A float32 model on the card follows the process's TF32
-    settings (`torch.backends.cudnn.allow_tf32`, default on); the caller
+    weights: a shipped-format .npz or a port checkpoint directory
+    (training/checkpoint.read_weights; an orbax directory raises). A
+    float32 model on the card follows the process's TF32 settings
+    (`torch.backends.cudnn.allow_tf32`, default on); the caller
     chooses them, as chip_smoke.py does. `engine_used` names the fill
     that the last repair step ran (None before one ran), `ocr_engine_used`
     the text detector step 3 ran; `engine_failures` and `ocr_failures`
@@ -176,7 +179,7 @@ class WatermarkPredictor:
                     f"{self.cfg.MODEL.ENCODER_NAME}; pass weights_path or "
                     f"set PREDICT_SEG_WEIGHTS")
             self.weights_path = str(path)
-            self.n_weights = load_flax_weights(model, load_npz(path))
+            self.n_weights = load_flax_weights(model, read_weights(path))
             model = model.eval().to(self.device, self.dtype)
             if self.device.type == "cuda":
                 model = model.to(memory_format=torch.channels_last)

@@ -97,7 +97,7 @@ class BasicBlock(nn.Module):
         return self.relu(y + identity)
 
 
-_RESNET_LAYERS = {"resnet34": (3, 4, 6, 3)}
+_RESNET_LAYERS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 _WIDTHS = (64, 128, 256, 512)
 
 

@@ -66,7 +66,7 @@ def label_components(mask: torch.Tensor, connectivity: int = 8,
     return unbatch(labels)
 
 
-def _segment_areas(labels: torch.Tensor) -> torch.Tensor:
+def segment_areas(labels: torch.Tensor) -> torch.Tensor:
     """(N, H*W+1) pixel count of each label id; slot 0 (background) is 0."""
     n = labels.shape[0]
     size = labels[0].numel() + 1
@@ -82,7 +82,7 @@ def _segment_areas(labels: torch.Tensor) -> torch.Tensor:
 def component_areas(labels: torch.Tensor) -> torch.Tensor:
     """Per pixel, the area of its component; 0 on background."""
     lab, unbatch = _batched(labels)
-    areas = _segment_areas(lab)
+    areas = segment_areas(lab)
     flat = lab.reshape(lab.shape[0], -1)
     per_pixel = torch.gather(areas, 1, flat).reshape(lab.shape)
     return unbatch(torch.where(lab > 0, per_pixel, 0))
@@ -96,7 +96,7 @@ def keep_largest_component(mask: torch.Tensor, connectivity: int = 8,
     component larger than fallback_min_area instead."""
     m, unbatch = _batched(mask)
     labels = label_components(m, connectivity)
-    areas = _segment_areas(labels)
+    areas = segment_areas(labels)
     flat = labels.reshape(labels.shape[0], -1)
     area = torch.where(flat > 0, torch.gather(areas, 1, flat), 0)
     largest = torch.argmax(areas, dim=1, keepdim=True)
@@ -133,7 +133,7 @@ def component_stats(labels: torch.Tensor) -> dict:
         return out.scatter_reduce_(1, flat, vals, how, include_self=True)
 
     big = h * w + 1
-    area = _segment_areas(lab)
+    area = segment_areas(lab)
     exists = area > 0
     x0, y0 = reduce(xs, "amin", big), reduce(ys, "amin", big)
     width = reduce(xs, "amax", -1) - x0 + 1

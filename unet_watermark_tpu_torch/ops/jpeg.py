@@ -31,6 +31,8 @@ of an image's blocks at once.
 
 decode(header, coefs, gray) takes utils/jpeg.parse's header and the
 entropy decoder's coefficient arrays (tensors on the output's device).
+encode_coefficients(rgb, quality) is the encoder's pixel stage (see its
+section below).
 """
 from __future__ import annotations
 
@@ -360,10 +362,11 @@ def orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
     return img.flip(dims) if dims else img.contiguous()
 
 
-def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False
-           ) -> torch.Tensor:
+def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False,
+           exif: bool = True) -> torch.Tensor:
     """The image as cv2.imread gives it (RGB): (H, W, 3) uint8, or (H, W)
-    with gray=True, on the coefficients' device, oriented."""
+    with gray=True, on the coefficients' device, oriented (exif=False: as
+    stored, as PIL's Image.open gives it)."""
     comps = header.components
     h, w = header.height, header.width
     needed = [0] if gray and header.color == "ycc" else range(len(comps))
@@ -381,4 +384,170 @@ def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False
         img = rgb_to_gray(planes[0], planes[1], planes[2]) if gray else \
             torch.stack([planes[i] for i in range(3)],
                         dim=-1).to(torch.uint8)
-    return orient(img, header.orientation)
+    return orient(img, header.orientation) if exif else img.contiguous()
+
+
+# -- the encoder's pixel stage ------------------------------------------------
+# libjpeg-turbo 3.1's compressor as Pillow's save(path, quality=q) drives
+# it: jccolor.c's RGB -> YCbCr, 4:2:0 by jcsample.c's h2v2_downsample, the
+# edges padded to whole blocks and MCUs as jcprepct.c and jccoefct.c pad
+# them, jfdctint.c's islow FDCT and jcdctmgr.c's quantization by
+# reciprocal (what its SIMD quantize computes too). Torch integer ops on
+# the image's device; the Huffman coding is the host's
+# (ops/kernels/jpeg_entropy.encode_scan).
+
+_ZIGZAG = list(jpeg.NATURAL[:64])
+
+
+def quality_tables(quality: int) -> List[List[int]]:
+    """jpeg_set_quality(quality, force_baseline=TRUE): the luma and chroma
+    tables (natural order)."""
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return [[min(max((b * scale + 50) // 100, 1), 255) for b in base]
+            for base in (jpeg.STD_LUMA_Q, jpeg.STD_CHROMA_Q)]
+
+
+def rgb_to_ycc(rgb: torch.Tensor) -> List[torch.Tensor]:
+    """jccolor.c rgb_ycc_convert: (H, W, 3) uint8 → Y, Cb, Cr int64."""
+    r, g, b = (rgb[..., i].to(torch.int64) for i in range(3))
+    half = 1 << (SCALEBITS - 1)
+    cbcr_off = 128 << SCALEBITS
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b
+         + half) >> SCALEBITS
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.50000) * b
+          + cbcr_off + half - 1) >> SCALEBITS
+    cr = (_fix(0.50000) * r - _fix(0.41869) * g - _fix(0.08131) * b
+          + cbcr_off + half - 1) >> SCALEBITS
+    return [y, cb, cr]
+
+
+def _extend(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Repeat the last row and column out to (rows, cols)."""
+    h, w = x.shape
+    ri = torch.arange(rows, device=x.device).clamp(max=h - 1)
+    ci = torch.arange(cols, device=x.device).clamp(max=w - 1)
+    return x[ri][:, ci]
+
+
+def downsample_h2v2(plane: torch.Tensor, out_cols: int) -> torch.Tensor:
+    """jcsample.c h2v2_downsample of a full plane: the input's last column
+    repeated out to 2 * out_cols, its last row to an even count (the row
+    group), then (a + b + c + d + bias) >> 2 with bias 1, 2, 1, 2, ...
+    along each row."""
+    h = plane.shape[0]
+    x = _extend(plane, h + (h & 1), 2 * out_cols)
+    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    bias = 1 + (torch.arange(out_cols, device=x.device) & 1)
+    return (s + bias) >> 2
+
+
+def _fdct_1d(d: Sequence[torch.Tensor], shift: int, even_shift):
+    """jfdctint.c's butterfly on the 8 inputs of one pass; even_shift(x)
+    scales outputs 0 and 4, the others are descaled by `shift`."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    out[0] = even_shift(tmp10 + tmp11)
+    out[4] = even_shift(tmp10 - tmp11)
+    z1 = (tmp12 + tmp13) * F0_541
+    out[2] = _descale(z1 + tmp13 * F0_765, shift)
+    out[6] = _descale(z1 + tmp12 * -F1_847, shift)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * F1_175
+    tmp4, tmp5 = tmp4 * F0_298, tmp5 * F2_053
+    tmp6, tmp7 = tmp6 * F3_072, tmp7 * F1_501
+    z1, z2 = z1 * -F0_899, z2 * -F2_562
+    z3, z4 = z3 * -F1_961 + z5, z4 * -F0_390 + z5
+    out[7] = _descale(tmp4 + z1 + z3, shift)
+    out[5] = _descale(tmp5 + z2 + z4, shift)
+    out[3] = _descale(tmp6 + z2 + z3, shift)
+    out[1] = _descale(tmp7 + z1 + z4, shift)
+    return out
+
+
+def fdct_islow(x: torch.Tensor) -> torch.Tensor:
+    """jpeg_fdct_islow on (..., 8, 8) level-shifted int64 samples → the
+    (..., 8, 8) coefficients, scaled up by 8 as libjpeg leaves them."""
+    rows = _fdct_1d([x[..., k] for k in range(8)], CONST_BITS - PASS1_BITS,
+                    lambda v: v << PASS1_BITS)
+    ws = torch.stack(rows, dim=-1)
+    cols = _fdct_1d([ws[..., k, :] for k in range(8)],
+                    CONST_BITS + PASS1_BITS,
+                    lambda v: _descale(v, PASS1_BITS))
+    return torch.stack(cols, dim=-2)
+
+
+def _reciprocal(divisor: int):
+    """jcdctmgr.c compute_reciprocal for 16-bit DCTELEMs: (reciprocal,
+    correction, total shift)."""
+    b = divisor.bit_length() - 1
+    r = 16 + b
+    fq, fr = divmod(1 << r, divisor)
+    c = divisor // 2
+    if fr == 0:
+        fq >>= 1
+        r -= 1
+    elif fr <= divisor // 2:
+        c += 1
+    else:
+        fq += 1
+    return fq, c, r
+
+
+def quantize(coef: torch.Tensor, table: Sequence[int]) -> torch.Tensor:
+    """(..., 8, 8) FDCT output → (..., 64) quantized, natural order:
+    sign(x) * (((|x| + c) * recip) >> shift) with each divisor 8 * q."""
+    recips = [_reciprocal(8 * q) for q in table]
+    dev = coef.device
+    fq, c, r = (torch.tensor([v[i] for v in recips], dtype=torch.int64,
+                             device=dev) for i in range(3))
+    x = coef.reshape(*coef.shape[:-2], 64)
+    q = ((x.abs() + c) * fq) >> r
+    return torch.where(x < 0, -q, q)
+
+
+def _blocks(plane: torch.Tensor) -> torch.Tensor:
+    """(8 bh, 8 bw) → (bh, bw, 8, 8)."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(1, 2)
+
+
+def encode_coefficients(rgb: torch.Tensor, quality: int = 95
+                        ) -> List[torch.Tensor]:
+    """(H, W, 3) uint8 → the quantized blocks of a 4:2:0 baseline file,
+    each component (bh, bw, 64) int16 in zigzag order: Y with the dummy
+    blocks that fill its last MCU column and row (AC zero, the DC of the
+    block before it in the MCU), Cb and Cr."""
+    if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got "
+                         f"{tuple(rgb.shape)} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    y, cb, cr = rgb_to_ycc(rgb)
+    luma_t, chroma_t = quality_tables(quality)
+    ybh, ybw = -(-h // 8), -(-w // 8)
+    cbh, cbw = -(-h // 16), -(-w // 16)
+    out = []
+    planes = [(_extend(y, 8 * ybh, 8 * ybw), luma_t)]
+    for p in (cb, cr):
+        small = downsample_h2v2(p, 8 * cbw)
+        planes.append((_extend(small, 8 * cbh, 8 * cbw), chroma_t))
+    for plane, table in planes:
+        coef = quantize(fdct_islow(_blocks(plane) - 128), table)
+        out.append(coef[..., _ZIGZAG].to(torch.int16))
+    yb = out[0]
+    if ybw & 1:  # a dummy column: the DC of the block to its left
+        dummy = torch.zeros_like(yb[:, :1])
+        dummy[..., 0] = yb[:, -1:, 0]
+        yb = torch.cat([yb, dummy], 1)
+    if ybh & 1:  # a dummy row: each MCU's last block of the row above
+        dummy = torch.zeros_like(yb[:1])
+        dummy[..., 0] = yb[-1, 1::2, 0].repeat_interleave(2)[None]
+        yb = torch.cat([yb, dummy], 0)
+    out[0] = yb
+    return out

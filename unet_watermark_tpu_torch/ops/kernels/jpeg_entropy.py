@@ -8,6 +8,9 @@ built with the host compiler at first use; a failed build raises. For the
 CPU it runs the plain Python decoder, utils/jpeg.decode_scans, as the
 kernel wrappers take their plain versions on CPU tensors.
 `decode_scans_c.calls` counts the files the C decoder decoded.
+encode_scan(blocks) is the encoder's Huffman stage, in C on every device
+(host code, there is no plain version): the quantized blocks of
+ops/jpeg.encode_coefficients in MCU order through the standard tables.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ def _lib() -> ctypes.CDLL:
         vp, i64, i64, ctypes.POINTER(_Comp), i32, vp, vp, i32, i32, i32, i32,
         i32, i32, i32, i32]
     lib.uwt_jpeg_decode_scan.restype = ctypes.c_int
+    lib.uwt_jpeg_encode_scan.argtypes = [vp, i64, vp, i32, vp, vp, vp, i64]
+    lib.uwt_jpeg_encode_scan.restype = ctypes.c_int64
     return lib
 
 
@@ -88,3 +93,47 @@ def decode_scans(header: jpeg.Header, data: bytes, device) -> List[np.ndarray]:
     if device.type != "cpu":
         raise ValueError(f"decode_scans: unsupported device {device}")
     return jpeg.decode_scans(header, data)
+
+
+@functools.lru_cache(maxsize=1)
+def _std_codes():
+    """(codes, lens) uint32/int32 (2, 512): table sets 0 (luma) and 1
+    (chroma), 256 DC codes then 256 AC codes each."""
+    codes = np.zeros((2, 512), np.uint32)
+    lens = np.zeros((2, 512), np.int32)
+    for t, (dc, ac) in enumerate(((jpeg.STD_DC_LUMA, jpeg.STD_AC_LUMA),
+                                  (jpeg.STD_DC_CHROMA, jpeg.STD_AC_CHROMA))):
+        for half, table in ((0, dc), (256, ac)):
+            c, n = jpeg.huffman_codes(table)
+            codes[t, half:half + 256] = c
+            lens[t, half:half + 256] = n
+    return codes, lens
+
+
+def encode_scan(blocks: List[np.ndarray]) -> bytes:
+    """The entropy-coded data of a baseline 4:2:0 scan: blocks are Y
+    (2m, 2n, 64), Cb and Cr (m, n, 64) int16 in zigzag order; each MCU
+    takes its four Y blocks row by row, then Cb, then Cr."""
+    y, cb, cr = (np.asarray(b, np.int16) for b in blocks)
+    m, n = cb.shape[:2]
+    yq = y.reshape(m, 2, n, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        m, n, 4, 64)
+    order = np.ascontiguousarray(np.concatenate(
+        [yq, cb[:, :, None], cr[:, :, None]], axis=2).reshape(-1, 64))
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2], np.int32), m * n)
+    codes, lens = _std_codes()
+    # three DC predictors; Cr shares the chroma tables
+    codes3 = np.ascontiguousarray(codes[[0, 1, 1]])
+    lens3 = np.ascontiguousarray(lens[[0, 1, 1]])
+    cap = order.size * 8 + 1024  # 2 bytes a coefficient and stuffing
+    out = np.empty(cap, np.uint8)
+    size = _lib().uwt_jpeg_encode_scan(
+        order.ctypes.data, order.shape[0], comp.ctypes.data, 3,
+        codes3.ctypes.data, lens3.ctypes.data, out.ctypes.data, cap)
+    if size < 0:
+        raise RuntimeError(f"uwt_jpeg_encode_scan failed ({size})")
+    encode_scan.calls += 1
+    return out[:size].tobytes()
+
+
+encode_scan.calls = 0

@@ -21,10 +21,18 @@ Interlaced PNGs, BMP, TIFF and WEBP files and the JPEG forms utils/jpeg.py
 refuses raise NotImplementedError; a file cv2 would give None for raises
 one of UNREADABLE.
 
-write_png(path, img) stores an (H, W) gray or (H, W, 3) RGB uint8 image as
-cv2.imwrite stores it (after RGB2BGR for colour): 8-bit, no interlace.
-`filters` picks the row filters (0 None, 1 Sub, 2 Up, 3 Average,
-4 Paeth), cycled over the rows; the default is Up on every row.
+read_rgba_tensor(path, device) is PIL's Image.open(path).convert("RGBA")
+(data/gen_data.py's reads): a PNG's alpha channel or tRNS kept, a JPEG
+without its EXIF orientation; 16-bit PNGs raise NotImplementedError.
+
+write_png(path, img) stores an (H, W) gray, (H, W, 3) RGB or (H, W, 4)
+RGBA uint8 image as cv2.imwrite stores it (after RGB2BGR for colour):
+8-bit, no interlace. `filters` picks the row filters (0 None, 1 Sub, 2 Up,
+3 Average, 4 Paeth), cycled over the rows; the default is Up on every
+row. encode_jpeg(img) / write_jpeg(path, img) give the bytes Pillow's
+save(path, quality=95) writes: libjpeg-turbo's baseline 4:2:0 file, its
+pixel stage on the image's device (ops/jpeg.encode_coefficients), the
+Huffman coding on the host (csrc/jpeg_entropy.c).
 
 Decoding undoes the five row filters in one pass over the anti-diagonals
 of the byte grid: every filter reads only the left, upper and upper-left
@@ -228,15 +236,18 @@ def _wavefront(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out.astype(np.uint8).reshape(h, rowbytes)
 
 
-def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
-    """PNG bytes → (H, W, 3) RGB uint8, or (H, W) uint8 with gray=True
-    (see the module docstring for the rules)."""
-    header, palette, idat = None, None, []
+def _png_samples(data: bytes):
+    """The unfiltered samples of a PNG: (px (H, W, channels) uint8, colour
+    type, bit depth, PLTE as (N, 3) or None, tRNS body or None); 16-bit
+    samples reduced to their high byte, 1/2/4-bit gray scaled to 8 bits."""
+    header, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = _header(body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
     if header is None or not idat:
@@ -269,6 +280,14 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
             raise PNGError("palette image without PLTE")
         if px.max(initial=0) >= len(palette):
             raise PNGError("palette index out of range")
+    return px, ctype, depth, palette, trns
+
+
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
+    """PNG bytes → (H, W, 3) RGB uint8, or (H, W) uint8 with gray=True
+    (see the module docstring for the rules)."""
+    px, ctype, _, palette, _ = _png_samples(data)
+    if ctype == 3:
         if gray:
             raise NotImplementedError(
                 "a palette PNG read as gray: cv2 converts it with libpng's "
@@ -284,14 +303,53 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def decode_png_rgba(data: bytes) -> np.ndarray:
+    """PNG bytes → (H, W, 4) uint8 as PIL's Image.open(p).convert("RGBA")
+    gives it: gray replicated, palettes expanded, alpha from the file's
+    alpha channel or from tRNS (per palette index, or 0 where a gray or
+    RGB pixel equals the tRNS colour), else 255. PIL keeps 16 bits and
+    compares a low-depth gray tRNS against unscaled samples, so 16-bit
+    files and 1/2/4-bit gray files with tRNS raise NotImplementedError."""
+    px, ctype, depth, palette, trns = _png_samples(data)
+    if depth == 16:
+        raise NotImplementedError(
+            "a 16-bit PNG read as RGBA: PIL keeps 16-bit samples where the "
+            "port reduces them to 8 bits (ROADMAP.md §A.5, other image "
+            "formats)")
+    if ctype == 0 and trns is not None and depth < 8:
+        raise NotImplementedError(
+            "a 1/2/4-bit gray PNG with tRNS read as RGBA: PIL matches the "
+            "transparent sample before scaling (ROADMAP.md §A.5, other "
+            "image formats)")
+    h, w = px.shape[:2]
+    alpha = np.full((h, w, 1), 255, np.uint8)
+    if ctype == 3:
+        lut = np.full((len(palette),), 255, np.uint8)
+        if trns is not None:
+            t = np.frombuffer(trns, np.uint8)[:len(palette)]
+            lut[:len(t)] = t
+        idx = px[..., 0]
+        return np.concatenate([palette[idx], lut[idx][..., None]], axis=2)
+    if ctype in (4, 6):
+        alpha = px[..., -1:]
+    color = px[..., :1].repeat(3, axis=2) if ctype in (0, 4) else px[..., :3]
+    if trns is not None and ctype in (0, 2):
+        key = np.frombuffer(trns, ">u2").astype(np.int64)
+        same = (px[..., :len(key)].astype(np.int64) == key).all(axis=2)
+        alpha = np.where(same, 0, 255).astype(np.uint8)[..., None]
+    return np.ascontiguousarray(np.concatenate([color, alpha], axis=2))
+
+
 def _no_part(name: str):
     return contextlib.nullcontext()
 
 
 def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
-                part: Callable = _no_part) -> torch.Tensor:
+                part: Callable = _no_part, exif: bool = True
+                ) -> torch.Tensor:
     """JPEG bytes → (H, W, 3) RGB or (H, W) gray uint8 on `device`, as
-    cv2.imread gives it. part(name) wraps each of the two stages,
+    cv2.imread gives it (exif=False: as PIL's Image.open gives it, without
+    the EXIF orientation). part(name) wraps each of the two stages,
     "jpeg_entropy" (host) and "jpeg_pixels" (upload and pixel stage on the
     device), for a caller that times them."""
     device = torch.device(device)
@@ -300,7 +358,8 @@ def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
         coefs = jpeg_entropy.decode_scans(header, data, device)
     with part("jpeg_pixels"):
         return jpeg_pixels.decode(
-            header, [torch.from_numpy(c).to(device) for c in coefs], gray)
+            header, [torch.from_numpy(c).to(device) for c in coefs], gray,
+            exif=exif)
 
 
 def _read(path, device, gray: bool, part: Callable = _no_part):
@@ -338,6 +397,22 @@ def read_rgb_tensor(path, device, part: Callable = _no_part
     return img
 
 
+def read_rgba_tensor(path, device) -> torch.Tensor:
+    """(H, W, 4) uint8 on `device`, as PIL's
+    Image.open(path).convert("RGBA") gives it: a PNG through
+    decode_png_rgba, a JPEG through decode_jpeg without its EXIF
+    orientation (PIL's open does not apply it) and with alpha 255."""
+    with open(path, "rb") as f:
+        data = f.read()
+    kind = _refuse_unported(path, data[:16])
+    if kind == "png":
+        return torch.from_numpy(decode_png_rgba(data)).to(device)
+    if kind != "jpeg":
+        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
+    rgb = decode_jpeg(data, device, exif=False)
+    return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], dim=2)
+
+
 def _filter_rows(img: np.ndarray, filters: Sequence[int]) -> bytes:
     """The filtered byte stream: each row's filter type, then its bytes
     minus the filter's predictor (computed only for the types in use)."""
@@ -369,21 +444,40 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, filters: Sequence[int] = (2,)) -> bytes:
-    """(H, W) gray or (H, W, 3) RGB uint8 → PNG bytes, rows filtered by
-    `filters` (cycled), deflated at ZLIB_LEVEL."""
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 → PNG bytes, rows
+    filtered by `filters` (cycled), deflated at ZLIB_LEVEL."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or
-                                     (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"expected (H, W) or (H, W, 3) uint8, got "
-                         f"{img.shape} {img.dtype}")
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"expected (H, W), (H, W, 3) or (H, W, 4) uint8, "
+                         f"got {img.shape} {img.dtype}")
     if not len(filters) or not all(0 <= int(f) <= 4 for f in filters):
         raise ValueError(f"row filters must be in 0..4, got {filters}")
     h, w = img.shape[:2]
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2,
-                       0, 0, 0)
+    ctype = 0 if img.ndim == 2 else {3: 2, 4: 6}[img.shape[2]]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
     data = zlib.compress(_filter_rows(img, filters), ZLIB_LEVEL)
     return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", data)
             + _chunk(b"IEND", b""))
+
+
+def encode_jpeg(img: torch.Tensor, quality: int = 95) -> bytes:
+    """(H, W, 3) RGB uint8 (a tensor on any device, or numpy) → the bytes
+    Pillow's Image.fromarray(img).save(path, quality=quality) writes:
+    libjpeg-turbo's baseline 4:2:0 file (ops/jpeg.encode_coefficients on
+    the tensor's device, the Huffman coding on the host)."""
+    img = torch.as_tensor(img)
+    h, w = img.shape[:2]
+    blocks = jpeg_pixels.encode_coefficients(img, quality)
+    data = jpeg_entropy.encode_scan([b.cpu().numpy() for b in blocks])
+    return (jpeg.baseline_headers(w, h, jpeg_pixels.quality_tables(quality))
+            + data + b"\xff\xd9")
+
+
+def write_jpeg(path, img: torch.Tensor, quality: int = 95) -> None:
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def write_png(path, img: np.ndarray, filters: Optional[Sequence[int]] = None

@@ -72,6 +72,18 @@ STD_AC_CHROMA = ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), bytes.from
     "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
     "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
 
+# jcparam.c's example quantization tables (natural order), which
+# jpeg_set_quality scales
+STD_LUMA_Q = (
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+STD_CHROMA_Q = (
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99) \
+    + (99,) * 32
+
 ROADMAP = "(ROADMAP.md §A.5, other image formats)"
 SOI = b"\xff\xd8"
 _APP0, _APP1, _APP14 = 0xE0, 0xE1, 0xEE
@@ -486,6 +498,48 @@ def huffman_lookup(table: Tuple[tuple, bytes], is_dc: bool) -> np.ndarray:
         _LUT_CACHE.clear()
     _LUT_CACHE[key] = lut
     return lut
+
+
+def huffman_codes(table) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, length) of each of the 256 symbols of a (bits, values) table
+    (length 0: not coded), as jchuff.c's jpeg_make_c_derived_tbl."""
+    bits, vals = table
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def baseline_headers(width: int, height: int, qtables) -> bytes:
+    """SOI to SOS of a baseline 4:2:0 YCbCr file as libjpeg-turbo writes
+    it under Pillow's save(quality=q): JFIF 1.01 APP0 (no density unit,
+    1:1), one DQT per table (zigzag order), SOF0 (components 1-3, Y 2x2 on
+    table 0, Cb and Cr 1x1 on table 1), one DHT per standard table (luma
+    DC, AC, chroma DC, AC), SOS over the three components."""
+    out = [SOI, _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, q in enumerate(qtables):
+        out.append(_segment(0xDB, bytes([t]) + bytes(
+            q[i] for i in NATURAL[:64])))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for cls_t, (bits, vals) in ((0x00, STD_DC_LUMA), (0x10, STD_AC_LUMA),
+                                (0x01, STD_DC_CHROMA),
+                                (0x11, STD_AC_CHROMA)):
+        out.append(_segment(0xC4, bytes([cls_t]) + bytes(bits)
+                            + bytes(vals)))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63,
+                                     0])))
+    return b"".join(out)
 
 
 def scan_table(scan: Scan, i: int, is_dc: bool) -> Tuple[tuple, bytes]:

@@ -93,6 +93,27 @@ def watermarked_images(n: int, size: int, seed: int = 0, clean: int = 0
     return images, logos
 
 
+def logo_images(n: int, seed: int = 0) -> List[np.ndarray]:
+    """n RGBA uint8 logos for data/gen_data.py: a ring with a bar through
+    it on a transparent canvas of 32-128 px a side, one colour each, the
+    ring opaque and the bar at alpha 160-255."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(32, 129, 2))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        r = min(h, w) / 2 - 2
+        d = np.hypot(yy - h / 2, xx - w / 2)
+        ring = np.abs(d - 0.8 * r) < 0.15 * r
+        bar = (np.abs(yy - h / 2) < 0.12 * r) & (d < r)
+        img = np.zeros((h, w, 4), np.uint8)
+        img[..., :3] = rng.integers(0, 256, 3, dtype=np.uint8)
+        img[..., 3] = np.where(ring, 255, np.where(
+            bar, rng.integers(160, 256), 0))
+        out.append(img)
+    return out
+
+
 def glyph_mask(text: str, scale: int) -> np.ndarray:
     """(7 * scale, (6 * len(text) - 1) * scale) bool ink of a line: 5x7
     glyphs one column apart, each font pixel a scale x scale block."""
@@ -171,15 +192,8 @@ def text_images(shapes: Sequence[Tuple[int, int]], seed: int = 0,
 # ---------------------------------------------------------------------------
 # the JPEG spec's example tables (K.1), natural order, scaled by quality as
 # libjpeg's jpeg_quality_scaling does
-STD_LUMA_Q = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-STD_CHROMA_Q = np.array([
-    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
-    + [99] * 32)
+STD_LUMA_Q = np.array(jpeg.STD_LUMA_Q)
+STD_CHROMA_Q = np.array(jpeg.STD_CHROMA_Q)
 SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}  # luma (h, v)
 # spectral bands of a progressive file's AC scans, one scan each per
 # component
@@ -199,21 +213,6 @@ def _dct_matrix() -> np.ndarray:
     d = np.cos((2 * x + 1) * u * np.pi / 16) / 2
     d[0] /= np.sqrt(2)
     return d
-
-
-def _huff_codes(table) -> Tuple[np.ndarray, np.ndarray]:
-    """(code, length) of each of the 256 symbols (length 0: not coded)."""
-    bits, vals = table
-    code_of = np.zeros(256, np.int64)
-    len_of = np.zeros(256, np.int64)
-    code, k = 0, 0
-    for length in range(1, 17):
-        for _ in range(bits[length - 1]):
-            code_of[vals[k]], len_of[vals[k]] = code, length
-            code += 1
-            k += 1
-        code <<= 1
-    return code_of, len_of
 
 
 def _magnitude(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -379,7 +378,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, sampling: str = "420",
         blocks.append(zz[..., _ZIGZAG])
     std = [(jpeg.STD_DC_LUMA, jpeg.STD_AC_LUMA),
            (jpeg.STD_DC_CHROMA, jpeg.STD_AC_CHROMA)]
-    codes = [(_huff_codes(dc), _huff_codes(ac)) for dc, ac in std]
+    codes = [(jpeg.huffman_codes(dc), jpeg.huffman_codes(ac)) for dc, ac in std]
     ncomp = len(planes)
     out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01"
                                           b"\x00\x01\x00\x00")]
@@ -460,7 +459,7 @@ def encode_jpeg_blocks(blocks: np.ndarray, quant: np.ndarray) -> bytes:
             (np.abs(zz[:, 1:]) > 1023).any() or \
             quant.min() < 1 or quant.max() > 255:
         raise ValueError("a value the standard tables cannot code")
-    codes = (_huff_codes(jpeg.STD_DC_LUMA), _huff_codes(jpeg.STD_AC_LUMA))
+    codes = (jpeg.huffman_codes(jpeg.STD_DC_LUMA), jpeg.huffman_codes(jpeg.STD_AC_LUMA))
     dht = b"".join(bytes([cls << 4]) + bytes(bits) + bytes(vals)
                    for cls, (bits, vals) in ((0, jpeg.STD_DC_LUMA),
                                              (1, jpeg.STD_AC_LUMA)))

@@ -1,6 +1,8 @@
 """The port's config loading against the JAX package's: its YAML subset
-reader against PyYAML on the shipped files, the merged field values, and
-merge_from_list's coercion."""
+reader against PyYAML on the shipped files, the leaf keys (JAX's 109) and
+their defaults, the merged field values, and merge_from_list's coercion,
+for every key."""
+import json
 from dataclasses import fields, is_dataclass
 from pathlib import Path
 
@@ -78,15 +80,14 @@ def test_constructs_outside_the_subset_raise(text):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_merged_fields_equal_jax(name):
-    """After each shipped file, every field the port's tree has holds the
-    value the JAX tree holds after update_config (MODEL, DATA, TRAIN, LOSS,
-    OPTIMIZER, PREDICT, TEXT_WATERMARK); keys the port's tree lacks (VAL,
-    ...) are skipped as JAX skips unknown keys."""
+    """After each shipped file, every field of the port's tree (all 109
+    of JAX's leaf keys) holds the value the JAX tree holds after
+    update_config."""
     cfg, jcfg = get_cfg_defaults(), jax_defaults()
     update_config(cfg, PORT_DIR / name)
     jax_update(jcfg, str(JAX_DIR / name))
     paths = list(_paths(cfg))
-    assert len(paths) == 66
+    assert len(paths) == 109
     for path in paths:
         value, jvalue = cfg.get_by_path(path), jcfg.get_by_path(path)
         assert value == jvalue and type(value) is type(jvalue), path
@@ -122,3 +123,54 @@ def test_merge_from_list_refuses_what_jax_refuses():
     for c in (get_cfg_defaults(), jax_defaults()):
         with pytest.raises(TypeError):
             c.merge_from_list(["PREDICT.TEST_SCALES", "0.5"])
+
+
+JAX_PATHS = sorted(_paths(jax_defaults()))
+
+
+def test_leaf_keys_and_defaults_equal_jax():
+    cfg, jcfg = get_cfg_defaults(), jax_defaults()
+    assert sorted(_paths(cfg)) == JAX_PATHS and len(JAX_PATHS) == 109
+    for path in JAX_PATHS:
+        value, jvalue = cfg.get_by_path(path), jcfg.get_by_path(path)
+        assert value == jvalue and type(value) is type(jvalue), path
+
+
+def _override(value):
+    """A string --opts value that differs from the default `value`: the
+    JSON form (which YAML reads back) of the bool negated, the number
+    plus one (a float plus 0.25), the string with "x" appended, the list
+    with its last element repeated (an empty one gets a string), and a
+    string for a None default."""
+    if value is None:
+        return "text"
+    if isinstance(value, bool):
+        other = not value
+    elif isinstance(value, (int, float)):
+        other = value + (0.25 if isinstance(value, float) else 1)
+    elif isinstance(value, str):
+        other = value + "x"
+    else:
+        other = list(value) + (list(value[-1:]) or ["x"])
+    return json.dumps(other)
+
+
+@pytest.mark.parametrize("key", JAX_PATHS)
+def test_every_key_takes_an_override_as_jax(key):
+    """--opts KEY VALUE for each of JAX's keys, VALUE not the default:
+    accepted, and coerced to JAX's value and type; and the same key from a
+    YAML mapping."""
+    default = jax_defaults().get_by_path(key)
+    value = _override(default)
+    cfg, jcfg = get_cfg_defaults(), jax_defaults()
+    cfg.merge_from_list([key, value])
+    jcfg.merge_from_list([key, value])
+    got, want = cfg.get_by_path(key), jcfg.get_by_path(key)
+    assert want != default
+    assert got == want and type(got) is type(want)
+    *sections, leaf = key.split(".")
+    tree = {leaf: jcfg.get_by_path(key)}
+    for sec in reversed(sections):
+        tree = {sec: tree}
+    cfg = get_cfg_defaults().merge_from_dict(tree)
+    assert cfg.get_by_path(key) == want

@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import with jax, flax, optax, orbax, yaml,
-PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr and the JAX
-package blocked (the GPU machine has none of them), every module of the
+PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
+nunchaku and the JAX package blocked (the GPU machine has none of them), every module of the
 port among them (ocr/, ops/imgproc.py, the training path and the `auto`
 loop's modules too), and
 chip_smoke.py gives no result without a card."""
@@ -15,7 +15,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ["jax", "flax", "optax", "orbax", "yaml", "PIL", "cv2",
            "matplotlib", "tqdm", "torchvision", "requests", "easyocr",
-           "unet_watermark_tpu"]
+           "diffusers", "nunchaku", "unet_watermark_tpu"]
 # modules that must be among those imported
 MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.ocr.base",
@@ -49,7 +49,13 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.scripts.model_selector",
         "unet_watermark_tpu_torch.scripts.quality_report",
         "unet_watermark_tpu_torch.scripts.video_generator",
-        "unet_watermark_tpu_torch.training.auto_train"]
+        "unet_watermark_tpu_torch.training.auto_train",
+        "unet_watermark_tpu_torch.diffusion.sd3_inpaint",
+        "unet_watermark_tpu_torch.diffusion.flux_process",
+        "unet_watermark_tpu_torch.data.synth_clean",
+        "unet_watermark_tpu_torch.scripts.inpaint_quality",
+        "unet_watermark_tpu_torch.scripts.calibrate_quant",
+        "unet_watermark_tpu_torch.tools.smoke_phases"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

@@ -1,7 +1,9 @@
-"""The part of the JAX package's typed config tree that the port reads,
-with its YAML loading and override rules.
+"""The JAX package's typed config tree, all 109 of its leaf keys, with its
+YAML loading and override rules.
 
-Field names and defaults are copied from unet_watermark_tpu/configs/config.py.
+Field names and defaults are copied from unet_watermark_tpu/configs/config.py;
+the keys JAX stores and never reads are stored here the same way (their
+comments say so), so every YAML and --opts JAX accepts, the port accepts.
 That module imports PyYAML, which the GPU machine lacks, so the port reads
 YAML with yaml_subset.load: the subset that the three shipped files use.
 Merging follows the JAX package's _merge_into: keys the tree lacks are
@@ -25,13 +27,22 @@ DEFAULT_CONFIG = Path(__file__).resolve().parent / "unet_watermark.yaml"
 class ModelConfig:
     NAME: str = "UnetPlusPlus"
     ENCODER_NAME: str = "resnet34"
+    ENCODER_WEIGHTS: Optional[str] = "imagenet"  # stored, not read
+    ENCODER_DEPTH: int = 5  # stored, not read
     DECODER_CHANNELS: List[int] = field(
         default_factory=lambda: [256, 128, 64, 32, 16])
+    IN_CHANNELS: int = 3  # anything else raises NotImplementedError
+    CLASSES: int = 1  # the head's output channels
+    ACTIVATION: Optional[str] = None  # None/"identity", "sigmoid", "softmax"
     # compute dtype of the network; logits are fp32, and training keeps
     # fp32 parameters (bf16 compute under torch.autocast)
     DTYPE: str = "bfloat16"
+    PARAM_DTYPE: str = "float32"  # stored, not read: parameters are fp32
     REMAT: bool = False  # training: recompute the encoder's blocks and the
     # decoder in the backward pass (torch.utils.checkpoint)
+    # JAX's fused up-conv computes the function of the plain upsample +
+    # concat form the port runs; stored, not read
+    FUSED_DECODER: bool = True
     # UNet++ decoder layout: "canonical" (the Zhou grid of the shipped
     # weights); "smp" (the layout of reference .pth imports) is not ported
     DECODER_IMPL: str = "canonical"
@@ -44,6 +55,7 @@ class DataConfig:
     IMG_SIZE: int = 512
     GENERATE_MASK_THRESHOLD: int = 30
     TRAIN_RATIO: float = 0.8
+    VAL_RATIO: float = 0.2
     SHUFFLE: bool = True
     SEED: int = 42
     NUM_WORKERS: int = 4
@@ -57,6 +69,10 @@ class DataConfig:
     DEVICE_CACHE_MB: int = 3072
     PREFETCH_FACTOR: int = 2
     AUGMENTATION_TYPE: str = "transparent_watermark"
+    # the text configuration's extras (unet_text_watermark.yaml); stored
+    TEXT_ENHANCEMENT: bool = False
+    EDGE_ENHANCEMENT: bool = False
+    CONTRAST_BOOST: float = 1.0
 
 
 @dataclass
@@ -73,19 +89,28 @@ class TrainConfig:
     EARLY_STOPPING_PATIENCE: int = 10
     CHECKPOINT_DIR: str = "models/checkpoints"
     SAVE_BEST_ONLY: bool = False
+    USE_AMP: bool = False  # stored, not read: MODEL.DTYPE sets the compute
     GRADIENT_CLIP: float = 1.0
+    # JAX's dispatch knobs (buffer donation, lax.scan over steps and
+    # epochs); stored, not read
+    DONATE_STATE: bool = True
+    STEPS_PER_EXEC: int = 1
+    EPOCH_SCAN: bool = True
 
 
 @dataclass
 class LossConfig:
     NAME: str = "DiceLoss"
+    MODE: str = "binary"  # stored, not read
     SMOOTH: float = 1e-5
     BCE_WEIGHT: float = 0.5
     DICE_WEIGHT: float = 0.5
+    DICE_SMOOTH: float = 1e-5  # stored, not read
     FOCAL_ALPHA: float = 0.25
     FOCAL_GAMMA: float = 2.0
     FOCAL_WEIGHT: float = 0.0
     EDGE_LOSS_WEIGHT: float = 0.0
+    CONNECTIVITY_LOSS_WEIGHT: float = 0.0  # stored, not read
 
 
 @dataclass
@@ -104,9 +129,12 @@ class PredictConfig:
     INPUT_PATH: str = "data/input"
     OUTPUT_DIR: str = "data/output"
     BATCH_SIZE: int = 8
+    AUTO_BATCH_SIZE: bool = True  # stored, not read
+    MAX_BATCH_SIZE: int = 32  # stored, not read
     THRESHOLD: float = 0.5  # mask = sigmoid(logit) > THRESHOLD (strict)
     POST_PROCESS: bool = True
     # the text configuration's flags (unet_text_watermark.yaml)
+    TEXT_MODE: bool = False  # stored, not read
     MULTI_SCALE_TEST: bool = False
     TEST_SCALES: List[float] = field(default_factory=lambda: [0.8, 1.0, 1.2])
     EDGE_REFINEMENT: bool = False
@@ -129,21 +157,61 @@ class PredictConfig:
 
 
 @dataclass
+class ValConfig:  # stored, not read, as in JAX
+    METRICS: List[str] = field(
+        default_factory=lambda: ["dice", "iou", "accuracy"])
+    TEXT_METRICS: bool = False
+    CHAR_LEVEL_EVAL: bool = False
+    EDGE_ACCURACY: bool = False
+
+
+@dataclass
 class TextWatermarkConfig:
+    # the text configuration's keys (unet_text_watermark.yaml): the
+    # predictor's CONNECTIVITY_CHECK reads CONNECTIVITY and
+    # MIN_COMPONENT_AREA; the others are stored, not read, as in JAX
+    MIN_TEXT_AREA: int = 50
+    MAX_TEXT_AREA: int = 10000
+    TEXT_ASPECT_RATIO_MIN: float = 0.2
+    TEXT_ASPECT_RATIO_MAX: float = 10.0
+    MORPH_KERNEL_SIZE: int = 3
+    DILATE_ITERATIONS: int = 1
+    ERODE_ITERATIONS: int = 1
     CONNECTIVITY: int = 8
     MIN_COMPONENT_AREA: int = 30
+    CLAHE_CLIP_LIMIT: float = 2.5
+    CLAHE_TILE_SIZE: int = 8
+    CANNY_LOW_THRESHOLD: int = 40
+    CANNY_HIGH_THRESHOLD: int = 120
+    SHARPEN_STRENGTH: float = 1.2
+
+
+@dataclass
+class ParallelConfig:
+    """JAX's device mesh; stored, not read: the port runs on one device
+    (ROADMAP.md §A's queue: more than one device)."""
+    MESH_SHAPE: Optional[List[int]] = None
+    MESH_AXES: List[str] = field(default_factory=lambda: ["data"])
+    DATA_AXIS: str = "data"
+    SPATIAL_AXIS: Optional[str] = None
+    SPATIAL_HALO: int = 32
 
 
 @dataclass
 class Config:
+    # JAX's platform name; stored, not read: every entry point takes its
+    # device from the caller (utils/device.resolve_device, "cuda" default)
+    DEVICE: str = "tpu"
     MODEL: ModelConfig = field(default_factory=ModelConfig)
     DATA: DataConfig = field(default_factory=DataConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     LOSS: LossConfig = field(default_factory=LossConfig)
     OPTIMIZER: OptimizerConfig = field(default_factory=OptimizerConfig)
     PREDICT: PredictConfig = field(default_factory=PredictConfig)
+    VAL: ValConfig = field(default_factory=ValConfig)
     TEXT_WATERMARK: TextWatermarkConfig = field(
         default_factory=TextWatermarkConfig)
+    PARALLEL: ParallelConfig = field(default_factory=ParallelConfig)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -210,7 +278,7 @@ def _coerce(value: Any, current: Any) -> Any:
 
 def _merge_into(node: Any, d: Dict[str, Any]) -> None:
     for key, value in d.items():
-        if not hasattr(node, key):  # a key the port's tree does not read
+        if not hasattr(node, key):  # a key neither tree has, as JAX skips it
             continue
         current = getattr(node, key)
         if is_dataclass(current) and isinstance(value, dict):

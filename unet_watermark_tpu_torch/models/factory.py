@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -14,14 +14,15 @@ from .unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder
 
 
 class SegmentationModel(nn.Module):
-    """Encoder + decoder + head. NHWC in, (N, H, W, classes) fp32 logits out,
-    as the JAX model. Inside, the convolutions run NCHW (a permuted NHWC
-    tensor is channels-last in memory)."""
+    """Encoder + decoder + head. NHWC in, (N, H, W, classes) fp32 out, as
+    the JAX model: logits, or their sigmoid or channel softmax under
+    `activation` (SegmentationHead). Inside, the convolutions run NCHW (a
+    permuted NHWC tensor is channels-last in memory)."""
 
     def __init__(self, arch: str = "Unet", encoder_name: str = "resnet34",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  classes: int = 1, decoder_impl: str = "canonical",
-                 remat: bool = False):
+                 remat: bool = False, activation: Optional[str] = None):
         super().__init__()
         self.remat = remat
         arch_l = arch.lower()
@@ -40,7 +41,7 @@ class SegmentationModel(nn.Module):
         self.decoder = decoders[arch_l](self.encoder.out_channels,
                                         decoder_channels)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
-                                                  classes)
+                                                  classes, activation)
 
     def forward(self, x):
         if x.ndim != 4 or x.shape[-1] != 3:
@@ -61,15 +62,21 @@ class SegmentationModel(nn.Module):
 
 def create_model_from_config(cfg) -> SegmentationModel:
     """The model of cfg.MODEL, in float32 on the CPU; the caller moves it.
-    The JAX package's MODEL.FUSED_DECODER (its fused up-conv) computes the
-    same function as the plain upsample + concat form the port runs, so
-    the port has no such key."""
+    MODEL.CLASSES sets the head's channels and MODEL.ACTIVATION its
+    activation; MODEL.IN_CHANNELS other than 3 raises NotImplementedError,
+    as in JAX. The JAX package's MODEL.FUSED_DECODER (its fused up-conv)
+    computes the same function as the plain upsample + concat form the
+    port runs, so the port does not read it."""
+    if cfg.MODEL.IN_CHANNELS != 3:
+        raise NotImplementedError("in_channels != 3 not yet supported")
     return SegmentationModel(arch=cfg.MODEL.NAME,
                              encoder_name=cfg.MODEL.ENCODER_NAME,
                              decoder_channels=tuple(
                                  cfg.MODEL.DECODER_CHANNELS),
+                             classes=cfg.MODEL.CLASSES,
                              decoder_impl=cfg.MODEL.DECODER_IMPL,
-                             remat=cfg.MODEL.REMAT)
+                             remat=cfg.MODEL.REMAT,
+                             activation=cfg.MODEL.ACTIVATION)
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations,

@@ -128,11 +128,26 @@ class UnetPlusPlusDecoder(nn.Module):
         return self.final_block(grid[(0, 4)])
 
 
-class SegmentationHead(nn.Sequential):
-    """3x3 conv with bias → logits, cast to fp32."""
+ACTIVATIONS = (None, "identity", "sigmoid", "softmax")
 
-    def __init__(self, cin: int, classes: int = 1):
+
+class SegmentationHead(nn.Sequential):
+    """3x3 conv with bias → `classes` logits, cast to fp32, then the
+    activation: None or "identity" keeps the logits, "sigmoid", or
+    "softmax" over the channels; any other name raises ValueError, as
+    JAX's head does when it is applied."""
+
+    def __init__(self, cin: int, classes: int = 1,
+                 activation: Optional[str] = None):
         super().__init__(nn.Conv2d(cin, classes, 3, 1, 1, bias=True))
+        self.activation = activation
 
     def forward(self, x):
-        return super().forward(x).float()
+        x = super().forward(x).float()
+        if self.activation == "sigmoid":
+            return torch.sigmoid(x)
+        if self.activation == "softmax":
+            return torch.softmax(x, dim=1)
+        if self.activation not in (None, "identity"):
+            raise ValueError(f"unsupported activation {self.activation}")
+        return x

@@ -466,3 +466,284 @@ def _fill_edges(mask: np.ndarray, edges, value: int) -> None:
             left[2] += left[3]
             right[2] += right[3]
         active.sort(key=lambda e: e[2])
+
+
+# --------------------------------------------------------------------------
+# antialiased drawing on host numpy images (cv2's LINE_AA), and
+# cv2.GaussianBlur on float32 with the small kernels
+# --------------------------------------------------------------------------
+# drawing.cpp's tables: the slope correction and the 3-row line filter
+# (cv2 5.0's filter tail, entries 48-63, read back from its output)
+SLOPE_CORR = (181, 181, 181, 182, 182, 183, 184, 185, 187, 188, 190, 192,
+              194, 196, 198, 201, 203, 206, 209, 211, 214, 218, 221, 224,
+              227, 231, 235, 238, 242, 246, 250, 254)
+AA_FILTER = (168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246,
+             249, 252, 254, 254, 254, 254, 252, 249, 246, 241, 236, 231,
+             224, 218, 210, 202, 194, 185, 177, 168, 158, 149, 140, 131,
+             122, 114, 105, 97, 89, 82, 75, 68, 62, 56, 50, 45, 40, 36, 32,
+             28, 25, 22, 19, 16, 14, 12, 11, 9, 8, 7, 5, 5)
+# sin of 0..450 degrees, drawing.cpp's SinTable: 7 decimals, as floats
+SIN_TABLE = np.float32(np.round(np.sin(np.deg2rad(np.arange(451))), 7))
+
+
+def _blend_aa(img: np.ndarray, xs, ys, alphas, color) -> None:
+    """LineAA's ICV_PUT_POINT at pixels that are all distinct: each channel
+    moves toward the colour by ((c - p) * a + 127) >> 8, twice."""
+    if not xs:
+        return
+    ys, xs = np.asarray(ys), np.asarray(xs)
+    a = np.asarray(alphas, np.int64)[:, None]
+    c = np.asarray(color, np.int64)[None, :img.shape[2]]
+    p = img[ys, xs].astype(np.int64)
+    p = p + (((c - p) * a + 127) >> 8)
+    img[ys, xs] = p + (((c - p) * a + 127) >> 8)
+
+
+def line_aa(img: np.ndarray, p1, p2, color) -> None:
+    """drawing.cpp's LineAA on an (H, W, C) uint8 image, the endpoints in
+    16.16 fixed point: the line clipped to the image, 3 pixels across each
+    step along its major axis, weighted by the filter table and the slope
+    correction, with the end-point corrections."""
+    h, w = img.shape[:2]
+    ok, p1, p2 = _clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if not ok:
+        return
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    major_x = ax > ay
+    if major_x:
+        if dx < 0:
+            dy = -dy
+            x1, x2, y1, y2 = x2, x1, y2, y1
+        step = _trunc_div(dy << XY_SHIFT, ax | 1)
+        x2 += XY_ONE
+        ecount = (x2 >> XY_SHIFT) - (x1 >> XY_SHIFT)
+        y1 += ((step * -(x1 & (XY_ONE - 1))) >> XY_SHIFT) + (XY_ONE >> 1)
+        i, j = (x1 >> (XY_SHIFT - 7)) & 0x78, (x2 >> (XY_SHIFT - 7)) & 0x78
+        along, across = x1, y1
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, x2, y1, y2 = x2, x1, y2, y1
+        step = _trunc_div(dx << XY_SHIFT, ay | 1)
+        y2 += XY_ONE
+        ecount = (y2 >> XY_SHIFT) - (y1 >> XY_SHIFT)
+        x1 += ((step * -(y1 & (XY_ONE - 1))) >> XY_SHIFT) + (XY_ONE >> 1)
+        i, j = (y1 >> (XY_SHIFT - 7)) & 0x78, (y2 >> (XY_SHIFT - 7)) & 0x78
+        along, across = y1, x1
+    slope = ((step >> (XY_SHIFT - 5)) & 0x3f) ^ (0x3f if step < 0 else 0)
+    slope = 0x100 if slope & 0x20 else SLOPE_CORR[slope]
+    t0, t1, t2 = slope << 7, ((0x78 - i) | 4) * slope, (j | 4) * slope
+    ep = [0, 0, (t1 >> 8) & 0x1ff, 0,
+          ((((j - i) + 0x80) | 4) * slope >> 8) & 0x1ff,
+          ((t1 + t0) >> 8) & 0x1ff, (t2 >> 8) & 0x1ff,
+          ((t2 + t0) >> 8) & 0x1ff, slope]
+    ep[1] = ep[3] = ((((j - i) & 0x78) | 4) * slope >> 8) & 0x1ff
+    n_along, n_across = (w, h) if major_x else (h, w)
+    pos = along >> XY_SHIFT
+    us, vs, alphas = [], [], []
+    scount = 0
+    while ecount >= 0:
+        if 0 <= pos < n_along:
+            v = (across >> XY_SHIFT) - 1
+            corr = ep[(((scount >= 2) + 1) & (scount | 2)) * 3
+                      + (((ecount >= 2) + 1) & (ecount | 2))]
+            dist = (across >> (XY_SHIFT - 5)) & 31
+            for k, f in ((0, AA_FILTER[dist + 32]), (1, AA_FILTER[dist]),
+                         (2, AA_FILTER[63 - dist])):
+                if 0 <= v + k < n_across:
+                    us.append(pos)
+                    vs.append(v + k)
+                    alphas.append((corr * f >> 8) & 0xff)
+        pos += 1
+        across += step
+        scount += 1
+        ecount -= 1
+    if major_x:
+        _blend_aa(img, us, vs, alphas, color)
+    else:
+        _blend_aa(img, vs, us, alphas, color)
+
+
+def ellipse_poly(center, axes, angle: int, delta: int
+                 ) -> List[Tuple[float, float]]:
+    """cv2.ellipse2Poly's double form for the whole ellipse (arc 0-360):
+    its points every `delta` degrees, from the SinTable, in double."""
+    angle %= 360
+    beta, alpha = float(SIN_TABLE[angle]), float(SIN_TABLE[450 - angle])
+    pts = []
+    for a in range(0, 360 + delta, delta):
+        a = min(a, 360)
+        x = axes[0] * float(SIN_TABLE[450 - a])
+        y = axes[1] * float(SIN_TABLE[a])
+        pts.append((center[0] + x * alpha - y * beta,
+                    center[1] + x * beta + y * alpha))
+    return pts
+
+
+def _ellipse_filled_fixed(img: np.ndarray, center, axes, angle: int,
+                          color) -> None:
+    """EllipseEx(..., 0, 360, thickness -1, LINE_AA), center and axes in
+    16.16: the polygon of ellipse_poly, vertices rounded to the fixed-point
+    grid as cv2 rounds them, then fill_convex_poly_aa."""
+    axes = (abs(axes[0]), abs(axes[1]))
+    delta = (max(axes) + (XY_ONE >> 1)) >> XY_SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 \
+        else 5
+    v, prev = [], None
+    for fx, fy in ellipse_poly((float(center[0]), float(center[1])),
+                               (float(axes[0]), float(axes[1])), angle,
+                               delta):
+        px = int(np.rint(fx / XY_ONE)) << XY_SHIFT
+        py = int(np.rint(fy / XY_ONE)) << XY_SHIFT
+        pt = (px + int(np.rint(fx - px)), py + int(np.rint(fy - py)))
+        if pt != prev:
+            v.append(pt)
+            prev = pt
+    if len(v) == 1:
+        v = [tuple(center)] * 2
+    fill_convex_poly_aa(img, v, color)
+
+
+def fill_convex_poly_aa(img: np.ndarray, v, color) -> None:
+    """drawing.cpp's FillConvexPoly with LINE_AA, vertices in 16.16: the
+    outline with line_aa, then the two-edge scanline fill from the topmost
+    vertex, each span [(xl + 1 - 2^-16) floor, xr floor]."""
+    h, w = img.shape[:2]
+    n = len(v)
+    p0 = v[-1]
+    for p in v:
+        line_aa(img, p0, p, color)
+        p0 = p
+    half = XY_ONE >> 1
+    xs = [p[0] for p in v]
+    ys = [p[1] for p in v]
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + half) >> XY_SHIFT, (max(xs) + half) >> XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> XY_SHIFT, (max(ys) + half) >> XY_SHIFT
+    if n < 3 or xmax < 0 or ymin >= h or xmin >= w:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [[imin, 1, -XY_ONE, 0, ymin], [imin, n - 1, -XY_ONE, 0, ymin]]
+    y, edges = ymin, n
+    fill = np.asarray(color, np.uint8)[:img.shape[2]]
+    while True:
+        if y < ymax or y == ymin:
+            for e in edge:  # [idx, di, x, dx, ye]
+                if y < e[4]:
+                    continue
+                idx0, di = e[0], e[1]
+                idx = (idx0 + di) % n
+                while True:
+                    edges -= 1
+                    if edges < 0:
+                        break
+                    ty = (v[idx][1] + half) >> XY_SHIFT
+                    if ty > y:
+                        xs0, xe = v[idx0][0], v[idx][0]
+                        e[2:] = [xs0, _trunc_div((xe - xs0) * 2 + (ty - y),
+                                                 2 * (ty - y)), ty]
+                        e[0] = idx
+                        break
+                    idx0, idx = idx, (idx + di) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = sorted((edge[0][2], edge[1][2]))
+            x1, x2 = (left + XY_ONE - 1) >> XY_SHIFT, right >> XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = fill
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def ellipse_filled_aa(img: np.ndarray, center, axes, angle: float,
+                      color) -> None:
+    """cv2.ellipse(img, center, axes, angle, 0, 360, color, -1, LINE_AA)
+    with integer center and axes (shift 0)."""
+    _ellipse_filled_fixed(img, (center[0] << XY_SHIFT, center[1] << XY_SHIFT),
+                          (axes[0] << XY_SHIFT, axes[1] << XY_SHIFT),
+                          int(np.rint(angle)), color)
+
+
+def line_thick_aa(img: np.ndarray, p0, p1, color, thickness: int) -> None:
+    """cv2.line(img, p0, p1, color, thickness, LINE_AA) (shift 0):
+    thickness 1 is line_aa; a thicker line is drawing.cpp's ThickLine, the
+    quad of half-width (t/2, plus half a pixel where t is odd) filled by
+    fill_convex_poly_aa, then a filled circle of radius t/2 at each end."""
+    p0 = (p0[0] << XY_SHIFT, p0[1] << XY_SHIFT)
+    p1 = (p1[0] << XY_SHIFT, p1[1] << XY_SHIFT)
+    if thickness <= 1:
+        line_aa(img, p0, p1, color)
+        return
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    thickness <<= XY_SHIFT - 1
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (thickness + odd * XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        fill_convex_poly_aa(img, [(p0[0] + ox, p0[1] + oy),
+                                  (p0[0] - ox, p0[1] - oy),
+                                  (p1[0] - ox, p1[1] - oy),
+                                  (p1[0] + ox, p1[1] + oy)], color)
+    for c in (p0, p1):
+        _ellipse_filled_fixed(img, c, (thickness, thickness), 0, color)
+
+
+def fill_poly_aa(img: np.ndarray, pts, color) -> None:
+    """cv2.fillPoly(img, [pts], color, LINE_AA) for one int32 polygon
+    (shift 0): each edge drawn with line_aa, then the edge-list fill with
+    cv2 5.0's spans (_fill_edges), edges at the unrounded fixed-point x."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    edges = []
+    x0, y0 = pts[-1]
+    for x1, y1 in pts:
+        line_aa(img, (x0 << XY_SHIFT, y0 << XY_SHIFT),
+                (x1 << XY_SHIFT, y1 << XY_SHIFT), color)
+        if y0 != y1:
+            dxe = _trunc_div((x1 - x0) << XY_SHIFT, y1 - y0)
+            edges.append([y0, y1, x0 << XY_SHIFT, dxe] if y0 < y1
+                         else [y1, y0, x1 << XY_SHIFT, dxe])
+        x0, y0 = x1, y1
+    _fill_edges(img, edges, np.asarray(color, np.uint8)[:img.shape[2]])
+
+
+# cv2.getGaussianKernel's fixed kernels for ksize 3, 5, 7 with sigma <= 0
+SMALL_GAUSSIAN = {3: (0.25, 0.5, 0.25),
+                  5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+                  7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875,
+                      0.109375, 0.03125)}
+
+
+def _symm_pass(x: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    r = len(k) // 2
+    n = x.shape[axis]
+    idx = np.abs(np.arange(-r, n + r))
+    idx = np.where(idx > n - 1, 2 * (n - 1) - idx, idx)  # reflect-101
+    xp = np.take(x, idx, axis=axis)
+
+    def tap(o):
+        return np.take(xp, np.arange(o, o + n), axis=axis)
+
+    s = tap(r) * k[r]
+    for j in range(1, r + 1):
+        s = s + (tap(r - j) + tap(r + j)) * k[r + j]
+    return s
+
+
+def gaussian_blur_f32(img: np.ndarray, ksize: int) -> np.ndarray:
+    """cv2.GaussianBlur(img, (k, k), 0) on a float32 (H, W[, C]) host
+    array, k in 3, 5, 7: the fixed kernel, BORDER_REFLECT_101, rows then
+    columns, each output k_c x_c + (x_-1 + x_1) k_1 + ... in float32.
+    Equal to cv2 for k = 3; for 5 and 7 cv2's vector order differs on a
+    share of the values by one float32 ulp (ROADMAP.md, stated
+    differences)."""
+    k = np.asarray(SMALL_GAUSSIAN[ksize], np.float32)
+    x = np.asarray(img, np.float32)
+    return _symm_pass(_symm_pass(x, k, 1), k, 0)

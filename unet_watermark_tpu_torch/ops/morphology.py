@@ -37,6 +37,23 @@ def rect_kernel(width: int, height: int) -> np.ndarray:
     return np.ones((height, width), np.float32)
 
 
+def get_structuring_element(shape: str, ksize: Tuple[int, int]
+                            ) -> np.ndarray:
+    """cv2.getStructuringElement for "ellipse", "rect" and "cross", ksize
+    (width, height): an (h, w) float32 0/1 array."""
+    w, h = ksize
+    if shape == "ellipse":
+        return ellipse_kernel(w, h)
+    if shape == "rect":
+        return rect_kernel(w, h)
+    if shape == "cross":
+        k = np.zeros((h, w), np.float32)
+        k[h // 2, :] = 1.0
+        k[:, w // 2] = 1.0
+        return k
+    raise ValueError(f"unknown structuring element shape '{shape}'")
+
+
 def _as_nchw(x: torch.Tensor):
     if not 2 <= x.ndim <= 4:
         raise ValueError(f"expected 2-4 dims, got {tuple(x.shape)}")
@@ -82,6 +99,18 @@ def morph_open(mask, kernel, iterations: int = 1):
 def morph_close(mask, kernel, iterations: int = 1):
     """cv2.morphologyEx(MORPH_CLOSE, iterations=n) = dilate^n → erode^n."""
     return erode(dilate(mask, kernel, iterations), kernel, iterations)
+
+
+def morph_gradient(mask: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """cv2 MORPH_GRADIENT of a binary mask, dilate - erode (the border 0
+    for the dilation, 1 for the erosion), as float32 {0, 1}: each (H, W)
+    plane through ops/imgproc.morph_gradient on uint8."""
+    from .imgproc import morph_gradient as grey_gradient
+
+    x, shape = _as_nchw(mask)
+    planes = (x[:, 0] > 0.5).to(torch.uint8)
+    out = torch.stack([grey_gradient(p, kernel) for p in planes])
+    return out.float().reshape(shape)
 
 
 @functools.lru_cache(maxsize=64)

@@ -136,3 +136,48 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h, w = x.shape[-2:]
     iy, ix = _on(x.device, _nearest_index(h, oh), _nearest_index(w, ow))
     return x.index_select(-2, iy).index_select(-1, ix)
+
+
+def _cubic_weight(t: float) -> float:
+    """cv2's bicubic kernel with A = -0.75, evaluated in double."""
+    a, t = -0.75, abs(t)
+    if t <= 1:
+        return ((a + 2) * t - (a + 3)) * t * t + 1
+    return ((a * t - 5 * a) * t + 8 * a) * t - 4 * a
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_taps(src: int, dst: int):
+    scale = src / dst
+    idx = np.zeros((dst, 4), np.int64)
+    wts = np.zeros((dst, 4), np.float32)
+    for d in range(dst):
+        fx = (d + 0.5) * scale - 0.5
+        sx = int(np.floor(fx))
+        t = fx - sx
+        wts[d] = [_cubic_weight(t + 1), _cubic_weight(t),
+                  _cubic_weight(1 - t), _cubic_weight(2 - t)]
+        idx[d] = np.clip(np.arange(sx - 1, sx + 3), 0, src - 1)
+    return idx, wts
+
+
+def resize_cubic_f32(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(x, (w, h), interpolation=INTER_CUBIC) on a float32 (H, W)
+    host array: the 4 taps of the A = -0.75 kernel at the double source
+    offset, rounded to float32, a replicated border, rows then columns,
+    each a left-to-right float32 sum. cv2 5.0 sums in another order (its
+    path for 4 rows or more): up to 3 float32 ulps apart on about half of
+    the values (ROADMAP.md, stated differences)."""
+    oh, ow = _check_size(size)
+    x = np.asarray(x, np.float32)
+    ix, wx = _cubic_taps(x.shape[1], ow)
+    iy, wy = _cubic_taps(x.shape[0], oh)
+    g = x[:, ix]
+    rows = g[..., 0] * wx[:, 0]
+    for k in range(1, 4):
+        rows = rows + g[..., k] * wx[:, k]
+    g = rows[iy]
+    out = g[:, 0] * wy[:, 0, None]
+    for k in range(1, 4):
+        out = out + g[:, k] * wy[:, k, None]
+    return out

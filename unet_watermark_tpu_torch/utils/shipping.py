@@ -7,6 +7,7 @@ load_params_npz reads what save_params_npz writes.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import zipfile
 from pathlib import Path
@@ -78,8 +79,7 @@ def decode_bf16(u16: np.ndarray) -> np.ndarray:
     return (u16.astype(np.uint32) << 16).view(np.float32)
 
 
-def load_npz(path) -> Dict[str, np.ndarray]:
-    """{flax path: array}; BF16 entries decoded to float32."""
+def _decode_npz(path) -> Dict[str, np.ndarray]:
     out = {}
     with np.load(path) as data:
         for k in data.files:
@@ -89,6 +89,40 @@ def load_npz(path) -> Dict[str, np.ndarray]:
             else:
                 out[k] = v
     return out
+
+
+_KEPT: Optional[Dict[tuple, Dict[str, np.ndarray]]] = None
+
+
+@contextlib.contextmanager
+def keep_loads():
+    """Within this context load_npz keeps each file's decoded arrays,
+    keyed by its path and its members' names and CRC-32s (the zip's
+    directory), and returns copies of them; they are dropped on leaving
+    the outermost context. For callers that load the same weights many
+    times, as the quality report does."""
+    global _KEPT
+    outer = _KEPT is not None
+    if not outer:
+        _KEPT = {}
+    try:
+        yield
+    finally:
+        if not outer:
+            _KEPT = None
+
+
+def load_npz(path) -> Dict[str, np.ndarray]:
+    """{flax path: array}; BF16 entries decoded to float32 (kept for the
+    next call inside keep_loads)."""
+    if _KEPT is None:
+        return _decode_npz(path)
+    with zipfile.ZipFile(path) as zf:
+        key = (os.path.realpath(path), tuple(
+            (i.filename, i.CRC, i.file_size) for i in zf.infolist()))
+    if key not in _KEPT:
+        _KEPT[key] = _decode_npz(path)
+    return {k: v.copy() for k, v in _KEPT[key].items()}
 
 
 def encode_bf16(x: np.ndarray) -> np.ndarray:

@@ -8,7 +8,9 @@ Phases, each printing its own line:
   1  build the native sources (nvcc → .so for each .cu, cc for the JPEG
      entropy coder; all compiler calls started together, before the
      port's imports, phase 0 and the profiler's first session, which run
-     meanwhile; ctypes) and report the build time
+     meanwhile, as do 4 host workers writing 3d's and 3f's input folders
+     and running 3f's plain entropy decodes; ctypes) and report the build
+     time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
      borders, and blob masks, at the main path's shape (BATCH x SIZE²) and
@@ -68,8 +70,9 @@ Phases, each printing its own line:
      text images as written; then the command: rc 0, "success",
      ocr_engine_used "builtin", no OCR or engine failure, K1 and K2
      launched by its step 1, a text mask with text for every text image,
-     every text mask equal to the detector run with device="cpu" on the
-     same step-2 file (filled and dilated as step 3 does), final pixels
+     every text mask with text and the CPU_DETECT_EMPTY smallest without
+     equal to the detector run with device="cpu" on the same step-2 file
+     (filled and dilated as step 3 does), and there final pixels
      outside the text mask equal to step 2's bytes, every merged mask equal
      to the plain tight chain of max(step-1 mask, text mask), and
      >= GLYPH_COVER of each line's drawn glyph pixels under max(step-1
@@ -117,10 +120,13 @@ Phases, each printing its own line:
      beside im2col + torch._int_mm; a profile of the UNet++ network in
      each tier; `repair --quant --no-ocr` on 4 of 3d's files (rc 0,
      "success", engine "ffc-lama", 68 launches)
-  3h-3k the `train` command, the fill trainers, the `auto` command and
-     the quality record (scripts/quality_report.py, calibrate_quant and
-     the SD3/FLUX shells): unet_watermark_tpu_torch/tools/smoke_phases.py,
-     whose docstring lists their checks
+  3h-3l the `train` command, the fill trainers, the `auto` command, the
+     quality record (scripts/quality_report.py, calibrate_quant and the
+     SD3/FLUX shells), and the reference's checkpoint formats with the
+     blurred training masks (.pth in and out, the smp-layout UNet++,
+     big-lama as the fill, `train --use-blurred-mask`):
+     unet_watermark_tpu_torch/tools/smoke_phases.py, whose docstring lists
+     their checks
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -141,6 +147,8 @@ exits non-zero without that last line; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import atexit
+import contextlib
 import json
 import os
 import shutil
@@ -155,9 +163,9 @@ PORT = "unet_watermark_tpu_torch"
 try:  # phases 3h-3k and the helpers they share with this file
     from unet_watermark_tpu_torch.tools.smoke_phases import (
         BATCH, LAMA_SEGMENTS, PEAK_BF16_FLOPS_PER_S, SIZE, auto_phase,
-        conv_flops, cuda_ms, fill_training_phase, host_ms, host_pool, log,
-        nvidia_smi_line, profile_window, profiled_ms, quality_phase, run_cli,
-        segment_ms, training_phase)
+        checkpoint_phase, conv_flops, cuda_ms, fill_training_phase, host_ms,
+        host_pool, log, nvidia_smi_line, profile_window, profiled_ms,
+        quality_phase, run_cli, segment_ms, training_phase)
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
@@ -258,6 +266,8 @@ TEXT_LOGO = (True, False, False, False)
 # the least share of each drawn line's glyph pixels that the OCR-on
 # command's step-1 and text masks together must cover
 GLYPH_COVER = 0.9
+# text masks without text that 3e also holds against the CPU's detector
+CPU_DETECT_EMPTY = 2
 
 
 def cropped_images(n: int, h: int, w: int, seed: int, clean: int = 0):
@@ -355,10 +365,12 @@ def check_cli_outputs(folder: Path, out: Path, sizes: dict, pred, dev
 
 def repair_cli_phase(work: Path, pred, seed: int, dev, spec=CLI_FOLDER,
                      paeth_shape=PAETH_SHAPE, tiled_shape=TILED_SHAPE,
-                     tile=TILE, overlap=OVERLAP, device="cuda"):
+                     tile=TILE, overlap=OVERLAP, device="cuda",
+                     written=None):
     """Phase 3d: the `repair` CLI on a folder of PNGs, then the tiled path;
     logs the checks of each and returns the CLI's timing fields and kernel
-    launches for phase 4's line."""
+    launches for phase 4's line. `written` is write_folders' (sizes,
+    seconds) where the folder is already written."""
     import numpy as np
     import torch
     from unet_watermark_tpu_torch.configs import get_cfg_defaults
@@ -368,9 +380,12 @@ def repair_cli_phase(work: Path, pred, seed: int, dev, spec=CLI_FOLDER,
     from unet_watermark_tpu_torch.utils import image_io
 
     folder = work / "in"
-    t0 = time.perf_counter()
-    sizes = write_cli_folder(folder, seed, spec, paeth_shape)
-    write_s = time.perf_counter() - t0
+    if written is None:
+        t0 = time.perf_counter()
+        sizes = write_cli_folder(folder, seed, spec, paeth_shape)
+        write_s = time.perf_counter() - t0
+    else:  # written by host workers while the kernels built
+        sizes, write_s = written
     decode_ms = {}  # 1080 x 1920: Paeth rows, and Sub rows as cv2 writes
     for key, name in (("paeth", "p0"), ("sub", f"{spec[-1][0]}00")):
         data = (folder / f"{name}.png").read_bytes()
@@ -513,11 +528,17 @@ def check_ocr_outputs(out: Path, sizes: dict, text_boxes: dict,
                              f"pixels outside the step-1 and text masks "
                              f"(gate {GLYPH_COVER}): {glyphs}")
     # the detector on the CPU on the same step-2 files, filled and dilated
-    # as step 3 does it (in this process: its torch ops use every core)
+    # as step 3 does it (in this process: its torch ops use every core):
+    # every file with text, and CPU_DETECT_EMPTY of the others, the
+    # smallest (cut from all 17 files to buy phase 3l its time)
     t0 = time.perf_counter()
-    for n, tm in text.items():
-        if tm is None:
-            continue
+    empty = sorted((n for n, tm in text.items()
+                    if tm is not None and not tm.any()),
+                   key=lambda n: (text[n].size, n))[:CPU_DETECT_EMPTY]
+    cpu_checked = sorted(n for n, tm in text.items()
+                         if tm is not None and (tm.any() or n in empty))
+    for n in cpu_checked:
+        tm = text[n]
         step2 = out / "step2_watermark_repaired" / f"{n}.png"
         if not np.array_equal(tm, cpu_text_mask(str(step2), tm.shape)):
             raise AssertionError(f"{n}'s text mask differs from the "
@@ -548,7 +569,7 @@ def check_ocr_outputs(out: Path, sizes: dict, text_boxes: dict,
     return {"images": len(sizes), "text_masks": len(
         [n for n in text if text[n] is not None]),
         "with_text": with_text, "least_glyph_cover": low,
-        "text_masks_equal_cpu_detector": True,
+        "text_masks_equal_cpu_detector": cpu_checked,
         "cpu_detector_s": cpu_detect_s, "merged_masks_equal_plain": merged,
         "summary": {k: summary[k] for k in (
             "total_images", "successful_images", "avg_watermark_ratio",
@@ -718,14 +739,17 @@ JPEG_TIMED = {"baseline_1080x1920": "t0", "progressive_1080x1920": "p0",
 
 
 def write_jpeg_folder(folder: Path, seed: int, spec=JPEG_FOLDER,
-                      clean=JPEG_CLEAN) -> dict:
-    """Phase 3f's folder; returns {name: (file bytes, upright (h, w), the
-    uncut file's bytes)}."""
+                      clean=JPEG_CLEAN, pool=None) -> dict:
+    """Phase 3f's folder, a file a worker process of `pool` (a new
+    host_pool without one); returns {name: (file bytes, upright (h, w),
+    the uncut file's bytes)}."""
     folder.mkdir(parents=True)
     n_j = sum(1 for f in spec if f[0].startswith("j"))
     no_logo = [f[0].startswith("j") and int(f[0][1:]) >= n_j - clean
                for f in spec]
-    with host_pool() as pool:  # a file a worker process
+    with contextlib.ExitStack() as stack:
+        if pool is None:
+            pool = stack.enter_context(host_pool())
         made = list(pool.map(jpeg_folder_file, spec,
                              [seed + 30 + k for k in range(len(spec))],
                              no_logo))
@@ -734,6 +758,25 @@ def write_jpeg_folder(folder: Path, seed: int, spec=JPEG_FOLDER,
         (folder / f"{name}.jpg").write_bytes(data)
         files[name] = (data, hw, full)
     return files
+
+
+def write_folders(work: Path, seed: int) -> dict:
+    """Phases 3d's and 3f's input folders, written by host workers while
+    the kernels build (phase 1), and 3f's plain entropy decodes of its
+    files (plain_scans), run there too: {"png": (write_cli_folder's sizes,
+    seconds), "jpeg": (write_jpeg_folder's files, seconds, {name:
+    plain_scans})}."""
+    t0 = time.perf_counter()
+    with host_pool(4) as pool:
+        png = pool.submit(write_cli_folder, work / "in", seed)
+        files = write_jpeg_folder(work / "in_jpeg", seed, pool=pool)
+        jpeg_s = time.perf_counter() - t0
+        names = sorted(files)
+        plains = dict(zip(names, pool.map(plain_scans,
+                                          [files[n][0] for n in names])))
+        sizes = png.result()
+    return {"png": (sizes, time.perf_counter() - t0),
+            "jpeg": (files, jpeg_s, plains)}
 
 
 def jpeg_folder_file(entry, seed: int, no_logo: bool):
@@ -791,12 +834,14 @@ def cpu_text_mask(step2: str, shape):
     return ref
 
 
-def jpeg_routes(files: dict, dev) -> dict:
+def jpeg_routes(files: dict, dev, plains: dict = None) -> dict:
     """Every file through the card's route (the C entropy decoder, the
     pixel stage on the card; image_io.decode_jpeg) and the plain one (the
     Python entropy decoder, the pixel stage on the CPU), colour and gray:
-    byte for byte equal, or JPEGError from both. Returns each file's
-    decoded RGB (from the card) and the plain entropy decode's seconds."""
+    byte for byte equal, or JPEGError from both. `plains` holds each
+    file's plain_scans where host workers already ran them (else they run
+    here, a file a worker). Returns each file's decoded RGB (from the
+    card) and the plain entropy decode's seconds."""
     import torch
     from unet_watermark_tpu_torch.ops import jpeg as jpeg_pixels
     from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
@@ -804,9 +849,10 @@ def jpeg_routes(files: dict, dev) -> dict:
 
     decoded, plain_s = {}, 0.0
     names = sorted(files)
-    with host_pool() as pool:  # the plain entropy decodes, a file a worker
-        plains = dict(zip(names, pool.map(plain_scans, [files[n][0]
-                                                        for n in names])))
+    if plains is None:
+        with host_pool() as pool:  # the plain entropy decodes
+            plains = dict(zip(names, pool.map(
+                plain_scans, [files[n][0] for n in names])))
     for name, (data, hw, _) in sorted(files.items()):
         header, coefs, seconds = plains[name]
         if header is None:
@@ -928,20 +974,26 @@ def check_jpeg_outputs(out: Path, files: dict, decoded: dict) -> dict:
 
 def repair_cli_jpeg_phase(work: Path, seed: int, dev, spec=JPEG_FOLDER,
                           clean=JPEG_CLEAN, no_unet=JPEG_NO_UNET,
-                          device="cuda"):
+                          device="cuda", written=None):
     """Phase 3f: the `repair` command as users type it on a folder of
     JPEGs, then --no-unet on a few of them; logs the checks and returns the
-    timing fields and kernel launches for phase 4's line."""
+    timing fields and kernel launches for phase 4's line. `written` is
+    write_folders' (files, seconds, plain decodes) where the folder is
+    already written."""
     import torch
 
     from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
     from unet_watermark_tpu_torch.utils import image_io
 
     folder = work / "in_jpeg"
-    t0 = time.perf_counter()
-    files = write_jpeg_folder(folder, seed, spec, clean)
-    write_s = time.perf_counter() - t0
-    routes = jpeg_routes(files, dev)
+    plains = None
+    if written is None:
+        t0 = time.perf_counter()
+        files = write_jpeg_folder(folder, seed, spec, clean)
+        write_s = time.perf_counter() - t0
+    else:  # written and decoded by host workers while the kernels built
+        files, write_s, plains = written
+    routes = jpeg_routes(files, dev, plains)
     argv = ["repair", "--input", str(folder)]
     if device != "cuda":  # the flag's default
         argv += ["--device", device]
@@ -1427,8 +1479,12 @@ def main(argv=None) -> int:
     def timed_build(source):
         return build.build(source), time.perf_counter() - t_build
 
-    builder = ThreadPoolExecutor(len(sources))
-    building = [builder.submit(timed_build, src) for src in sources]
+    starter = ThreadPoolExecutor(len(sources) + 1)
+    building = [starter.submit(timed_build, src) for src in sources]
+    # meanwhile host workers write phases 3d's and 3f's input folders
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(shutil.rmtree, work, True)
+    folders = starter.submit(write_folders, work, args.seed)
     from torch.profiler import ProfilerActivity, profile
 
     from unet_watermark_tpu_torch.configs import get_cfg_defaults
@@ -1468,7 +1524,6 @@ def main(argv=None) -> int:
         raise AssertionError(f"the build's sources {sources} are not the "
                              f"kernel modules'")
     built = dict(zip(sources, (f.result() for f in building)))
-    builder.shutdown()
     build_s = max(done for _, done in built.values())
     for source, ((lib, out), _) in built.items():
         log("build", source=source, library=lib.name,
@@ -1753,16 +1808,19 @@ def main(argv=None) -> int:
     del lama_32, lama_cpu
 
     # -- 3d: the repair entry point ------------------------------------------
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    written = folders.result()
+    starter.shutdown()
     try:
         # from here on a weights file is decoded once: the load times inside
         # 3d-3k's walls are warm, as in one long-lived process
         with shipping.keep_loads():
-            cli_timing = repair_cli_phase(work, pred_d, args.seed, dev)
+            cli_timing = repair_cli_phase(work, pred_d, args.seed, dev,
+                                          written=written["png"])
             # -- 3e: the repair command with OCR on ----------------------
             ocr_timing = repair_cli_ocr_phase(work, args.seed, dev)
             # -- 3f: the repair command on a folder of JPEGs -------------
-            jpeg_timing = repair_cli_jpeg_phase(work, args.seed, dev)
+            jpeg_timing = repair_cli_jpeg_phase(work, args.seed, dev,
+                                                written=written["jpeg"])
             # -- 3g: the int8 tier ---------------------------------------
             int8 = int8_tier_phase(
                 work, {"Unet": pred, "UnetPlusPlus": pred_d}, fused_l,
@@ -1775,6 +1833,8 @@ def main(argv=None) -> int:
             auto = auto_phase(work, args.seed, dev)
             # -- 3k: the quality record, the calibration, the shells -----
             quality = quality_phase(work, dev)
+            # -- 3l: .pth in and out, smp UNet++, big-lama, blurred masks -
+            checkpoints = checkpoint_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1903,19 +1963,22 @@ def main(argv=None) -> int:
     log("timing_fill_training", **fill["timing"], card=card)
     log("timing_auto", **auto["timing"], card=card)
     log("timing_quality", **quality["timing"], card=card)
+    log("timing_checkpoints", **checkpoints["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
         card=card)
 
-    log("profile", **profile_window(lambda: fused(images), 3))
-    log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 3))
+    # one call a window: the profiler's processing of a window's events,
+    # not its calls, takes the seconds
+    log("profile", **profile_window(lambda: fused(images), 1))
+    log("profile_default_repair", **profile_window(lambda: fused_d(images_d), 1))
     log("profile_default_artifacts",
-        **profile_window(lambda: pred_d.predict_artifact_masks(images_d), 3))
-    log("profile_default_lama", **profile_window(lambda: fused_l(images_d), 3))
+        **profile_window(lambda: pred_d.predict_artifact_masks(images_d), 1))
+    log("profile_default_lama", **profile_window(lambda: fused_l(images_d), 1))
     with torch.inference_mode():
         log("profile_lama_generator",
-            **profile_window(lambda: lama_bf16(images_d, holes_d), 3))
+            **profile_window(lambda: lama_bf16(images_d, holes_d), 1))
 
     # each kernel on the inputs the main path gave it
     k1_in, k2_in = raw, cc_out
@@ -1962,6 +2025,9 @@ def main(argv=None) -> int:
                 fill["launches"]["diffusion"][fn.__name__],
             "auto_launches": auto["launches"][fn.__name__],
             "quality_report_launches": quality["launches"][fn.__name__],
+            "pth_repair_launches": checkpoints["launches"][fn.__name__],
+            **({"blurred_mask_launches": checkpoints["blurred_k1_launches"]}
+               if fn is kc.morph_chain_watermark else {}),
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

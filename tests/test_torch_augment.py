@@ -101,6 +101,14 @@ def jax_augment():
 # at most one block in 50)
 IMG_ATOL = 2e-6
 JPEG_FLIP_BLOCKS = 0.02
+# the gather warps' grid is float32 arithmetic that XLA may contract or
+# reorder: a pixel whose source coordinate lies within a few ulps of a
+# rounding (nearest) boundary may take the neighbour; bilinear weights
+# move by those ulps only
+MAX_GRID_FLIPS = 8
+GRID_ATOL = 8e-6  # two float32 ulps of a coordinate below 64
+# the bilinear weights take the grid's ulps, times a unit pixel gradient
+BILINEAR_ATOL = 1e-5
 
 
 def _compare(got, want, params, h, w):
@@ -287,6 +295,89 @@ def test_augment_batch_keeps_masks_binary_and_images_in_range():
 
 
 def test_other_interpolations_raise():
-    pol = ta.AugmentPolicy(interpolation="bilinear")
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        ta.draw_params(torch.Generator(), 2, 8, 8, pol)
+    """No interpolation is refused any more: each of JAX's, and an unknown
+    name, which JAX's augment_sample warps bilinearly, draws and applies
+    (their pixels against JAX's: the tests below)."""
+    images, masks = _batch(1, 2, 16, 16)
+    for name in ("nearest", "nearest_gather", "bilinear", "other"):
+        pol = ta.AugmentPolicy(interpolation=name, affine_p=1.0)
+        params = ta.draw_params(torch.Generator(), 2, 16, 16, pol)
+        ti, tm = ta.apply_params(torch.from_numpy(images),
+                                 torch.from_numpy(masks), params, pol)
+        assert ti.shape == images.shape and set(
+            tm.unique().tolist()) <= {0.0, 1.0}
+    pol = ta.AugmentPolicy(interpolation="other", affine_p=1.0)
+    bil = ta.AugmentPolicy(interpolation="bilinear", affine_p=1.0)
+    params = ta.draw_params(torch.Generator().manual_seed(0), 2, 16, 16, pol)
+    a = ta.apply_params(torch.from_numpy(images), torch.from_numpy(masks),
+                        params, pol)
+    b = ta.apply_params(torch.from_numpy(images), torch.from_numpy(masks),
+                        params, bil)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _grid(seed, n, h, w):
+    """JAX's _affine_grid for n random transforms (float32 numpy)."""
+    rng = np.random.default_rng(seed)
+    args = [rng.uniform(0.85, 1.15, n), rng.uniform(-200, 200, n),
+            rng.uniform(-6, 6, n), rng.uniform(-0.15, 0.15, (n, 2))]
+    args = [a.astype(np.float32) for a in args]
+    args[1][:3] = [90.0, 180.0, 270.0]
+    sy, sx = jax.vmap(lambda s, a, sh, sf: ja._affine_grid(
+        h, w, s, a, sh, sf))(*args)
+    return args, np.asarray(sy), np.asarray(sx)
+
+
+@pytest.mark.parametrize("h, w", [(32, 32), (24, 40)])
+def test_affine_grid_matches_jax(h, w):
+    """The port's inverse-map grid against JAX's _affine_grid: float32
+    in the same order of operations (up to the last bits of the sums)."""
+    args, sy, sx = _grid(0, 16, h, w)
+    gy, gx = ta.affine_grid(h, w, *[torch.from_numpy(a) for a in args])
+    np.testing.assert_allclose(gy.numpy(), sy, rtol=0, atol=GRID_ATOL)
+    np.testing.assert_allclose(gx.numpy(), sx, rtol=0, atol=GRID_ATOL)
+
+
+@pytest.mark.parametrize("h, w", [(32, 32), (24, 40)])
+@pytest.mark.parametrize("interp", ["nearest_gather", "bilinear"])
+def test_gather_warps_match_jax_given_the_grid(interp, h, w):
+    """Given JAX's grid (overshooting the image, so the reflect-101 of any
+    overshoot runs), _nearest_sample and _bilinear_sample equal the port's
+    nearest_sample and bilinear_sample bit for bit."""
+    args, sy, sx = _grid(1, 12, h, w)
+    sy = sy * 1.6 - h * 0.3  # push the grid well beyond the borders
+    sx = sx * 1.6 - w * 0.3
+    img = np.random.default_rng(2).random((12, h, w, 4)).astype(np.float32)
+    jfn = {"nearest_gather": ja._nearest_sample,
+           "bilinear": ja._bilinear_sample}[interp]
+    tfn = {"nearest_gather": ta.nearest_sample,
+           "bilinear": ta.bilinear_sample}[interp]
+    want = np.asarray(jax.vmap(jfn)(jnp.asarray(img), jnp.asarray(sy),
+                                    jnp.asarray(sx)))
+    got = tfn(torch.from_numpy(img), torch.from_numpy(sy),
+              torch.from_numpy(sx))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("interp", ["nearest_gather", "bilinear"])
+def test_apply_matches_jax_with_each_interpolation(jax_augment, interp):
+    """augment_sample with each interpolation against apply_params on
+    JAX's draws: masks equal (thresholded after the one warp) and images
+    within IMG_ATOL (nearest) or BILINEAR_ATOL, but for at most
+    MAX_GRID_FLIPS pixels whose grid coordinate straddles a rounding
+    boundary in its last bits."""
+    n, h, w = 8, 32, 32
+    images, masks = _batch(4, n, h, w)
+    pol_kw = dict(affine_p=1.0, shear_limit=4.0, interpolation=interp)
+    jpol = dataclasses.replace(ja.POLICIES["basic"], **pol_kw)
+    tpol = dataclasses.replace(ta.POLICIES["basic"], **pol_kw)
+    key = jax.random.PRNGKey(11)
+    ji, jm = jax_augment(key, jnp.asarray(images), jnp.asarray(masks), jpol)
+    params = jax_draws(key, n, h, w, jpol)
+    ti, tm = ta.apply_params(torch.from_numpy(images),
+                             torch.from_numpy(masks), params, tpol)
+    flips = (tm.numpy() != np.asarray(jm)).sum()
+    atol = IMG_ATOL if interp == "nearest_gather" else BILINEAR_ATOL
+    far = np.abs(ti.numpy() - np.asarray(ji)) > atol
+    assert flips <= MAX_GRID_FLIPS and far.any(axis=-1).sum() <= \
+        MAX_GRID_FLIPS, (flips, far.sum())

@@ -256,8 +256,14 @@ def test_unported_formats_refuse_the_folder(tmp_path):
 
 
 def test_blurred_masks_raise():
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        tds.WatermarkDataset([], use_blurred_mask=True)
+    """use_blurred_mask is no longer refused (its masks against JAX's:
+    tests/test_torch_blurred_mask.py): the dataset builds on the CPU, and
+    without a card its default device raises, as every entry point's."""
+    ds = tds.WatermarkDataset([], use_blurred_mask=True, device="cpu")
+    assert ds.use_blurred_mask and len(ds) == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tds.WatermarkDataset([], use_blurred_mask=True)
 
 
 def test_an_unreadable_folder_raises(tmp_path):

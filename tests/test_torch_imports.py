@@ -1,8 +1,8 @@
 """The port and chip_smoke.py import with jax, flax, optax, orbax, yaml,
 PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
 nunchaku and the JAX package blocked (the GPU machine has none of them), every module of the
-port among them (ocr/, ops/imgproc.py, the training path and the `auto`
-loop's modules too), and
+port among them (ocr/, ops/imgproc.py, the training path, the `auto`
+loop's modules and the .pth, big-lama and contour modules too), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -55,7 +55,10 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.data.synth_clean",
         "unet_watermark_tpu_torch.scripts.inpaint_quality",
         "unet_watermark_tpu_torch.scripts.calibrate_quant",
-        "unet_watermark_tpu_torch.tools.smoke_phases"]
+        "unet_watermark_tpu_torch.tools.smoke_phases",
+        "unet_watermark_tpu_torch.models.torch_import",
+        "unet_watermark_tpu_torch.models.lama_import",
+        "unet_watermark_tpu_torch.ops.contours"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

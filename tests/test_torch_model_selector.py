@@ -145,10 +145,14 @@ def test_vmapped_forward_equals_sequential(setup, tmp_path):
 
 
 def test_pth_raises(tmp_path):
+    """A .pth is listed as JAX lists it (its scoring against JAX's:
+    tests/test_torch_pth.py); one that is not a torch file raises when it
+    is loaded, as torch.load raises in JAX's import."""
     (tmp_path / "m.pth").write_bytes(b"")
     sel = pms.ModelSelector(str(tmp_path), str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sel.discover_checkpoints()
+    assert sel.discover_checkpoints() == [str(tmp_path / "m.pth")]
+    with pytest.raises(EOFError):
+        sel._load_model(str(tmp_path / "m.pth"))
 
 
 def test_metrics_equal_cv2():

@@ -14,7 +14,8 @@ from unet_watermark_tpu_torch.configs import get_cfg_defaults
 from unet_watermark_tpu_torch.models import (SegmentationModel,
                                              create_model_from_config)
 from unet_watermark_tpu_torch.models.convert import load_flax_weights
-from unet_watermark_tpu_torch.models.unet import UnetPlusPlusDecoder
+from unet_watermark_tpu_torch.models.unet import (SMPUnetPlusPlusDecoder,
+                                                   UnetPlusPlusDecoder)
 from unet_watermark_tpu_torch.utils.shipping import load_npz, seg_weights_path
 from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 
@@ -103,8 +104,13 @@ def test_create_model_from_config_and_errors():
     assert (widths["x_0_1_conv1"], widths["x_0_4_conv1"],
             widths["x_3_1_conv1"]) == (128, 224, 768)
     assert len(widths) == 10
-    for name, impl, match in (("UnetPlusPlus", "smp", "DECODER_IMPL"),
-                              ("FPN", "canonical", "not ported")):
+    cfg.MODEL.NAME, cfg.MODEL.DECODER_IMPL = "UnetPlusPlus", "smp"
+    smp = create_model_from_config(cfg).decoder
+    assert isinstance(smp, SMPUnetPlusPlusDecoder)
+    assert sorted(smp.blocks) == sorted(
+        [f"x_{d}_{d + l}" for l in range(4) for d in range(4 - l)]
+        + ["x_0_4"])
+    for name, impl, match in (("FPN", "canonical", "not ported"),):
         cfg.MODEL.NAME, cfg.MODEL.DECODER_IMPL = name, impl
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
             create_model_from_config(cfg)

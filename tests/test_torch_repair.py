@@ -30,7 +30,8 @@ from unet_watermark_tpu_torch.inference import predict as port_predict
 from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
 from unet_watermark_tpu_torch.utils.shipping import seg_weights_path
 from unet_watermark_tpu_torch.utils.synthetic import (text_images,
-                                                      watermarked_images)
+                                                      watermarked_images,
+                                                      write_training_folder)
 
 torch.set_num_threads(2)
 
@@ -713,15 +714,29 @@ def test_cli_raises_for_what_is_not_ported(preds, folder, tmp_path,
 
 
 def test_cli_cuda_without_a_card_and_training_raise(folder, tmp_path):
-    """Without a card "cuda" raises for both commands; what of training is
-    not ported (--use-blurred-mask) raises naming its ROADMAP.md item (the
-    `auto` loop runs: tests/test_torch_auto_train.py)."""
+    """Without a card "cuda" raises for both commands. --use-blurred-mask
+    is no longer refused: `train` with it makes the soft masks of the
+    images without a mask file (cached in masks/, values between 0 and
+    255; their bytes against JAX's: tests/test_torch_blurred_mask.py) and
+    trains (the `auto` loop runs: tests/test_torch_auto_train.py)."""
     if not torch.cuda.is_available():
         for args in (["repair", "--input", str(folder), "--output",
                       str(tmp_path / "o"), "--no-ocr"],
                      ["train", "--data-dir", str(tmp_path / "d")]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli.main(args)
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        cli.main(["train", "--device", "cpu", "--use-blurred-mask",
-                  "--data-dir", str(tmp_path / "d")])
+    data = tmp_path / "d"
+    write_training_folder(data, 6, 128, seed=4, masks=2)
+    out = tmp_path / "t"
+    assert cli.main(["train", "--device", "cpu", "--use-blurred-mask",
+                     "--data-dir", str(data), "--epochs", "1",
+                     "--batch-size", "4", "--output-dir", str(out),
+                     "--model-save-path", str(out / "m.pth"), "--opts",
+                     "MODEL.NAME", "Unet", "MODEL.DTYPE", "float32",
+                     "DATA.IMG_SIZE", "64", "TRAIN.CHECKPOINT_DIR",
+                     str(out / "ck")]) == 0
+    made = sorted(os.listdir(data / "masks"))
+    assert len(made) == 6
+    soft = [cv2.imread(str(data / "masks" / m), 0) for m in made]
+    assert any(((m > 0) & (m < 255)).any() for m in soft)
+    assert (out / "m.pth").exists()

@@ -16,8 +16,11 @@ shipped-format .npz beside --model-save-path (training/train.py).
 Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
 builtin detector where easyocr is not installed, as there). --device is
 "cuda" unless it says "cpu" ("auto" and "gpu" mean "cuda"); "cuda" without
-a card raises. What the port does not run yet raises NotImplementedError
-naming its ROADMAP.md item: --use-blurred-mask. --video writes
+a card raises. --model takes a shipped-format .npz, a port checkpoint
+directory or a reference .pth (an smp-layout UNet++ is detected);
+--inpaint-weights a LaMa .npz or directory, or a big-lama torch
+checkpoint (.pt, .pth, .ckpt). `train --use-blurred-mask` trains on the
+soft blurred masks (data/dataset.py). --video writes
 comparison_video.mp4 (scripts/video_generator.py: three-way where the
 output has masks/, else side by side); a writer error is logged as in the
 JAX CLI, an input form the port does not read yet is raised. `auto` runs
@@ -112,12 +115,6 @@ def repair_command(args) -> int:
     if args.model and model_path is None:
         logger.warning("model %s not found; using the shipped weights",
                        args.model)
-    if model_path is not None and not (model_path.endswith(".npz") or
-                                       os.path.isdir(model_path)):
-        raise NotImplementedError(
-            f"{model_path}: the port reads .npz weights and its own "
-            f"checkpoint directories; .pth imports are not ported yet "
-            f"(ROADMAP.md §A.7, §A.8)")
     predictor = WatermarkPredictor(cfg, weights_path=model_path,
                                    device=device)
     stats = predictor.process_folder_batch(
@@ -224,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(fine-tune; unlike --resume, optimizer state "
                          "and history start fresh)")
     tp.add_argument("--use-blurred-mask", action="store_true",
-                    help="soft blurred training masks (not ported yet)")
+                    help="soft blurred training masks")
     tp.add_argument("--opts", nargs="*", default=None,
                     help="KEY VALUE pairs overriding config entries")
     tp.set_defaults(func=train_command)

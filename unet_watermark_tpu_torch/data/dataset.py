@@ -13,6 +13,22 @@ others 0.38). It is cached as a PNG in mask_dirs[0], as in the JAX
 package. A file cv2 cannot read is skipped; a folder with a file in a
 format the port does not decode yet (BMP, TIFF, WEBP) is refused before
 any work (image_io.require_decodable).
+
+With use_blurred_mask the thresholded difference takes the JAX package's
+blurred finishing instead (_blurred_mask): open(3) → close(7)x3 →
+close(11)x2 → dilate(9)x2, which is kernel K1's chain, so a square mask
+of side up to K1_MAX_SIZE runs K1 on `device` and any other shape the
+same whole-image ops (morph_chain_plain); the largest-component rule
+(ops/components, ties to the first component in raster order as
+np.argmax over cv2's labels); on the host, cv2's external contours,
+convex hulls, arc lengths and polygon approximations (ops/contours) and
+their fill (ops/imgproc.fill_poly); then cv2's 8-bit GaussianBlur
+(15 x 15, 5) and (31 x 31, 10) in its fixed point
+(imgproc.gaussian_blur_u8), equal to cv2 byte for byte. In train mode
+normal noise (sigma 5) is added, clipped and truncated to uint8, as in
+JAX, drawn from this dataset's torch.Generator (seed 0) on `device`
+where JAX draws from numpy's global generator: the same recipe, other
+draws.
 """
 from __future__ import annotations
 
@@ -24,7 +40,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops import imgproc, morphology
+from ..ops import components, contours, imgproc, morphology
+from ..ops.kernels.morph_chain import (K1_MAX_SIZE, morph_chain_plain,
+                                       morph_chain_watermark)
 from ..ops.resize import resize_linear_u8, resize_nearest
 from ..utils import image_io
 from ..utils.device import resolve_device
@@ -45,11 +63,6 @@ class WatermarkDataset:
                  generate_mask_threshold: int = 30,
                  cache_images: bool = False,
                  use_blurred_mask: bool = False, device="cuda"):
-        if use_blurred_mask:
-            raise NotImplementedError(
-                "--use-blurred-mask: its contour and convex-hull finishing "
-                "(cv2 findContours, convexHull, approxPolyDP) is not ported "
-                "yet (ROADMAP.md §A.7)")
         as_list = lambda d: (list(d) if isinstance(d, (list, tuple))  # noqa
                              else [d] if d else [])
         self.watermarked_dirs = as_list(watermarked_dirs)
@@ -61,6 +74,7 @@ class WatermarkDataset:
         self.cache_images = cache_images
         self.use_blurred_mask = use_blurred_mask
         self.device = resolve_device(device)
+        self._noise_gen: Optional[torch.Generator] = None
         self._cache = {} if cache_images else None
         self.image_files = self._collect_image_files()
         for path in self.image_files:
@@ -148,17 +162,58 @@ class WatermarkDataset:
 
     def generate_mask(self, watermarked: torch.Tensor,
                       clean: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) uint8 RGB pair → (H, W) uint8 {0, 255}: absdiff →
-        gray → threshold → open(3 x 3 ellipse) → blur 3 x 3 σ 0.5 →
-        threshold 127."""
+        """(H, W, 3) uint8 RGB pair → (H, W) uint8: absdiff → gray →
+        threshold → open(3 x 3 ellipse) → blur 3 x 3 σ 0.5 → threshold 127
+        ({0, 255}), or with use_blurred_mask the blurred finishing."""
         if watermarked.shape != clean.shape:
             clean = resize_linear_u8(clean, tuple(watermarked.shape[:2]))
         diff = (watermarked.to(torch.int16) - clean.to(torch.int16)).abs()
         gray = imgproc.gray_u8(diff.to(torch.uint8), "rgb")
         mask = (gray > self.generate_mask_threshold).float()
+        if self.use_blurred_mask:
+            return self._blurred_mask(mask)
         mask = morphology.morph_open(mask, morphology.ellipse_kernel(3, 3))
         blurred = morphology.gaussian_blur(mask * 255.0, (3, 3), 0.5)
         return torch.where(blurred > 127, 255, 0).to(torch.uint8)
+
+    def _blurred_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """The thresholded (H, W) {0, 1} float mask, before its open →
+        (H, W) uint8 soft mask (JAX's open and _blurred_mask)."""
+        h, w = mask.shape
+        batch = mask[None].contiguous()
+        if h == w and h <= K1_MAX_SIZE:
+            x = morph_chain_watermark(batch)  # K1 opens first
+        else:
+            x = morph_chain_plain(batch)
+        x = components.keep_largest_component(x, 8, min_keep_area=500,
+                                              fallback_min_area=200)[0]
+        hard = ((x > 0.5).to(torch.uint8) * 255).cpu().numpy()
+        outlines = contours.find_external_contours(hard)
+        if outlines:
+            hard = np.zeros_like(hard)
+            for c in outlines:
+                area = contours.contour_area(c)
+                if area <= 100:
+                    continue
+                hull = contours.convex_hull(c)
+                hull_area = contours.contour_area(hull)
+                if hull_area > 0 and area / hull_area > 0.6:
+                    imgproc.fill_poly(hard, hull, 255)
+                else:
+                    eps = 0.015 * contours.arc_length(c, True)
+                    imgproc.fill_poly(
+                        hard, contours.approx_poly_dp(c, eps, True), 255)
+        soft = torch.from_numpy(hard).to(self.device)
+        soft = imgproc.gaussian_blur_u8(soft, 15, 5.0)
+        soft = imgproc.gaussian_blur_u8(soft, 31, 10.0)
+        if self.mode == "train":
+            if self._noise_gen is None:
+                self._noise_gen = torch.Generator(
+                    self.device).manual_seed(0)
+            noise = torch.randn(soft.shape, generator=self._noise_gen,
+                                device=self.device) * 5.0
+            soft = (soft.float() + noise).clamp(0, 255).to(torch.uint8)
+        return soft
 
 
 class Subset:

@@ -8,8 +8,10 @@ Every engine has one interface:
     weights needed; the fallback)
   * "lama" / "big-lama" / "mat" — models/lama.py's FFC generator with
     the shipped (or given) trained weights: a shipped-format .npz or the
-    checkpoint directory training/train_inpaint.py writes; push-pull with
-    a warning when no weights resolve
+    checkpoint directory training/train_inpaint.py writes; or, for a torch
+    checkpoint (.pt, .pth, .ckpt), the public big-lama generator
+    (models/lama_import.py, float32, named "big-lama-torch"); push-pull
+    with a warning when no weights resolve or the file does not import
   * "diffusion" / "latent-diffusion" / "ld" — the latent-diffusion
     inpainter (diffusion/latent_diffusion.py) with the shipped (or
     DIFFUSION_WEIGHTS, or given) weights, 20 DDIM steps; push-pull with a
@@ -25,6 +27,7 @@ import torch
 
 from ..models.convert import load_lama_weights
 from ..models.lama import LamaGenerator, create_lama
+from ..models.lama_import import load_big_lama
 from ..ops.inpaint import inpaint_pushpull
 from ..utils.device import resolve_device
 from ..training.checkpoint import read_weights
@@ -44,18 +47,26 @@ def load_lama(path, variant: str = "lama", device="cuda",
     then 'lama', then 'big-lama' (a checkpoint trained as one variant
     serves the other engine names too). Returns (model in eval mode on
     `device` in `dtype`, channels-last on the card, the variant's name),
-    or (None, None) when no variant matches. `device` is "cuda" unless the
-    caller asks for the CPU; without a card "cuda" raises.
+    or (None, None) when no variant matches. A torch checkpoint (.pt,
+    .pth, .ckpt) is the public big-lama generator instead, in float32
+    whatever `dtype` says, as JAX runs it, under the name
+    "big-lama-torch"; one that does not import logs a warning and gives
+    (None, None), as in JAX. `device` is "cuda" unless the caller asks
+    for the CPU; without a card "cuda" raises.
 
     This is the one LaMa loader, shared by get_engine and the fused repair
     fn, so the two cannot disagree about what loads."""
     device = resolve_device(device)
     path = str(path)
     if path.endswith((".pt", ".pth", ".ckpt")):
-        raise NotImplementedError(
-            f"{path}: the public big-lama torch checkpoint goes through the "
-            f"JAX package's models/lama_import.py, which is not ported yet "
-            f"(ROADMAP.md §A.8)")
+        try:
+            model, _ = load_big_lama(path, device)
+        except Exception as e:  # noqa: BLE001 — JAX's "no engine" result
+            logger.warning("torch inpaint checkpoint %s failed to import "
+                           "as big-lama: %s", path, e)
+            return None, None
+        logger.info("imported big-lama torch checkpoint %s", path)
+        return model, "big-lama-torch"
     flat = read_weights(path)  # an orbax directory raises (§A.7)
     for cand in dict.fromkeys((variant, "lama", "big-lama")):
         with torch.device("meta"):  # shapes only: the weights replace them

@@ -61,9 +61,9 @@ import numpy as np
 import torch
 
 from ..configs import Config, get_cfg_defaults
-from ..models import create_model_from_config
+from ..models import create_model_from_config, torch_import
 from ..models.convert import load_flax_weights
-from ..models.factory import torch_dtype
+from ..models.factory import init_model, torch_dtype
 from ..ocr import get_ocr_detector
 from ..ocr.base import rasterize_regions
 from ..ops import components as cc
@@ -155,8 +155,9 @@ def _decode_part(name: str):
 
 class WatermarkPredictor:
     """Holds the segmentation model on `device` with the shipped (or given)
-    weights: a shipped-format .npz or a port checkpoint directory
-    (training/checkpoint.read_weights; an orbax directory raises). A
+    weights: a shipped-format .npz, a port checkpoint directory
+    (training/checkpoint.read_weights; an orbax directory raises) or a
+    reference .pth (_load_pth; an smp-layout UNet++ is detected). A
     float32 model on the card follows the process's TF32 settings
     (`torch.backends.cudnn.allow_tf32`, default on); the caller
     chooses them, as chip_smoke.py does. `engine_used` names the fill
@@ -171,7 +172,6 @@ class WatermarkPredictor:
             self.cfg = cfg if cfg is not None else get_cfg_defaults()
             self.device = resolve_device(device)
             self.dtype = torch_dtype(self.cfg.MODEL.DTYPE)
-            model = create_model_from_config(self.cfg)
             path = resolve("seg", cfg=self.cfg, explicit=weights_path)
             if path is None:
                 raise FileNotFoundError(
@@ -179,7 +179,12 @@ class WatermarkPredictor:
                     f"{self.cfg.MODEL.ENCODER_NAME}; pass weights_path or "
                     f"set PREDICT_SEG_WEIGHTS")
             self.weights_path = str(path)
-            self.n_weights = load_flax_weights(model, read_weights(path))
+            self.model_info: Dict[str, object] = {}
+            if self.weights_path.endswith(".pth"):
+                model = self._load_pth(self.weights_path)
+            else:
+                model = create_model_from_config(self.cfg)
+                self.n_weights = load_flax_weights(model, read_weights(path))
             model = model.eval().to(self.device, self.dtype)
             if self.device.type == "cuda":
                 model = model.to(memory_format=torch.channels_last)
@@ -195,6 +200,30 @@ class WatermarkPredictor:
             self.engine_used: Optional[str] = None
             self.ocr_failures = 0
             self.ocr_engine_used: Optional[str] = None
+
+    def _load_pth(self, path: str) -> torch.nn.Module:
+        """A reference .pth (JAX's predict.py:155-189): for UNet++ the
+        file's decoder layout (detect_decoder_impl) sets
+        MODEL.DECODER_IMPL where it differs, then the model of the config,
+        drawn by init_model (seed 0), takes the file's tensors by name and
+        shape (import_state_dict); model_info gets the file's epoch and
+        validation loss."""
+        sd, self.model_info = torch_import.read_pth(path)
+        if self.cfg.MODEL.NAME.lower() in ("unetplusplus", "unet++"):
+            impl = torch_import.detect_decoder_impl(sd)
+            if impl != self.cfg.MODEL.DECODER_IMPL:
+                logger.info("checkpoint uses the '%s' UNet++ decoder layout "
+                            "— rebuilding the model to match", impl)
+                self.cfg.MODEL.DECODER_IMPL = impl
+        model = init_model(create_model_from_config(self.cfg), seed=0)
+        model, report = torch_import.import_state_dict(sd, model)
+        self.n_weights = len(report["loaded"])
+        logger.info("loaded .pth: %d tensors, %d unmatched (epoch %s, "
+                    "val_loss %s)", len(report["loaded"]),
+                    len(report["missing"]),
+                    self.model_info.get("epoch", "?"),
+                    self.model_info.get("val_loss", "?"))
+        return model
 
     # ------------------------------------------------------------------
     # forward helpers
@@ -930,8 +959,11 @@ class WatermarkPredictor:
         With inpaint_engine in {lama, big-lama, mat} and weights that
         resolve (engines.resolve_inpaint_weights), the fill is the FFC
         generator, built once here on this predictor's device in bf16
-        (whatever MODEL.DTYPE says, as the JAX fn); otherwise, as for every
-        other name, push-pull with `smooth_iterations` Jacobi sweeps."""
+        (whatever MODEL.DTYPE says, as the JAX fn), or for a torch
+        checkpoint the public big-lama generator in float32
+        (`engine_used` "ffc-big-lama-torch", JAX's name); otherwise, as
+        for every other name, push-pull with `smooth_iterations` Jacobi
+        sweeps."""
         lama = None
         engine_used = "pushpull"
         if inpaint_engine in ("lama", "big-lama", "mat"):

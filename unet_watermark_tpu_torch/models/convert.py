@@ -9,6 +9,8 @@ JAX package, copied) → the port's state_dict.
   params/decoder/block{i}/convJ/conv   → decoder.blocks.{i}.convJ.0
   params/decoder/block{i}/convJ/bn     → decoder.blocks.{i}.convJ.1
   params/decoder/x_{i}_{j}_convJ/conv  → decoder.x_{i}_{j}_convJ.0 (UNet++)
+  params/decoder/x_{d}_{l}/convJ/conv  → decoder.blocks.x_{d}_{l}.convJ.0
+                                         (UNet++, MODEL.DECODER_IMPL smp)
   params/decoder/final_block/convJ/bn  → decoder.final_block.convJ.1
   params/segmentation_head/conv        → segmentation_head.0
 
@@ -54,6 +56,8 @@ _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 # a ConvBnRelu: convJ of a Unet block or final_block, x_{i}_{j}_convJ of UNet++
 _CONV_BN = re.compile(r"(x_\d+_\d+_)?conv\d+")
+# a block of the SMP-layout UNet++ decoder, decoder.blocks.x_{d}_{l}
+_SMP_BLOCK = re.compile(r"x_\d+_\d+")
 
 
 def _path_and_leaf(flax_key: str):
@@ -74,6 +78,8 @@ def torch_name(flax_key: str) -> str:
         m = re.fullmatch(r"layer(\d+)_(\d+)", p)
         if m:
             segs.append(f"layer{m.group(1)}.{m.group(2)}")
+        elif _SMP_BLOCK.fullmatch(p):
+            segs.append("blocks." + p)
         elif re.fullmatch(r"block\d+", p):
             segs.append("blocks." + p[len("block"):])
         elif p == "downsample_conv":
@@ -101,7 +107,7 @@ def flax_name(name: str) -> str:
         if re.fullmatch(r"layer\d+", p) and nxt is not None and nxt.isdigit():
             segs.append(f"{p}_{nxt}")
         elif p == "blocks":
-            segs.append(f"block{nxt}")
+            segs.append(nxt if _SMP_BLOCK.fullmatch(nxt) else f"block{nxt}")
         elif p == "downsample":
             segs.append("downsample_conv" if nxt == "0" else "downsample_bn")
         elif nxt in ("0", "1") and (_CONV_BN.fullmatch(p)

@@ -1,6 +1,7 @@
 """SegmentationModel, create_model_from_config and init_model
 (models/factory.py in the JAX package), for archs "Unet" and "UnetPlusPlus"
-(alias "unet++", canonical decoder)."""
+(alias "unet++"; MODEL.DECODER_IMPL "canonical", the Zhou grid, or "smp",
+the layout of segmentation-models-pytorch's checkpoints)."""
 from __future__ import annotations
 
 import math
@@ -10,7 +11,8 @@ import torch
 from torch import nn
 
 from .encoders import ResNetEncoder, remat
-from .unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder
+from .unet import (SegmentationHead, SMPUnetPlusPlusDecoder, UnetDecoder,
+                   UnetPlusPlusDecoder)
 
 
 class SegmentationModel(nn.Module):
@@ -26,12 +28,9 @@ class SegmentationModel(nn.Module):
         super().__init__()
         self.remat = remat
         arch_l = arch.lower()
-        if arch_l in ("unetplusplus", "unet++") and decoder_impl == "smp":
-            raise NotImplementedError(
-                "the SMP-layout UNet++ decoder (MODEL.DECODER_IMPL 'smp') is "
-                "not ported yet (see ROADMAP.md for the queue)")
-        decoders = {"unet": UnetDecoder, "unetplusplus": UnetPlusPlusDecoder,
-                    "unet++": UnetPlusPlusDecoder}
+        upp = (SMPUnetPlusPlusDecoder if decoder_impl == "smp"
+               else UnetPlusPlusDecoder)
+        decoders = {"unet": UnetDecoder, "unetplusplus": upp, "unet++": upp}
         if arch_l not in decoders:
             raise NotImplementedError(
                 f"arch '{arch}' is not ported yet; the port has Unet and "

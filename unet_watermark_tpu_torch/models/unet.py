@@ -1,5 +1,5 @@
-"""Unet and UNet++ decoders and the segmentation head (models/unet.py in
-the JAX package).
+"""Unet and UNet++ decoders (the canonical grid and the SMP layout) and
+the segmentation head (models/unet.py in the JAX package).
 
 These are the plain forms: nearest up2x → concat → conv. The JAX package's
 default FusedUpConvBnRelu is an exact rewrite of them on the same
@@ -126,6 +126,61 @@ class UnetPlusPlusDecoder(nn.Module):
                 x = getattr(self, f"x_{i}_{j}_conv1")(x)
                 grid[(i, j)] = getattr(self, f"x_{i}_{j}_conv2")(x)
         return self.final_block(grid[(0, 4)])
+
+
+class SMPUnetPlusPlusDecoder(nn.Module):
+    """The UNet++ decoder of segmentation-models-pytorch, which the
+    reference's checkpoints hold (JAX's SMPUnetPlusPlusDecoder).
+
+    The encoder features are indexed deepest-first, f[0] at stride 32 to
+    f[4] at stride 2. Block x_{d}_{l} upsamples the block to its left
+    (x_{d}_{l-1}, or f[d] in the first column) and concatenates
+    [upsampled | x_{d+1}_{l} ... x_{l}_{l} | f[l + 1]]; a block of row 0
+    outputs decoder_channels[l], an interior one the width of f[l + 1]. The
+    last block, x_0_4, has no skip. Blocks are decoder.blocks.x_{d}_{l},
+    smp's state_dict names."""
+
+    def __init__(self, encoder_channels: Sequence[int],
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+        super().__init__()
+        f_ch = list(encoder_channels[1:])[::-1]
+        skip_ch = f_ch[1:] + [0]
+        out_ch = list(decoder_channels)
+        self.depth = depth = len(out_ch) - 1
+        width = {}
+        blocks = {}
+        for layer in range(depth):
+            for d in range(depth - layer):
+                li = d + layer
+                ch = out_ch[li] if d == 0 else skip_ch[li]
+                if layer == 0:
+                    cin, cskip = f_ch[d], f_ch[d + 1]
+                else:
+                    cin = width[(d, li - 1)]
+                    cskip = sum(width[(i, li)] for i in range(d + 1, li + 1)
+                                ) + f_ch[li + 1]
+                blocks[f"x_{d}_{li}"] = DecoderBlock(cin, cskip, ch)
+                width[(d, li)] = ch
+        blocks[f"x_0_{depth}"] = DecoderBlock(width[(0, depth - 1)], 0,
+                                              out_ch[depth])
+        self.blocks = nn.ModuleDict(blocks)
+
+    def forward(self, feats: List[torch.Tensor]):
+        f = list(feats[1:])[::-1]
+        depth = self.depth
+        dense = {}
+        for layer in range(depth):
+            for d in range(depth - layer):
+                li = d + layer
+                block = self.blocks[f"x_{d}_{li}"]
+                if layer == 0:
+                    dense[(d, d)] = block(f[d], f[d + 1])
+                else:
+                    cats = [dense[(i, li)] for i in range(d + 1, li + 1)]
+                    cats.append(f[li + 1])
+                    dense[(d, li)] = block(dense[(d, li - 1)],
+                                           torch.cat(cats, dim=1))
+        return self.blocks[f"x_0_{depth}"](dense[(0, depth - 1)])
 
 
 ACTIVATIONS = (None, "identity", "sigmoid", "softmax")

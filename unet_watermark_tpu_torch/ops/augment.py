@@ -18,12 +18,17 @@ distributions. apply_params computes what augment_sample computes from the
 same drawn values: the tests recover JAX's draws from a key and hold the
 two outputs together.
 
-The affine warp is the JAX default, the separable nearest warp
+The affine warp takes the policy's interpolation, as JAX's does. The
+default, "nearest", is the separable nearest warp
 (_separable_nearest_warp): not an exact 2-D nearest warp, but two index
 maps, each a per-output-line base plus a per-input-line shift into the
 reflect-101 extended axis. Here both maps are built as JAX builds them and
 applied as gathers, which gives the same pixels as JAX's one-hot matmuls
-and binary rolls given the same float32 coefficients.
+and binary rolls given the same float32 coefficients. "nearest_gather"
+(JAX's _nearest_sample) and any other name, bilinear (_bilinear_sample),
+sample JAX's inverse-map grid (_affine_grid) with one or four gathers of
+reflect-101 coordinates. The image and mask go through one warp and the
+mask is thresholded at 0.5 after it, as in JAX.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ class AugmentPolicy:
     gamma_limit: Tuple[float, float] = (0.8, 1.2)
     jpeg_p: float = 0.0
     jpeg_quality: Tuple[float, float] = (60.0, 100.0)
-    # only "nearest", the JAX default (the separable warp), is ported
+    # "nearest" (the separable warp), "nearest_gather" or bilinear
     interpolation: str = "nearest"
 
 
@@ -90,12 +95,7 @@ POLICIES = {
 
 
 def resolve_policy(policy) -> AugmentPolicy:
-    pol = POLICIES[policy] if isinstance(policy, str) else policy
-    if pol.interpolation != "nearest":
-        raise NotImplementedError(
-            f"interpolation {pol.interpolation!r}: the port has the default "
-            f"separable nearest warp only (ROADMAP.md §A.7)")
-    return pol
+    return POLICIES[policy] if isinstance(policy, str) else policy
 
 
 def has_warp(policy: AugmentPolicy, h: int, w: int) -> bool:
@@ -162,11 +162,9 @@ def draw_params(gen: torch.Generator, n: int, h: int, w: int,
 # geometry (image + mask)
 # ---------------------------------------------------------------------------
 
-def _affine_coeffs(h: int, w: int, scale, angle_deg, shear_deg, shift_xy):
-    """The inverse map of a centred scale → shear(x) → rotate, as linear
-    coefficients: src_x = p·xo + q·yo + rx, src_y = s·xo + t·yo + ry; float32
-    (N,) tensors, computed in the JAX function's order."""
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+def _inverse_matrix(scale, angle_deg, shear_deg):
+    """The 2 x 2 inverse of scale → shear(x) → rotate, (i00, i01, i10,
+    i11), each (N,) float32, in the JAX functions' order."""
     ang = torch.deg2rad(angle_deg)
     shr = torch.deg2rad(shear_deg)
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -175,12 +173,79 @@ def _affine_coeffs(h: int, w: int, scale, angle_deg, shear_deg, shift_xy):
     m10 = scale * sin
     m11 = scale * (sin * torch.tan(shr) + cos)
     det = m00 * m11 - m01 * m10
-    i00, i01 = m11 / det, -m01 / det
-    i10, i11 = -m10 / det, m00 / det
+    return m11 / det, -m01 / det, -m10 / det, m00 / det
+
+
+def _affine_coeffs(h: int, w: int, scale, angle_deg, shear_deg, shift_xy):
+    """The inverse map of a centred scale → shear(x) → rotate, as linear
+    coefficients: src_x = p·xo + q·yo + rx, src_y = s·xo + t·yo + ry; float32
+    (N,) tensors, computed in the JAX function's order."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    i00, i01, i10, i11 = _inverse_matrix(scale, angle_deg, shear_deg)
     ty, tx = shift_xy[:, 1] * h, shift_xy[:, 0] * w
     rx = cx - i00 * (cx + tx) - i01 * (cy + ty)
     ry = cy - i10 * (cx + tx) - i11 * (cy + ty)
     return i00, i01, rx, i10, i11, ry
+
+
+def affine_grid(h: int, w: int, scale, angle_deg, shear_deg, shift_xy):
+    """JAX's _affine_grid on a batch: the inverse map's source coordinates
+    (src_y, src_x), each (N, H, W) float32, in the JAX function's order of
+    operations."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    i00, i01, i10, i11 = (_col(v) for v in _inverse_matrix(
+        scale, angle_deg, shear_deg))
+    dev = scale.device
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    ty, tx = _col(shift_xy[:, 1] * h), _col(shift_xy[:, 0] * w)
+    yy = ys - cy - ty
+    xx = xs - cx - tx
+    return i10 * xx + i11 * yy + cy, i00 * xx + i01 * yy + cx
+
+
+def _reflect101(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Reflect-101 of float coordinates, for any overshoot."""
+    period = 2 * (n - 1)
+    v = torch.remainder(torch.abs(v), period)
+    return torch.where(v >= n, period - v, v)
+
+
+def _take(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor
+          ) -> torch.Tensor:
+    """img (N, H, W, C) at integer (N, H', W') coordinates."""
+    n, h, w, c = img.shape
+    idx = (yi * w + xi).reshape(n, -1, 1).expand(-1, -1, c)
+    return torch.gather(img.reshape(n, h * w, c), 1, idx).reshape(
+        yi.shape + (c,))
+
+
+def nearest_sample(img: torch.Tensor, src_y: torch.Tensor,
+                   src_x: torch.Tensor) -> torch.Tensor:
+    """JAX's _nearest_sample on a batch: one gather at the rounded (half to
+    even) reflect-101 coordinates."""
+    h, w = img.shape[1:3]
+    yi = torch.clamp(torch.round(_reflect101(src_y, h)), 0, h - 1).long()
+    xi = torch.clamp(torch.round(_reflect101(src_x, w)), 0, w - 1).long()
+    return _take(img, yi, xi)
+
+
+def bilinear_sample(img: torch.Tensor, src_y: torch.Tensor,
+                    src_x: torch.Tensor) -> torch.Tensor:
+    """JAX's _bilinear_sample on a batch: reflect-101 coordinates, four
+    gathers, the weights in JAX's order."""
+    h, w = img.shape[1:3]
+    src_y, src_x = _reflect101(src_y, h), _reflect101(src_x, w)
+    y0 = torch.clamp(torch.floor(src_y), 0, h - 1)
+    x0 = torch.clamp(torch.floor(src_x), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = (src_y - y0)[..., None]
+    wx = (src_x - x0)[..., None]
+    y0i, y1i, x0i, x1i = (v.long() for v in (y0, y1, x0, x1))
+    top = _take(img, y0i, x0i) * (1 - wx) + _take(img, y0i, x1i) * wx
+    bot = _take(img, y1i, x0i) * (1 - wx) + _take(img, y1i, x1i) * wx
+    return top * (1 - wy) + bot * wy
 
 
 def separable_nearest_warp(img: torch.Tensor, p, q, rx, s, t, ry
@@ -354,10 +419,15 @@ def apply_params(images: torch.Tensor, masks: torch.Tensor,
         images = _where_n(params["vflip"], images.flip(1), images)
         masks = _where_n(params["vflip"], masks.flip(1), masks)
     if has_warp(pol, h, w):
-        coeffs = _affine_coeffs(h, w, params["scale"], params["angle"],
-                                params["shear"], params["shift"])
-        both = separable_nearest_warp(torch.cat([images, masks], -1),
-                                      *coeffs)
+        warp = (params["scale"], params["angle"], params["shear"],
+                params["shift"])
+        both = torch.cat([images, masks], -1)
+        if pol.interpolation == "nearest":
+            both = separable_nearest_warp(both, *_affine_coeffs(h, w, *warp))
+        elif pol.interpolation == "nearest_gather":
+            both = nearest_sample(both, *affine_grid(h, w, *warp))
+        else:
+            both = bilinear_sample(both, *affine_grid(h, w, *warp))
         images = both[..., :3]
         masks = (both[..., 3:] > 0.5).float()
     if pol.bc_p > 0:

@@ -32,6 +32,10 @@ to the bit against cv2 5.0.0 (tests/test_torch_imgproc.py).
                   strong pixel.
   filter2d_u8     filter2D(img, -1, kernel), BORDER_REFLECT_101: float32 sums
                   (exact for integer taps), rounded half to even, saturated.
+  gaussian_blur_u8
+                  GaussianBlur(img, (k, k), sigma) on uint8 with sigma > 0,
+                  BORDER_REFLECT_101: cv2's fixed-point taps (8 fraction
+                  bits, error-diffused) in exact integer sums.
   fill_rect, fill_poly
                   cv2.rectangle(..., -1) and cv2.fillPoly (shift 0,
                   8-connected edges) on host numpy masks: a region list is
@@ -747,3 +751,44 @@ def gaussian_blur_f32(img: np.ndarray, ksize: int) -> np.ndarray:
     k = np.asarray(SMALL_GAUSSIAN[ksize], np.float32)
     x = np.asarray(img, np.float32)
     return _symm_pass(_symm_pass(x, k, 1), k, 0)
+
+
+def gaussian_kernel_q8(ksize: int, sigma: float) -> np.ndarray:
+    """The taps cv2.GaussianBlur uses on 8-bit images (ksize odd, sigma >
+    0), in units of 2^-8: getGaussianKernelBitExact's normalized taps, in
+    double, rounded from the outermost inwards with the rounding error
+    carried to the next tap (getGaussianKernelFixedPoint_ED); the centre
+    takes what makes the sum 256."""
+    half = (ksize - 1) // 2
+    x = np.arange(1 - ksize, 0, 2, dtype=np.float64)[:half]
+    vals = np.exp(x * x * (-0.125 / (sigma * sigma)))
+    total = 0.0
+    for v in vals.tolist():
+        total += v
+    mul = 1.0 / (total * 2.0 + 1.0)
+    taps, err = [], 0.0
+    for v in vals.tolist():
+        adj = v * mul * 256.0 + err
+        q = int(np.rint(adj))
+        err = adj - q
+        taps.append(q)
+    return np.asarray(taps + [256 - 2 * sum(taps)] + taps[::-1], np.int64)
+
+
+def gaussian_blur_u8(img: torch.Tensor, ksize: int, sigma: float
+                     ) -> torch.Tensor:
+    """cv2.GaussianBlur(img, (k, k), sigma) on an (H, W) uint8 tensor, k
+    odd and sigma > 0, BORDER_REFLECT_101: cv2's fixed-point path in exact
+    integers, rows then columns, (sum_j k_j sum_i k_i x + 2^15) >> 16 with
+    the taps of gaussian_kernel_q8."""
+    k = gaussian_kernel_q8(ksize, sigma).tolist()
+    r = ksize // 2
+    h, w = img.shape
+    p = _pad_reflect101(img, r, r, r, r).to(torch.int32)
+    rows = k[0] * p[:, :w]
+    for i in range(1, ksize):
+        rows = rows + k[i] * p[:, i:i + w]
+    out = k[0] * rows[:h]
+    for j in range(1, ksize):
+        out = out + k[j] * rows[j:j + h]
+    return ((out + (1 << 15)) >> 16).to(torch.uint8)

@@ -3,10 +3,12 @@ JAX package): every checkpoint scores the same sampled images, and the one
 with the highest detection rate wins.
 
 The checkpoints are the port's training directories (tree.npz and
-meta.json, training/checkpoint.py); a .pth file raises (its import,
-models/torch_import.py in the JAX package, is not ported: ROADMAP.md
-§A.8). Checkpoints of one architecture are evaluated in one forward on
-`device`: their parameters and buffers are stacked on a leading axis and
+meta.json, training/checkpoint.py) and .pth files (models/torch_import.py:
+the config's model, drawn by init_model, takes the file's tensors by name
+and shape, as JAX's selector imports them; an orbax directory raises,
+ROADMAP.md §A.7). Checkpoints of one architecture are evaluated in one
+forward on `device`: their parameters and buffers are stacked on a leading
+axis and
 the model runs under torch.func.vmap of torch.func.functional_call, in eval
 mode; others run one forward each. The images are read as cv2.imread
 reads them and resized to IMG_SIZE by cv2's INTER_LINEAR on uint8
@@ -30,7 +32,9 @@ import torch
 
 from ..configs import get_cfg_defaults, update_config
 from ..models.convert import load_flax_weights
-from ..models.factory import create_model_from_config, torch_dtype
+from ..models.factory import (create_model_from_config, init_model,
+                              torch_dtype)
+from ..models.torch_import import import_pth
 from ..ops import components
 from ..ops.augment import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.resize import resize_linear_f32, resize_linear_u8
@@ -84,19 +88,16 @@ class ModelSelector:
         self.vmapped = False  # whether the last evaluation stacked them
 
     def discover_checkpoints(self) -> List[str]:
-        """The checkpoint directories (with meta.json) under models_dir; a
-        .pth file raises NotImplementedError."""
+        """The .pth files and checkpoint directories (with meta.json) under
+        models_dir."""
         found = []
         if not os.path.isdir(self.models_dir):
             return found
         for name in sorted(os.listdir(self.models_dir)):
             p = os.path.join(self.models_dir, name)
             if name.endswith(".pth"):
-                raise NotImplementedError(
-                    f"{p}: .pth checkpoints go through the JAX package's "
-                    f"models/torch_import.py, not ported yet (ROADMAP.md "
-                    f"§A.8)")
-            if os.path.isdir(p) and os.path.exists(
+                found.append(p)
+            elif os.path.isdir(p) and os.path.exists(
                     os.path.join(p, "meta.json")):
                 found.append(p)
         return found
@@ -113,9 +114,13 @@ class ModelSelector:
         return files
 
     def _load_model(self, path: str) -> torch.nn.Module:
-        with torch.device("meta"):
-            model = create_model_from_config(self.cfg)
-        load_flax_weights(model, read_weights(path))
+        if path.endswith(".pth"):
+            model = init_model(create_model_from_config(self.cfg), seed=0)
+            import_pth(path, model)
+        else:
+            with torch.device("meta"):
+                model = create_model_from_config(self.cfg)
+            load_flax_weights(model, read_weights(path))
         return model.eval().to(self.device, torch_dtype(self.cfg.MODEL.DTYPE))
 
     @staticmethod

@@ -1,4 +1,4 @@
-"""Phases 3h-3k of chip_smoke.py, and the helpers they share with it: the
+"""Phases 3h-3l of chip_smoke.py, and the helpers they share with it: the
 timers (CUDA events, host clock, torch.profiler), the log line, the
 in-process CLI call and the LaMa segment accounting. chip_smoke.py imports
 this module; it needs the card, as chip_smoke.py does.
@@ -19,7 +19,7 @@ this module; it needs the card, as chip_smoke.py does.
   3i the fill trainers at full width on a folder of 16 clean 512² PNGs
      (utils/synthetic): (a) train_inpaint, FFC-LaMa ('lama': 9 FFC
      blocks, 512 channels at /8) against the PatchGAN, 256², batch 8,
-     GAN on after 4 warmup steps, 16 steps, a log every 4 (finite g_loss,
+     GAN on after 4 warmup steps, 8 steps, a log every 4 (finite g_loss,
      d_loss, hole_psnr); the directory and its .npz through
      get_engine("lama") ("ffc-lama"); `repair --no-ocr --inpaint-weights
      <dir>` on 4 of 3d's files, 2 of them without a logo (rc 0, engine
@@ -27,10 +27,10 @@ this module; it needs the card, as chip_smoke.py does.
      input's);
      --resume-from <dir>.npz; one float32 G + D step (2 x 64²) on the
      card against the CPU; on the resident corpus one GAN step under
-     torch's sync debug mode (no synchronizing call), 10 steps timed as
+     torch's sync debug mode (no synchronizing call), 5 steps timed as
      one window (ms a step, img/s, peak MiB, inpaint_train_mfu: the
      convs' operations from their shapes, 3 generator and 7
-     discriminator forwards a step, over the window at the bf16 peak), 10
+     discriminator forwards a step, over the window at the bf16 peak), 5
      synced steps split (generator forward+backward, discriminator step,
      both optimizers), a profile of 2 steps. (b) train_latent_diffusion,
      256², batch 16, 8 autoencoder and 8 denoiser steps, shipped to a
@@ -89,6 +89,27 @@ this module; it needs the card, as chip_smoke.py does.
      latent-diffusion rung, never push-pull, and pixels outside each mask
      unchanged. Logs the report's wall and per-section seconds, the frozen
      set's images/s and the calibration's seconds.
+  3l the reference's checkpoint formats and the blurred training masks
+     (checkpoint_phase): (a) the shipped UNet++ written by export_pth and
+     `repair --no-ocr --model <it>.pth` on 4 of 3d's files, every PNG equal
+     byte for byte to the .npz run's, K1 and K2 launched; (b) a seeded
+     smp-layout UNet++/resnet34 at full width saved as a bare state_dict,
+     detected as "smp" by WatermarkPredictor, its default fused fn on
+     BATCH x SIZE² timed in turns with the canonical decoder's, its
+     float32 logits on the card against the CPU's (1 x 256²); (c) a seeded
+     18-block big-lama saved as a saicinpainting best.ckpt (~195 MiB:
+     generator.model.* and a discriminator tensor), loaded through
+     PREDICT.INPAINT_WEIGHTS (engine "ffc-big-lama-torch"), the fused fn
+     and the generator timed in turns with FFC-LaMa's, its convs' share of
+     the fp32 peak, the share of hole pixels its seeded output leaves
+     unsaturated, the card against the CPU (1 x 128², in a host worker
+     while the card works); (d) WatermarkDataset(use_blurred_mask=True,
+     mode="val") over 8 of 3h's pairs on the card and on the CPU (a host
+     worker), byte-equal, K1 launched each item, samples/s; `train
+     --use-blurred-mask` at full width for one epoch of 2 steps (20 pairs,
+     masks made blurred); apply_params with each gather warp
+     (nearest_gather, bilinear) on BATCH x SIZE² on the card against the
+     CPU.
 """
 from __future__ import annotations
 
@@ -592,13 +613,14 @@ def training_phase(work: Path, seed: int, dev) -> dict:
 
 
 # phase 3i: the fill trainers' clean folder (utils/synthetic, 512²), the
-# GAN run (lama at full width, 256², batch 8, warmup 4 of 16 steps, a log
-# every 4), its timed steps, the latent-diffusion run (256², batch 16, 8 +
+# GAN run (lama at full width, 256², batch 8, warmup 4 of 8 steps, a log
+# every 4; cut from 16 steps, and its timed steps from 10 to 5, to buy
+# phase 3l its time), its timed steps, the latent-diffusion run (256², batch 16, 8 +
 # 8 steps), the diffusion engine's timed call (8 x 512², 20 DDIM steps)
 # and the card-against-CPU checks' shapes
 FILL_FILES = 16
-GAN_SIZE, GAN_BATCH, GAN_STEPS, GAN_WARMUP, GAN_LOG = 256, 8, 16, 4, 4
-GAN_TIMED = 10
+GAN_SIZE, GAN_BATCH, GAN_STEPS, GAN_WARMUP, GAN_LOG = 256, 8, 8, 4, 4
+GAN_TIMED = 5
 LD_SIZE, LD_BATCH, LD_AE_STEPS, LD_DN_STEPS = 256, 16, 8, 8
 LD_SERVE_STEPS = 20
 # the serving runs' files, from 3d's folder: two with logos, and the two
@@ -1600,3 +1622,427 @@ def quality_phase(work: Path, dev, limit: int = QUALITY_LIMIT,
                        "flux_s": flux_s,
                        "phase_s": time.perf_counter() - t_phase},
             "launches": launches}
+
+
+# phase 3l: (a) the .pth round trip's files from 3d's folder; (b) the
+# smp-layout UNet++ timed on BATCH x SIZE², its logits card against CPU on
+# one SMP_CHECK_SIZE² image; (c) big-lama timed on BATCH x SIZE², card
+# against CPU on one LAMA_CHECK_SIZE² image, with its residual branches'
+# last BatchNorm scaled by BIG_LAMA_DAMP and its head scaled so the seeded
+# logits have the std BIG_LAMA_LOGIT_STD on the first image (an untrained
+# 18-block stack otherwise saturates the sigmoid), and the share of hole
+# pixels inside (0.01, 0.99) at least BIG_LAMA_UNSATURATED; (d) the blurred
+# dataset over BLUR_FILES of 3h's pairs, `train --use-blurred-mask` over
+# BLUR_TRAIN_FILES of them (16 train and 4 val at batch 8: 2 steps), and
+# augment_sample with each gather warp on BATCH x SIZE²
+PTH_CLI_FILES = ("a00", "a01", "a02", "a10")
+SMP_CHECK_SIZE, LAMA_CHECK_SIZE = 256, 128
+BIG_LAMA_DAMP, BIG_LAMA_LOGIT_STD, BIG_LAMA_UNSATURATED = 0.1, 1.0, 0.9
+BLUR_FILES, BLUR_TRAIN_FILES = 8, 20
+# float32 card against CPU, TF32 off: the UNet++ logits to 1e-3 of their
+# largest magnitude (test_torch_models.py's 1e-3 at logits near 1), the
+# big-lama output to 1e-3 (3c's LaMa tolerance); the gather warps' images
+# to WARP_ATOL but for a WARP_FLIPS share of values (a grid coordinate at a
+# rounding boundary in its last bits takes the neighbour), masks agreeing
+# on >= 1 - WARP_FLIPS of pixels
+SMP_LOGIT_RTOL, BIG_LAMA_TOL = 1e-3, 1e-3
+WARP_ATOL, WARP_FLIPS = 1e-4, 1e-3
+PEAK_FP32_FLOPS_PER_S = 67e12  # outside the tensor cores (TF32 is off)
+
+
+def big_lama_segment(name: str) -> str:
+    """The part of BigLamaGenerator that its module `name` ('model.N...')
+    is in."""
+    i = int(name.split(".")[1])
+    return ("stem_down" if i <= 4 else "ffc_blocks" if i <= 22
+            else "up" if i <= 32 else "head")
+
+
+def big_lama_cpu_output(ckpt: str, size: int, seed: int):
+    """A host worker's big-lama: the checkpoint loaded on the CPU, one
+    size² image and its logo holes (utils/synthetic, seed); returns the
+    output as a numpy array."""
+    import torch
+    from unet_watermark_tpu_torch.inference import engines
+    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+    torch.set_num_threads(3)
+    model, name = engines.load_lama(ckpt, "big-lama", "cpu")
+    if name != "big-lama-torch":
+        raise AssertionError(f"{ckpt} loads as {name} on the CPU")
+    imgs, logos = watermarked_images(1, size, seed=seed)
+    with torch.inference_mode():
+        return model(torch.from_numpy(imgs),
+                     torch.from_numpy(logos)[..., None]).numpy()
+
+
+def blurred_cpu_masks(root: str, masks: str, size: int):
+    """A host worker's blurred val-mode dataset on the CPU: every item's
+    mask at size² (the generated soft masks cached in `masks`)."""
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.data.dataset import WatermarkDataset
+
+    torch.set_num_threads(3)
+    ds = WatermarkDataset(os.path.join(root, "watermarked"),
+                          os.path.join(root, "clean"), masks, img_size=size,
+                          mode="val", use_blurred_mask=True, device="cpu")
+    return np.stack([ds[i][1] for i in range(len(ds))])
+
+
+def seeded_big_lama(seed: int, dev, probe):
+    """The 18-block generator drawn by factory.init_model (seed), each
+    residual branch's last BatchNorm scaled by BIG_LAMA_DAMP, then its head
+    scaled so the pre-sigmoid logits of probe = (images, holes) have the
+    std BIG_LAMA_LOGIT_STD; float32 on `dev`."""
+    import torch
+    from unet_watermark_tpu_torch.models.factory import init_model
+    from unet_watermark_tpu_torch.models.lama_import import (
+        BigLamaGenerator, FFCResnetBlock)
+
+    model = init_model(BigLamaGenerator(), seed).to(dev).eval()
+    with torch.no_grad():
+        for block in model.model:
+            if isinstance(block, FFCResnetBlock):
+                block.conv2.bn_l.weight.mul_(BIG_LAMA_DAMP)
+                block.conv2.bn_g.weight.mul_(BIG_LAMA_DAMP)
+        img, hole = (t.permute(0, 3, 1, 2) for t in probe)
+        x = torch.cat([img * (1 - hole), hole], dim=1)
+        head = model.model[-2]
+        logits = model.model[:-1](x)  # the head's output, before Sigmoid
+        head.weight.mul_(BIG_LAMA_LOGIT_STD / logits.std())
+        head.bias.zero_()
+    return model
+
+
+def checkpoint_phase(work: Path, seed: int, dev) -> dict:
+    """Phase 3l: the reference's checkpoint formats and the blurred
+    training masks on the card. (a) The shipped UNet++ written as a .pth
+    (export_pth) and `repair --no-ocr --model <it>.pth` on PTH_CLI_FILES of
+    3d's folder: every PNG it writes equal byte for byte to the same run
+    with the shipped .npz, K1 and K2 launched. (b) An smp-layout
+    UNet++/resnet34 (seeded weights, a bare state_dict .pth) detected by
+    WatermarkPredictor, its default fused fn timed in turns with the
+    canonical decoder's, its float32 logits on the card against the CPU's.
+    (c) A seeded 18-block big-lama saved as a saicinpainting best.ckpt
+    (generator.model.* keys and one discriminator tensor, dropped on load),
+    loaded through PREDICT.INPAINT_WEIGHTS (engine "ffc-big-lama-torch"),
+    the fused fn and the generator timed beside FFC-LaMa's, its share of
+    the fp32 peak, the card against the CPU (a host worker). (d) The
+    blurred val-mode dataset on the card against the CPU (a host worker)
+    byte for byte, K1 launched; `train --use-blurred-mask` for one epoch
+    of 2 steps; apply_params with each gather warp on the card against the
+    CPU."""
+    import copy
+    import filecmp
+
+    import numpy as np
+    import torch
+    from unet_watermark_tpu_torch.configs import (DEFAULT_CONFIG,
+                                                  get_cfg_defaults)
+    from unet_watermark_tpu_torch.data.dataset import WatermarkDataset
+    from unet_watermark_tpu_torch.inference.predict import WatermarkPredictor
+    from unet_watermark_tpu_torch.models import torch_import
+    from unet_watermark_tpu_torch.models.convert import load_flax_weights
+    from unet_watermark_tpu_torch.models.factory import (
+        create_model_from_config, init_model)
+    from unet_watermark_tpu_torch.models.unet import SMPUnetPlusPlusDecoder
+    from unet_watermark_tpu_torch.inference import engines
+    from unet_watermark_tpu_torch.ops import augment as aug
+    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.utils.shipping import load_npz, resolve
+    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
+
+    t_phase = time.perf_counter()
+    root = work / "ckpt_phase"
+    root.mkdir()
+    images_np, logos_np = watermarked_images(BATCH, SIZE, seed=seed + 41,
+                                             clean=2)
+    images = torch.from_numpy(images_np).to(dev)
+
+    # (c, first) the seeded big-lama, written where the host worker reads
+    # it while the card works
+    probe = tuple(torch.from_numpy(a).to(dev) for a in (
+        images_np[:1], logos_np[:1, ..., None].astype(np.float32)))
+    t0 = time.perf_counter()
+    lama = seeded_big_lama(seed, dev, probe)
+    ckpt = root / "best.ckpt"
+    sd = {"generator." + k: v.cpu() for k, v in lama.state_dict().items()}
+    sd["discriminator.model0.0.weight"] = torch.zeros(64, 3, 4, 4)
+    torch.save({"state_dict": sd, "epoch": 0}, str(ckpt))
+    ckpt_s = time.perf_counter() - t0
+    ckpt_mib = ckpt.stat().st_size / 2 ** 20
+    del sd
+    blur_root = root / "blur"
+    for sub in ("watermarked", "clean"):
+        (blur_root / sub).mkdir(parents=True)
+        for p in sorted((work / "train_data" / sub).iterdir())[:BLUR_FILES]:
+            shutil.copy(p, blur_root / sub / p.name)
+    with host_pool(2) as pool:
+        lama_cpu = pool.submit(big_lama_cpu_output, str(ckpt),
+                               LAMA_CHECK_SIZE, seed + 43)
+        blur_cpu = pool.submit(blurred_cpu_masks, str(blur_root),
+                               str(root / "blur_masks_cpu"), SIZE)
+
+        # (a) the .pth round trip through the repair command
+        cfg = get_cfg_defaults()
+        shipped = resolve("seg", cfg=cfg)
+        model = create_model_from_config(cfg)
+        load_flax_weights(model, load_npz(shipped))
+        pth = root / "unet_watermark.pth"
+        torch_import.export_pth(str(pth), cfg, model, epoch=0)
+        del model
+        pin = root / "pth_in"
+        pin.mkdir()
+        for stem in PTH_CLI_FILES:
+            shutil.copy(work / "in" / f"{stem}.png", pin / f"{stem}.png")
+        runs = {}
+        for name, extra in (("npz", []), ("pth", ["--model", str(pth)])):
+            kc.reset_launch_counts()
+            argv = ["repair", "--input", str(pin), "--output",
+                    str(root / f"out_{name}"), "--no-ocr"] + extra
+            rc, wall, _ = run_cli(argv, dev, timer=False)
+            summary = json.loads((root / f"out_{name}" /
+                                  "repair_summary.json").read_text())
+            runs[name] = {"rc": rc, "wall_s": wall,
+                          "status": summary.get("status"),
+                          "launches": {k.__name__: k.launches
+                                       for k in kc.KERNELS}}
+        a, b = root / "out_npz", root / "out_pth"
+        pngs = sorted(p.relative_to(a) for p in a.rglob("*.png"))
+        if [p.relative_to(b) for p in sorted(b.rglob("*.png"))] != pngs:
+            raise AssertionError(f"the .pth run wrote other files: "
+                                 f"{sorted(b.rglob('*.png'))}")
+        differ = [str(p) for p in pngs
+                  if not filecmp.cmp(a / p, b / p, shallow=False)]
+        if differ or any(r["rc"] or r["status"] != "success"
+                         for r in runs.values()) or \
+                min(runs["pth"]["launches"].values()) < 1:
+            raise AssertionError(f"repair --model .pth: {runs}, files "
+                                 f"differing from the .npz run's: {differ}")
+        log("pth_repair", weights=Path(shipped).name,
+            pth_mib=pth.stat().st_size / 2 ** 20, files=list(PTH_CLI_FILES),
+            runs=runs, pngs_equal=len(pngs))
+
+        # (b) the smp-layout UNet++ at full width, seeded
+        g = torch.Generator().manual_seed(seed + 42)
+        cfg_s = get_cfg_defaults()
+        cfg_s.MODEL.DECODER_IMPL = "smp"
+        smp = init_model(create_model_from_config(cfg_s), seed + 42)
+        with torch.no_grad():
+            for m in smp.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.copy_(0.1 * torch.randn(
+                        m.running_mean.shape, generator=g))
+                    m.running_var.copy_(1.0 + 0.3 * torch.rand(
+                        m.running_var.shape, generator=g))
+        smp_pth = root / "smp_unetplusplus.pth"
+        torch.save(smp.state_dict(), str(smp_pth))  # a bare state_dict
+        pred_s = WatermarkPredictor(get_cfg_defaults(),
+                                    weights_path=str(smp_pth), device=dev)
+        if pred_s.cfg.MODEL.DECODER_IMPL != "smp" or not isinstance(
+                pred_s.model.decoder, SMPUnetPlusPlusDecoder) or \
+                pred_s.n_weights != len([k for k in smp.state_dict()
+                                         if "num_batches" not in k]):
+            raise AssertionError("the smp-layout .pth was not detected and "
+                                 "loaded whole")
+        pred_c = WatermarkPredictor(get_cfg_defaults(), device=dev)
+        fused_s, fused_c = (p.make_fused_repair_fn() for p in
+                            (pred_s, pred_c))
+        # the fused fn's mask stage depends on the masks (the labelling's
+        # rounds): the seeded weights' are not a trained model's, so the
+        # networks are timed alone too
+        turns = {"canonical": [], "smp": []}
+        net_turns = {"canonical": [], "smp": []}
+        with torch.inference_mode():
+            for name in ("canonical", "smp", "smp", "canonical"):
+                p = pred_s if name == "smp" else pred_c
+                fn = fused_s if name == "smp" else fused_c
+                turns[name].append(cuda_ms(lambda: fn(images), 2, 1))
+                net_turns[name].append(cuda_ms(
+                    lambda: p._forward_probs(images), 5))
+            mask_fraction = {name: p.predict_masks(images).mean().item()
+                             for name, p in (("canonical", pred_c),
+                                             ("smp", pred_s))}
+        fused_ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        network_ms = {k: float(np.mean(v)) for k, v in net_turns.items()}
+        small = torch.from_numpy(watermarked_images(
+            1, SMP_CHECK_SIZE, seed=seed + 44)[0])
+        smp.eval()
+        smp_gpu = copy.deepcopy(smp).to(dev)
+        with torch.inference_mode():
+            want = smp(small)
+            got = smp_gpu(small.to(dev)).cpu()
+        scale = max(1.0, want.abs().max().item())
+        smp_err = (got - want).abs().max().item()
+        if smp_err > SMP_LOGIT_RTOL * scale:
+            raise AssertionError(f"float32 smp UNet++ logits card vs CPU: "
+                                 f"{smp_err} (largest {scale})")
+        log("smp_unetplusplus", weights="seeded (a stand-in: it shows the "
+            "structure and the speed, not detection quality)",
+            detected=pred_s.cfg.MODEL.DECODER_IMPL,
+            tensors=pred_s.n_weights, engine=fused_s.engine_used,
+            images=[BATCH, SIZE, SIZE, 3], fused_ms=fused_ms,
+            fused_turns_ms=turns, img_per_s={k: BATCH / (v / 1e3)
+                                             for k, v in fused_ms.items()},
+            network_ms=network_ms, network_turns_ms=net_turns,
+            raw_mask_fraction=mask_fraction,
+            fp32_logits_card_vs_cpu_max_abs=smp_err,
+            fp32_logits_largest=scale, check_size=SMP_CHECK_SIZE)
+        del pred_s, pred_c, fused_s, fused_c, smp, smp_gpu
+
+        # (c) big-lama through PREDICT.INPAINT_WEIGHTS
+        cfg_l = get_cfg_defaults()
+        cfg_l.PREDICT.INPAINT_WEIGHTS = str(ckpt)
+        t0 = time.perf_counter()
+        pred_l = WatermarkPredictor(cfg_l, device=dev)
+        fused_big = pred_l.make_fused_repair_fn()
+        load_s = time.perf_counter() - t0
+        if fused_big.engine_used != "ffc-big-lama-torch":
+            raise AssertionError(f"the big-lama .ckpt fills with "
+                                 f"{fused_big.engine_used}")
+        fused_lama = WatermarkPredictor(get_cfg_defaults(), device=dev) \
+            .make_fused_repair_fn()
+        big, _ = engines.load_lama(str(ckpt), "big-lama", dev)
+        ffc, _ = engines.load_lama(resolve("inpaint"), "lama", dev,
+                                   torch.bfloat16)
+        holes = torch.from_numpy(logos_np[..., None].astype(np.float32)).to(
+            dev)
+        with torch.inference_mode():
+            repaired, mask = fused_big(images)
+            hole = mask > 0
+            raw = big.model(torch.cat([
+                images.permute(0, 3, 1, 2) * (1 - holes.permute(0, 3, 1, 2)),
+                holes.permute(0, 3, 1, 2)], 1))
+        keep = ~hole[..., None].expand_as(images)
+        if not (torch.isfinite(repaired).all() and torch.equal(
+                repaired[keep], images[keep])):
+            raise AssertionError("big-lama's fused output: non-finite, or "
+                                 "pixels outside the mask changed")
+        in_hole = raw[(holes.permute(0, 3, 1, 2) > 0).expand_as(raw)]
+        unsat = ((in_hole > 0.01) & (in_hole < 0.99)).float().mean().item() \
+            if in_hole.numel() else 0.0
+        if unsat < BIG_LAMA_UNSATURATED:
+            raise AssertionError(f"big-lama's seeded output is saturated: "
+                                 f"{unsat:.3f} of hole pixels in (0.01, "
+                                 f"0.99)")
+        turns = {"ffc-lama": [], "big-lama": []}
+        gen = {"ffc-lama": [], "big-lama": []}
+        with torch.inference_mode():  # big-lama's calls take ~0.4 s
+            for name in ("ffc-lama", "big-lama", "big-lama", "ffc-lama"):
+                fn = fused_big if name == "big-lama" else fused_lama
+                net = big if name == "big-lama" else ffc
+                n_calls = 1 if name == "big-lama" else 3
+                turns[name].append(cuda_ms(lambda: fn(images), n_calls,
+                                           n_calls))
+                gen[name].append(cuda_ms(lambda: net(images, holes),
+                                         n_calls, n_calls))
+        flops = conv_flops(big, images, holes, segment=big_lama_segment)
+        big_ms = float(np.mean(gen["big-lama"]))
+        total = sum(flops.values())
+        timing = {
+            "fused_ms": {k: float(np.mean(v)) for k, v in turns.items()},
+            "generator_ms": {k: float(np.mean(v)) for k, v in gen.items()},
+            "fused_turns_ms": turns, "generator_turns_ms": gen,
+            "big_lama_conv_tflop": total / 1e12,
+            "big_lama_conv_tflop_by_part": {k: v / 1e12
+                                            for k, v in flops.items()},
+            "big_lama_fp32_peak_share": total / (big_ms / 1e3)
+            / PEAK_FP32_FLOPS_PER_S}
+        timing["img_per_s"] = {k: BATCH / (v / 1e3) for k, v in
+                               timing["fused_ms"].items()}
+        small_np, logos_s = watermarked_images(1, LAMA_CHECK_SIZE,
+                                               seed=seed + 43)
+        with torch.inference_mode():
+            got = big(torch.from_numpy(small_np).to(dev), torch.from_numpy(
+                logos_s)[..., None].to(dev)).cpu().numpy()
+        lama_err = float(np.abs(got - lama_cpu.result()).max())
+        if lama_err > BIG_LAMA_TOL:
+            raise AssertionError(f"float32 big-lama card vs CPU: {lama_err}")
+        log("big_lama", checkpoint_mib=ckpt_mib, seed_and_save_s=ckpt_s,
+            load_s=load_s, engine=fused_big.engine_used,
+            images=[BATCH, SIZE, SIZE, 3],
+            parameters=sum(p.numel() for p in big.parameters()),
+            hole_unsaturated_share=unsat, **timing,
+            fp32_card_vs_cpu_max_abs=lama_err, check_size=LAMA_CHECK_SIZE,
+            tf32=torch.backends.cudnn.allow_tf32)
+        del pred_l, fused_big, fused_lama, big, ffc, lama
+
+        # (d) the blurred masks: the dataset on the card against the CPU
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        ds = WatermarkDataset(str(blur_root / "watermarked"),
+                              str(blur_root / "clean"),
+                              str(root / "blur_masks_card"), img_size=SIZE,
+                              mode="val", use_blurred_mask=True, device=dev)
+        card = np.stack([ds[i][1] for i in range(len(ds))])
+        blur_s = time.perf_counter() - t0
+        k1 = kc.morph_chain_watermark.launches
+        cpu = blur_cpu.result()
+    if k1 < len(ds) or not np.array_equal(card, cpu):
+        raise AssertionError(f"blurred masks: K1 launched {k1} times for "
+                             f"{len(ds)} items; card equals CPU: "
+                             f"{np.array_equal(card, cpu)}")
+    soft = float(((card > 0) & (card < 255)).mean())
+    log("blurred_dataset", items=len(ds), k1_launches=k1,
+        card_equals_cpu=True, soft_share=soft, wall_s=blur_s,
+        samples_per_s=len(ds) / blur_s)
+
+    # `train --use-blurred-mask`: one epoch of 2 steps at full width
+    troot = root / "blur_train"
+    for sub in ("watermarked", "clean"):
+        (troot / sub).mkdir(parents=True)
+        for p in sorted((work / "train_data" / sub).iterdir())[
+                :BLUR_TRAIN_FILES]:
+            shutil.copy(p, troot / sub / p.name)
+    kc.reset_launch_counts()
+    tout = root / "blur_train_out"
+    argv = ["train", "-c", str(DEFAULT_CONFIG), "--data-dir", str(troot),
+            "--epochs", "1", "--use-blurred-mask", "--output-dir",
+            str(tout / "logs"), "--model-save-path",
+            str(tout / "models" / "m.pth"), "--opts",
+            "TRAIN.CHECKPOINT_DIR", str(tout / "ck"),
+            "DATA.IMG_SIZE", str(SIZE)]
+    rc, wall, _ = run_cli(argv, dev, timer=False)
+    history = json.loads((tout / "logs" / "training_history.json")
+                         .read_text())
+    made = sorted(os.listdir(troot / "masks"))
+    train_k1 = kc.morph_chain_watermark.launches  # a mask made, a launch
+    if rc != 0 or len(made) != BLUR_TRAIN_FILES or not np.isfinite(
+            history["train_loss"]).all() or train_k1 < len(made) or \
+            not (tout / "models" / "m.pth").exists():
+        raise AssertionError(f"train --use-blurred-mask: rc {rc}, "
+                             f"{len(made)} masks, K1 {train_k1}, history "
+                             f"{history}")
+    log("train_blurred", argv=["train", "--use-blurred-mask"], rc=rc,
+        wall_s=wall, masks_made=len(made), k1_launches=train_k1,
+        train_loss=history["train_loss"], val_loss=history["val_loss"])
+
+    # augment_sample with each gather warp, card against CPU
+    warps = {}
+    masks = torch.from_numpy(logos_np[..., None].astype(np.float32))
+    for interp in ("nearest_gather", "bilinear"):
+        pol = aug.AugmentPolicy(affine_p=1.0, shear_limit=4.0,
+                                interpolation=interp)
+        params = aug.draw_params(torch.Generator().manual_seed(seed), BATCH,
+                                 SIZE, SIZE, pol)
+        outs = [aug.apply_params(images.to(where), masks.to(where),
+                                 {k: v.to(where) for k, v in params.items()},
+                                 pol)
+                for where in (dev, torch.device("cpu"))]
+        (ig, mg), (ic, mc) = [(a.cpu(), b.cpu()) for a, b in outs]
+        far = ((ig - ic).abs() > WARP_ATOL).float().mean().item()
+        agree = (mg == mc).float().mean().item()
+        warps[interp] = {"max_abs": (ig - ic).abs().max().item(),
+                         "share_beyond_atol": far, "mask_agreement": agree}
+        if far > WARP_FLIPS or agree < 1 - WARP_FLIPS:
+            raise AssertionError(f"{interp} warp card vs CPU: "
+                                 f"{warps[interp]}")
+    log("augment_warps", images=[BATCH, SIZE, SIZE, 3], **warps)
+    return {"timing": {"fused_smp_ms": fused_ms,
+                       "network_smp_ms": network_ms, **timing,
+                       "blurred_samples_per_s": len(ds) / blur_s,
+                       "train_blurred_wall_s": wall,
+                       "phase_s": time.perf_counter() - t_phase},
+            "launches": runs["pth"]["launches"],
+            "blurred_k1_launches": k1 + train_k1}

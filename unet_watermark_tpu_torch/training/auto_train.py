@@ -18,9 +18,9 @@ package, the `auto` command). Each cycle:
 A cycle that fails logs, writes its cycle_N_info.json with status
 "failed" and the loop goes on (JAX's isolation); final_report.json sums
 the cycles up. Everything runs on the loop's `device` ("cuda" unless the
-caller passes "cpu"). Step 2 writes the shipped-format .npz beside
-MODEL_SAVE_PATH (training/train.export_npz); the .pth export of JAX's
-best saves is not ported (ROADMAP.md §A.8).
+caller passes "cpu"). Step 2's best saves write cycle_N_model.pth at
+MODEL_SAVE_PATH (models/torch_import.export_pth, JAX's payload) and the
+shipped-format .npz beside it (training/train.export_npz).
 """
 from __future__ import annotations
 

@@ -31,6 +31,7 @@ import torch
 from ..data.dataset import create_datasets
 from ..data.pipeline import make_pipelines
 from ..models.convert import flax_name
+from ..models.torch_import import export_pth, flax_to_state_dict
 from ..models.factory import create_model_from_config, init_model, \
     torch_dtype
 from ..ops import augment as aug
@@ -251,11 +252,19 @@ def export_npz(cfg, tree: Dict[str, np.ndarray]) -> str:
 
 
 def _save_best(cfg, ckpt_dir: str, tree, meta) -> None:
-    """The best-model job: the slim checkpoint, then the shipped .npz."""
+    """The best-model job: the slim checkpoint, the reference's .pth at
+    MODEL_SAVE_PATH (models/torch_import.export_pth; as in JAX, a failed
+    export logs and the job goes on), then the shipped .npz beside it."""
     save_checkpoint(ckpt_dir, "best_model", tree, meta)
+    try:
+        path = cfg.TRAIN.MODEL_SAVE_PATH
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        export_pth(path, cfg, flax_to_state_dict(tree), epoch=meta["epoch"],
+                   best_val_loss=meta["best_val_loss"])
+    except Exception as e:  # noqa: BLE001 — JAX's boundary
+        logger.warning(".pth export skipped: %s", e)
     path = export_npz(cfg, tree)
-    logger.info("best model: %s (the .pth export of %s is not ported yet, "
-                "ROADMAP.md §A.8)", path, cfg.TRAIN.MODEL_SAVE_PATH)
+    logger.info("best model: %s and %s", cfg.TRAIN.MODEL_SAVE_PATH, path)
 
 
 def train(cfg, resume_from: Optional[str] = None,

@@ -80,9 +80,10 @@ Phases, each printing its own line:
      step 2's files, in which the LaMa fill has already removed the part
      of a line that step 1 masked; each line's cover by each mask is
      logged). The command runs once, each stage timed;
-     _enhance_text_features on a 1080 x 1920 image on the card equal to
-     the CPU's (timed whole, and split into its parts by events in one
-     run whose parts add up to that run's total), and
+     _enhance_text_features on the 720 x 1280 image on the card equal to
+     the CPU's, on the 1080 x 1920 one timed (whole, and split into its
+     parts by events in one run whose parts add up to that run's total),
+     and
      predict_mask(..., "text") in
      float32 on the card agreeing with the CPU's on >= 99.9 % of pixels
   3f the `repair` command as users type it (OCR on) on a folder of 17 JPEGs
@@ -120,11 +121,13 @@ Phases, each printing its own line:
      beside im2col + torch._int_mm; a profile of the UNet++ network in
      each tier; `repair --quant --no-ocr` on 4 of 3d's files (rc 0,
      "success", engine "ffc-lama", 68 launches)
-  3h-3l the `train` command, the fill trainers, the `auto` command, the
+  3h-3m the `train` command, the fill trainers, the `auto` command, the
      quality record (scripts/quality_report.py, calibrate_quant and the
-     SD3/FLUX shells), and the reference's checkpoint formats with the
+     SD3/FLUX shells), the reference's checkpoint formats with the
      blurred training masks (.pth in and out, the smp-layout UNet++,
-     big-lama as the fill, `train --use-blurred-mask`):
+     big-lama as the fill, `train --use-blurred-mask`), and the model zoo
+     (the text trainer and `repair -c` with the text config, the large
+     config at 2 x 1024², the eight other archs, UnetTPU's int8 tier):
      unet_watermark_tpu_torch/tools/smoke_phases.py, whose docstring lists
      their checks
   4  timings with CUDA events: the main path (img/s) and its stages, each
@@ -160,20 +163,22 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PORT = "unet_watermark_tpu_torch"
-try:  # phases 3h-3k and the helpers they share with this file
+try:  # phases 3h-3m and the helpers they share with this file
     from unet_watermark_tpu_torch.tools.smoke_phases import (
-        BATCH, LAMA_SEGMENTS, PEAK_BF16_FLOPS_PER_S, SIZE, auto_phase,
-        checkpoint_phase, conv_flops, cuda_ms, fill_training_phase, host_ms,
-        host_pool, log, nvidia_smi_line, profile_window, profiled_ms,
-        quality_phase, run_cli, segment_ms, training_phase)
+        BATCH, LAMA_SEGMENTS, PEAK_BF16_FLOPS_PER_S, PEAK_BYTES_PER_S,
+        PEAK_INT8_OPS_PER_S, SIZE, auto_phase,
+        check_repair, checkpoint_phase, conv_flops, conv_s8_bound,
+        conv_s8_library, cuda_ms, fill_training_phase, host_ms, host_pool,
+        int8_hooks, log, nvidia_smi_line, profile_window, profiled_ms,
+        quality_phase, run_cli, segment_ms, training_phase, zoo_phase,
+        zoo_text_train)
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and single operations
-# outside the tensor cores: the 67 TFLOP/s fp32 peak counts each FMA as two
-# operations, while each of the kernels' taps (an OR or AND), products and
-# sums is one
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet; HBM bytes/s and the int8 tensor-core
+# peak in tools/smoke_phases.py), and single operations outside the tensor
+# cores: the 67 TFLOP/s fp32 peak counts each FMA as two operations, while
+# each of the kernels' taps (an OR or AND), products and sums is one
 PEAK_SINGLE_OPS_PER_S = 67e12 / 2
 # K1: the chain's 664 max-taps a pixel (centre excluded), done 32 pixels to
 # a word operation
@@ -184,26 +189,6 @@ DEVICE_NAMES = {"morph_chain_watermark": "morph_chain_kernel",
                 "gaussian_smooth_threshold": "smooth_threshold_kernel"}
 
 
-
-
-def check_repair(images, repaired, mask) -> None:
-    """The fused fn's output: shapes, finite pixels in [0, 1], a binary mask,
-    and every pixel outside the mask unchanged."""
-    import torch
-
-    n, s = images.shape[:2]
-    if tuple(repaired.shape) != (n, s, s, 3) or tuple(mask.shape) != (n, s, s):
-        raise AssertionError(f"shapes {tuple(repaired.shape)}, "
-                             f"{tuple(mask.shape)}")
-    if not torch.isfinite(repaired).all():
-        raise AssertionError("non-finite repaired pixels")
-    if repaired.min() < 0 or repaired.max() > 1:
-        raise AssertionError("repaired pixels outside [0, 1]")
-    if not set(mask.unique().tolist()) <= {0.0, 1.0}:
-        raise AssertionError("mask is not binary")
-    keep = (mask == 0)[..., None].expand_as(images)
-    if not torch.equal(repaired[keep], images[keep]):
-        raise AssertionError("pixels outside the mask changed")
 
 
 def iou(raw, logos) -> float:
@@ -649,7 +634,11 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
     pred_cpu = WatermarkPredictor(cfg, device="cpu")
     big = torch.from_numpy(imgs[-1])
     enh = pred32._enhance_text_features(big.to(dev))
-    if not torch.equal(enh.cpu(), pred_cpu._enhance_text_features(big)):
+    # card against CPU on the 720 x 1280 image (the CPU's CLAHE and Canny
+    # take seconds at 1080 x 1920)
+    mid = torch.from_numpy(imgs[-2])
+    if not torch.equal(pred32._enhance_text_features(mid.to(dev)).cpu(),
+                       pred_cpu._enhance_text_features(mid)):
         raise AssertionError("_enhance_text_features on the card differs "
                              "from the CPU's")
     big_d = big.to(dev)
@@ -693,7 +682,8 @@ def repair_cli_ocr_phase(work: Path, seed: int, dev, text_shapes=TEXT_SHAPES,
     mask_cpu = pred_cpu.predict_mask(path, "text")
     agree = float((mask_gpu == mask_cpu).mean())
     log("text_surfaces", enhance_shape=list(big.shape),
-        enhance_gpu_equals_cpu=True, enhance_ms=enhance_ms,
+        enhance_gpu_equals_cpu=True,
+        enhance_gpu_vs_cpu_shape=list(mid.shape), enhance_ms=enhance_ms,
         enhance_split_ms=enhance_split_ms, detect_ms=det_times,
         predict_mask_text_shape=list(mask_gpu.shape),
         predict_mask_text_fp32_gpu_vs_cpu_agreement=agree,
@@ -1072,45 +1062,6 @@ INT8_SHAPES = ("encoder/conv1", "encoder/layer1_0/conv1",
                "decoder/final_block/conv1/conv:up",
                "decoder/final_block/conv2/conv")
 INT8_CLI_FILES = ("a00", "a01", "a02", "a03")
-# dense int8 tensor-core peak (data sheet: 1979 TOP/s, a multiply-add
-# counted as two operations)
-PEAK_INT8_OPS_PER_S = 1979e12
-
-
-def conv_s8_bound(call) -> tuple:
-    """(operations, bytes) of one int8 conv that the function must do: 2 per
-    multiply-add of its non-zero taps (the lhs-dilated 4x4 conv has 4 an
-    output) over the weight's input channels, each input read once (the
-    activation at the weight's input channels: the stem's 3, not the 16 of
-    its padded operand; weight, scale) and the output written once."""
-    from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
-
-    xq, wq, scale, kw = call
-    n, _, h, w = xq.shape
-    cout, cin, kh, kwid = wq.shape
-    ho = k8.out_size(h, kh, kw["stride"], kw["padding"], kw["dilation"])
-    wo = k8.out_size(w, kwid, kw["stride"], kw["padding"], kw["dilation"])
-    taps = 4 if kw["dilation"] == 2 else kh * kwid
-    out_bytes = 2 if kw["out_dtype"].is_floating_point and \
-        kw["out_dtype"].itemsize == 2 else 4
-    ops = 2 * n * ho * wo * cout * cin * taps
-    return ops, n * h * w * cin + wq.numel() + 4 * cout + \
-        n * ho * wo * cout * out_bytes
-
-
-def conv_s8_library(call):
-    """The one cuDNN call that computes the conv in bf16 on the same
-    (integer-valued) operands: conv2d, or for the lhs-dilated conv
-    conv_transpose2d with the kernel flipped (stride 2, padding 1)."""
-    import torch.nn.functional as F
-
-    xq, wq, scale, kw = call
-    xb, wb = xq[:, :wq.shape[1]].bfloat16(), wq.bfloat16()
-    if kw["dilation"] == 2:
-        wt = wb.flip(2, 3).transpose(0, 1).contiguous()
-        return lambda: F.conv_transpose2d(xb, wt, stride=2, padding=1)
-    return lambda: F.conv2d(xb, wb, stride=kw["stride"],
-                            padding=kw["padding"])
 
 
 def conv_s8_int_mm(call):
@@ -1140,37 +1091,6 @@ def conv_s8_int_mm(call):
             a = F.pad(a, (0, kp - k))
         return torch._int_mm(a, b)
     return run
-
-
-def int8_hooks(real_conv, real_quantize, convs: list, quantizes: list):
-    """Wrappers of conv_s8.conv_s8 and conv_s8.quantize_s8 that hold each
-    launch bit for bit against its plain version on the card
-    (quant.conv_s8_plain, quant.quantize_s8_plain) and record its inputs
-    in `convs` and `quantizes`."""
-    import torch
-    from unet_watermark_tpu_torch.ops import quant
-
-    def conv(xq, wq, scale, **kw):
-        y = real_conv(xq, wq, scale, **kw)
-        ref = quant.conv_s8_plain(xq, wq, scale, kw["stride"],
-                                  kw["padding"], kw["dilation"],
-                                  kw["out_dtype"])
-        if not torch.equal(y, ref):
-            err = (y.float() - ref.float()).abs().max().item()
-            raise AssertionError(f"uwt_conv_s8 differs from its plain "
-                                 f"version by {err} on {tuple(xq.shape)}"
-                                 f" x {tuple(wq.shape)} {kw}")
-        convs.append((xq, wq, scale, dict(kw)))
-        return y
-
-    def quantize(x, inv, channels=None):
-        xq = real_quantize(x, inv, channels)
-        if not torch.equal(xq, quant.quantize_s8_plain(x, inv, channels)):
-            raise AssertionError(f"uwt_quantize_s8 differs from its plain "
-                                 f"version on {tuple(x.shape)} {x.dtype}")
-        quantizes.append((x, inv, channels))
-        return xq
-    return conv, quantize
 
 
 def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
@@ -1276,7 +1196,7 @@ def int8_tier_phase(work: Path, preds: dict, fused_bf16, images, seed: int,
         for tier, m in (("int8", qpreds["UnetPlusPlus"]),
                         ("bf16", preds["UnetPlusPlus"])):
             log(f"profile_{tier}_network", arch="UnetPlusPlus",
-                **profile_window(lambda: m.predict_masks(images), 3))
+                **profile_window(lambda: m.predict_masks(images), 1))
 
     # the UNet++ forward's convs: the whole set back to back, and by shape
     calls = forward_calls["UnetPlusPlus"]
@@ -1829,12 +1749,23 @@ def main(argv=None) -> int:
             training = training_phase(work, args.seed, dev)
             # -- 3i: the fill trainers -----------------------------------
             fill = fill_training_phase(work, args.seed, dev)
-            # -- 3j: the auto command ------------------------------------
-            auto = auto_phase(work, args.seed, dev)
-            # -- 3k: the quality record, the calibration, the shells -----
-            quality = quality_phase(work, dev)
-            # -- 3l: .pth in and out, smp UNet++, big-lama, blurred masks -
-            checkpoints = checkpoint_phase(work, args.seed, dev)
+            # 3m's text trainer runs in a host worker on the card from here
+            # (its first step is ~15 s of host work in cuDNN; its kernels
+            # time-slice the card with this process's, which 3j-3l's
+            # checks do not time)
+            with host_pool(1) as pool:
+                text_trained = pool.submit(zoo_text_train, str(work),
+                                           args.seed)
+                # -- 3j: the auto command --------------------------------
+                auto = auto_phase(work, args.seed, dev)
+                # -- 3k: the quality record, the calibration, the shells -
+                quality = quality_phase(work, dev)
+                # -- 3l: .pth in and out, smp UNet++, big-lama, blurred
+                # masks
+                checkpoints = checkpoint_phase(work, args.seed, dev)
+                # -- 3m: the model zoo -----------------------------------
+                zoo = zoo_phase(work, args.seed, dev,
+                                text_trained.result())
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1964,6 +1895,7 @@ def main(argv=None) -> int:
     log("timing_auto", **auto["timing"], card=card)
     log("timing_quality", **quality["timing"], card=card)
     log("timing_checkpoints", **checkpoints["timing"], card=card)
+    log("timing_zoo", **zoo["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -2028,6 +1960,7 @@ def main(argv=None) -> int:
             "pth_repair_launches": checkpoints["launches"][fn.__name__],
             **({"blurred_mask_launches": checkpoints["blurred_k1_launches"]}
                if fn is kc.morph_chain_watermark else {}),
+            "zoo_launches": zoo["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,
@@ -2039,6 +1972,7 @@ def main(argv=None) -> int:
                                  f"version by {err}")
     for k in int8["kernels"]:
         k["quality_report_launches"] = quality["launches"][k["name"]]
+        k["zoo_launches"] = zoo["int8_launches"][k["name"]]
     kernels.extend(int8["kernels"])
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -335,7 +335,13 @@ CONV_S8_FORMS = [(7, 2, 3, 1, 3, 64, 2, 36), (3, 1, 1, 1, 16, 16, 1, 19),
                  (4, 1, 2, 2, 64, 32, 1, 64), (4, 1, 2, 2, 48, 24, 2, 128),
                  (3, 1, 1, 1, 256, 256, 2, 32), (3, 1, 1, 1, 160, 32, 2, 16),
                  (4, 1, 2, 2, 64, 32, 2, 32), (3, 1, 1, 1, 48, 40, 1, 8),
-                 (3, 1, 1, 1, 16, 12, 1, 19), (3, 2, 1, 1, 32, 5, 2, 16)]
+                 (3, 1, 1, 1, 16, 12, 1, 19), (3, 2, 1, 1, 32, 5, 2, 16),
+                 # the zoo's: resnet50's 1x1 convs at stride 1 and 2 (Cin
+                 # to 2048) at 2 x 1024², UnetTPU's stride-2 skip2_reduce
+                 (1, 1, 0, 1, 64, 256, 2, 256),
+                 (1, 1, 0, 1, 2048, 512, 2, 32),
+                 (1, 2, 0, 1, 1024, 2048, 2, 64),
+                 (1, 2, 0, 1, 256, 512, 2, 256), (3, 2, 1, 1, 64, 64, 8, 256)]
 
 
 @pytest.mark.parametrize("form", CONV_S8_FORMS, ids=lambda f: "-".join(
@@ -582,3 +588,28 @@ def test_gen_data_on_card_equals_cpu(cuda, tmp_path):
         for n in names:
             assert (tmp_path / "cpu" / sub / n).read_bytes() == \
                 (tmp_path / "cuda" / sub / n).read_bytes()
+
+
+ZOO_ARCHS = ["UnetTPU", "MAnet", "Linknet", "FPN", "PSPNet", "PAN",
+             "DeepLabV3", "DeepLabV3Plus"]
+
+
+@pytest.mark.parametrize("arch, encoder",
+                         [(a, "resnet34") for a in ZOO_ARCHS]
+                         + [("UnetPlusPlus", "resnet50"),
+                            ("UnetPlusPlus", "efficientnet-b3")])
+def test_zoo_logits_on_card_match_cpu(cuda, no_tf32, arch, encoder):
+    """The seeded zoo models in float32 on the card against the CPU at
+    2 x 64², TF32 off: within 1e-3 of the largest logit (at least 1)."""
+    from unet_watermark_tpu_torch.models import SMPModelFactory, init_model
+
+    model = init_model(SMPModelFactory.create_model(arch, encoder,
+                                                    img_size=512), 3).eval()
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert got.shape == want.shape == (2, 64, 64, 1)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-3 * scale

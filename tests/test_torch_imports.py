@@ -1,8 +1,9 @@
 """The port and chip_smoke.py import with jax, flax, optax, orbax, yaml,
 PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
-nunchaku and the JAX package blocked (the GPU machine has none of them), every module of the
-port among them (ocr/, ops/imgproc.py, the training path, the `auto`
-loop's modules and the .pth, big-lama and contour modules too), and
+nunchaku and the JAX package blocked (the GPU machine has none of them),
+every module of the port among them (ocr/, ops/imgproc.py, the training
+path, the `auto` loop's modules, the .pth, big-lama and contour modules,
+and the zoo's archs, model sizes and text trainer too), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -58,7 +59,11 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.tools.smoke_phases",
         "unet_watermark_tpu_torch.models.torch_import",
         "unet_watermark_tpu_torch.models.lama_import",
-        "unet_watermark_tpu_torch.ops.contours"]
+        "unet_watermark_tpu_torch.ops.contours",
+        "unet_watermark_tpu_torch.models.archs",
+        "unet_watermark_tpu_torch.models.model_size",
+        "unet_watermark_tpu_torch.text",
+        "unet_watermark_tpu_torch.text.train_text_watermark"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

@@ -110,11 +110,24 @@ def test_create_model_from_config_and_errors():
     assert sorted(smp.blocks) == sorted(
         [f"x_{d}_{d + l}" for l in range(4) for d in range(4 - l)]
         + ["x_0_4"])
-    for name, impl, match in (("FPN", "canonical", "not ported"),):
-        cfg.MODEL.NAME, cfg.MODEL.DECODER_IMPL = name, impl
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-            create_model_from_config(cfg)
-        assert match in str(err.value)
+    cfg.MODEL.NAME, cfg.MODEL.DECODER_IMPL = "FPN", "canonical"
+    from unet_watermark_tpu_torch.models.archs import FPNDecoder
+    assert isinstance(create_model_from_config(cfg).decoder, FPNDecoder)
+    from unet_watermark_tpu.configs import get_cfg_defaults as jcfg
+    from unet_watermark_tpu.models.factory import \
+        create_model_from_config as jcreate
+    for field, name, match in (("NAME", "SegFormer", "unsupported model"),
+                               ("ENCODER_NAME", "vgg16",
+                                "unsupported encoder")):
+        errors = []
+        for make, create in ((get_cfg_defaults, create_model_from_config),
+                             (jcfg, jcreate)):
+            c = make()
+            setattr(c.MODEL, field, name)
+            with pytest.raises(ValueError, match=match) as err:
+                create(c)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
     cfg.MODEL.NAME, cfg.MODEL.DECODER_IMPL = "unet++", "canonical"
     assert isinstance(create_model_from_config(cfg).decoder,
                       UnetPlusPlusDecoder)

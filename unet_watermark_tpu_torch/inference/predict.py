@@ -183,7 +183,10 @@ class WatermarkPredictor:
             if self.weights_path.endswith(".pth"):
                 model = self._load_pth(self.weights_path)
             else:
-                model = create_model_from_config(self.cfg)
+                # built on the meta device: the weights file gives every
+                # tensor (load_flax_weights raises otherwise)
+                with torch.device("meta"):
+                    model = create_model_from_config(self.cfg)
                 self.n_weights = load_flax_weights(model, read_weights(path))
             model = model.eval().to(self.device, self.dtype)
             if self.device.type == "cuda":

@@ -14,6 +14,17 @@ JAX package, copied) → the port's state_dict.
   params/decoder/final_block/convJ/bn  → decoder.final_block.convJ.1
   params/segmentation_head/conv        → segmentation_head.0
 
+and the rest of the zoo as JAX's _torch_name names it:
+
+  params/encoder/layer{L}_{B}/conv3    → encoder.layer{L}.{B}.conv3 (bottleneck)
+  params/encoder/block{i}/expand_conv  → encoder.blocks.{i}.expand_conv
+                                         (EfficientNet; se/reduce, dw_bn, ...)
+  params/decoder/block{i}/conv1/conv   → decoder.blocks.{i}.conv1.0 (MAnet)
+  params/decoder/conv/conv, conv/bn    → decoder.conv.0, .1 (DeepLabV3)
+  params/decoder/seg0_conv0/conv       → decoder.seg0_conv0.conv (a
+                                         ConvBnRelu not named conv*)
+  params/decoder/aspp/b1_bn/scale      → decoder.aspp.b1_bn.weight
+
 and the FFC-LaMa generator's and discriminator's (models/lama.py;
 lama_torch_name):
 
@@ -54,8 +65,11 @@ from ..ops.quant import QConv2d
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
-# a ConvBnRelu: convJ of a Unet block or final_block, x_{i}_{j}_convJ of UNet++
-_CONV_BN = re.compile(r"(x_\d+_\d+_)?conv\d+")
+# a ConvBnRelu whose conv and bn are .0 and .1: convJ of a Unet block,
+# final_block or MFAB, conv of DeepLabV3, x_{i}_{j}_convJ of UNet++
+_CONV_BN = re.compile(r"(x_\d+_\d+_)?conv\d*")
+# a BatchNorm: bn, bnJ, downsample_bn, expand_bn, b1_bn, ...
+_BN = re.compile(r"(\w+_)?bn\d*")
 # a block of the SMP-layout UNet++ decoder, decoder.blocks.x_{d}_{l}
 _SMP_BLOCK = re.compile(r"x_\d+_\d+")
 
@@ -122,8 +136,7 @@ def flax_name(name: str) -> str:
     if leaf in ("running_mean", "running_var"):
         return f"batch_stats/{path}/{leaf[len('running_'):]}"
     if leaf == "weight":
-        leaf = "scale" if re.fullmatch(r"bn\d*|downsample_bn", segs[-1]) \
-            else "kernel"
+        leaf = "scale" if _BN.fullmatch(segs[-1]) else "kernel"
     if leaf not in ("kernel", "scale", "bias"):
         raise KeyError(f"no flax counterpart for '{name}'")
     return f"params/{path}/{leaf}"

@@ -1,5 +1,6 @@
-"""Unet and UNet++ decoders (the canonical grid and the SMP layout) and
-the segmentation head (models/unet.py in the JAX package).
+"""Unet and UNet++ decoders (the canonical grid and the SMP layout), the
+lane-aligned UnetTPU decoder, and the segmentation heads (models/unet.py in
+the JAX package).
 
 These are the plain forms: nearest up2x → concat → conv. The JAX package's
 default FusedUpConvBnRelu is an exact rewrite of them on the same
@@ -15,6 +16,7 @@ plain forms above run unchanged.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import List, Optional, Sequence
 
 import torch
@@ -25,12 +27,25 @@ from ..ops.quant import QConv2d, current_mode
 from .encoders import BatchNorm2d
 
 
-def conv_bn_relu(cin: int, ch: int, split=None) -> nn.Sequential:
-    """ConvBnRelu; Sequential indices give the SMP names convJ.0 / convJ.1.
-    `split` marks a block's first conv (QConv2d.split)."""
-    conv = QConv2d(cin, ch, 3, 1, 1, bias=False)
-    conv.split = split
-    return nn.Sequential(conv, BatchNorm2d(ch), nn.ReLU(inplace=True))
+def conv_bn_relu(cin: int, ch: int, split=None, kernel: int = 3,
+                 named: bool = False) -> nn.Sequential:
+    """ConvBnRelu. The kernel-3 conv is a QConv2d (JAX's SmartConv, which
+    the int8 tier reaches); another kernel is a plain conv with padding
+    kernel // 2, as JAX's nn.Conv. Sequential indices give the names
+    convJ.0 / convJ.1 (SMP's, and JAX's _torch_name of a ConvBnRelu whose
+    name starts with "conv"); `named` gives X.conv / X.bn, JAX's name for
+    any other ConvBnRelu X. `split` marks a block's first conv
+    (QConv2d.split)."""
+    if kernel == 3:
+        conv = QConv2d(cin, ch, 3, 1, 1, bias=False)
+        conv.split = split
+    else:
+        conv = nn.Conv2d(cin, ch, kernel, 1, kernel // 2, bias=False)
+    layers = (conv, BatchNorm2d(ch), nn.ReLU(inplace=True))
+    if named:
+        return nn.Sequential(OrderedDict(zip(("conv", "bn", "relu"),
+                                             layers)))
+    return nn.Sequential(*layers)
 
 
 def split_conv_bn_relu(block: nn.Sequential, x_low: torch.Tensor,
@@ -183,7 +198,76 @@ class SMPUnetPlusPlusDecoder(nn.Module):
         return self.blocks[f"x_0_{depth}"](dense[(0, depth - 1)])
 
 
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Depth-to-space in JAX's channel order, NCHW: input channel
+    (ry * r + rx) * cout + c goes to output channel c at (r * y + ry,
+    r * x + rx) (the (ry, rx, c) order with c fastest; F.pixel_shuffle's is
+    c slowest, the same only for one output channel)."""
+    n, ch, h, w = x.shape
+    cout = ch // (r * r)
+    x = x.reshape(n, r, r, cout, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, cout, h * r, w * r)
+
+
+class LaneAlignedDecoder(nn.Module):
+    """UnetTPU's decoder (JAX's LaneAlignedDecoder, its default plan):
+    three up-blocks from stride 32 to stride 4 (256, 128, 64 channels,
+    skips at strides 16, 8, 4; a 3x3 refine conv after the first), the
+    stride-2 feature brought down to stride 4 by a stride-2 3x3 conv
+    (skip2_reduce, skip2_bn), and a 3x3 conv over both (fuse_conv1).
+    Output: (N, 64, H/4, W/4), for PixelShuffleHead. Each block{i}_conv1
+    is the Unet block's first conv ([up | skip], a QConv2d split into
+    ":up" and ":skip" under a quant context); skip2_reduce is a QConv2d."""
+
+    def __init__(self, encoder_channels: Sequence[int],
+                 stage_channels: Sequence[int] = (256, 128, 64),
+                 stage_refine: Sequence[bool] = (True, False, False),
+                 fuse_channels: int = 64, skip2_channels: int = 64):
+        super().__init__()
+        self.stage_refine = tuple(stage_refine)
+        cin = encoder_channels[5]
+        for i, ch in enumerate(stage_channels):
+            skip = encoder_channels[4 - i]
+            setattr(self, f"block{i}_conv1", conv_bn_relu(
+                cin + skip, ch, split=(cin, True), named=True))
+            if stage_refine[i]:
+                setattr(self, f"block{i}_conv2",
+                        conv_bn_relu(ch, ch, named=True))
+            cin = ch
+        self.skip2_reduce = QConv2d(encoder_channels[1], skip2_channels, 3,
+                                    2, 1, bias=False)
+        self.skip2_bn = BatchNorm2d(skip2_channels)
+        self.fuse_conv1 = conv_bn_relu(cin + skip2_channels, fuse_channels,
+                                       named=True)
+        self.out_channels = fuse_channels
+
+    def forward(self, feats: List[torch.Tensor]):
+        x = feats[5]
+        quant = current_mode() is not None
+        for i, skip in enumerate((feats[4], feats[3], feats[2])):
+            block = getattr(self, f"block{i}_conv1")
+            if quant:
+                x = split_conv_bn_relu(block, x, skip)
+            else:
+                up = F.interpolate(x, scale_factor=2, mode="nearest")
+                x = block(torch.cat([up, skip], dim=1))
+            if self.stage_refine[i]:
+                x = getattr(self, f"block{i}_conv2")(x)
+        s2 = F.relu(self.skip2_bn(self.skip2_reduce(feats[1])))
+        return self.fuse_conv1(torch.cat([x, s2], dim=1))
+
+
 ACTIVATIONS = (None, "identity", "sigmoid", "softmax")
+
+
+def _activate(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
+    if activation == "softmax":
+        return torch.softmax(x, dim=1)
+    if activation not in (None, "identity"):
+        raise ValueError(f"unsupported activation {activation}")
+    return x
 
 
 class SegmentationHead(nn.Sequential):
@@ -198,11 +282,21 @@ class SegmentationHead(nn.Sequential):
         self.activation = activation
 
     def forward(self, x):
-        x = super().forward(x).float()
-        if self.activation == "sigmoid":
-            return torch.sigmoid(x)
-        if self.activation == "softmax":
-            return torch.softmax(x, dim=1)
-        if self.activation not in (None, "identity"):
-            raise ValueError(f"unsupported activation {self.activation}")
-        return x
+        return _activate(super().forward(x).float(), self.activation)
+
+
+class PixelShuffleHead(nn.Sequential):
+    """UnetTPU's head: a 3x3 conv with bias to ratio² · classes channels
+    at 1/ratio of the output size, then pixel_shuffle in fp32 and the
+    activation (SegmentationHead's)."""
+
+    def __init__(self, cin: int, classes: int = 1, ratio: int = 4,
+                 activation: Optional[str] = None):
+        super().__init__(nn.Conv2d(cin, classes * ratio ** 2, 3, 1, 1,
+                                   bias=True))
+        self.ratio = ratio
+        self.activation = activation
+
+    def forward(self, x):
+        x = pixel_shuffle(super().forward(x).float(), self.ratio)
+        return _activate(x, self.activation)

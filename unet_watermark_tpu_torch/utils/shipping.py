@@ -22,8 +22,15 @@ WEIGHTS_DIR = REPO_ROOT / "unet_watermark_tpu" / "weights"
 
 def seg_weights_filename(model_name: str, encoder_name: str) -> str:
     """seg_<arch>_<encoder>.npz, as the JAX package's seg_weights_filename
-    names it (the alias "unet++" gives UnetPlusPlus's name)."""
-    name = model_name.lower().replace("unet++", "unetplusplus")
+    names it: the arch through factory.canonical_model_name, lower case
+    (the alias "unet++" gives UnetPlusPlus's name), an unknown one with
+    "+" as "p"."""
+    from ..models.factory import canonical_model_name
+
+    try:
+        name = canonical_model_name(model_name).lower()
+    except ValueError:
+        name = model_name.lower().replace("+", "p")
     return f"seg_{name}_{encoder_name.lower()}.npz"
 
 

@@ -121,13 +121,16 @@ Phases, each printing its own line:
      beside im2col + torch._int_mm; a profile of the UNet++ network in
      each tier; `repair --quant --no-ocr` on 4 of 3d's files (rc 0,
      "success", engine "ffc-lama", 68 launches)
-  3h-3m the `train` command, the fill trainers, the `auto` command, the
+  3h-3n the `train` command, the fill trainers, the `auto` command, the
      quality record (scripts/quality_report.py, calibrate_quant and the
      SD3/FLUX shells), the reference's checkpoint formats with the
      blurred training masks (.pth in and out, the smp-layout UNet++,
-     big-lama as the fill, `train --use-blurred-mask`), and the model zoo
+     big-lama as the fill, `train --use-blurred-mask`), the model zoo
      (the text trainer and `repair -c` with the text config, the large
-     config at 2 x 1024², the eight other archs, UnetTPU's int8 tier):
+     config at 2 x 1024², the eight other archs, UnetTPU's int8 tier),
+     and the data-parallel path in an NCCL world of one (the group's
+     train steps, `train` in the group, predict_tiled_sharded, the
+     halo-exchange conv):
      unet_watermark_tpu_torch/tools/smoke_phases.py, whose docstring lists
      their checks
   4  timings with CUDA events: the main path (img/s) and its stages, each
@@ -170,8 +173,8 @@ try:  # phases 3h-3m and the helpers they share with this file
         check_repair, checkpoint_phase, conv_flops, conv_s8_bound,
         conv_s8_library, cuda_ms, fill_training_phase, host_ms, host_pool,
         int8_hooks, log, nvidia_smi_line, profile_window, profiled_ms,
-        quality_phase, run_cli, segment_ms, training_phase, zoo_phase,
-        zoo_text_train)
+        quality_phase, run_cli, segment_ms, sharded_phase, training_phase,
+        zoo_phase, zoo_text_train)
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
@@ -1747,6 +1750,9 @@ def main(argv=None) -> int:
                 images_d, args.seed, dev)
             # -- 3h: the train command -----------------------------------
             training = training_phase(work, args.seed, dev)
+            # -- 3n: the data-parallel path in an NCCL world of one, on
+            # 3h's folder while its decoded cache is whole --------------
+            sharded_phase(work, args.seed, dev, pred)
             # -- 3i: the fill trainers -----------------------------------
             fill = fill_training_phase(work, args.seed, dev)
             # 3m's text trainer runs in a host worker on the card from here

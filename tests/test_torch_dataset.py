@@ -180,28 +180,33 @@ def _batches(pipe):
 @pytest.mark.parametrize("bs", [4, 5])
 def test_pipelines_equal_jax(root, tmp_path, bs):
     """Two epochs of the card-resident pipeline and of the host pipeline:
-    the same batches as JAX's DeviceDataPipeline, shuffled by
-    default_rng(seed + epoch), the short last batch padded with index 0
-    and marked in `valid`; masks bit-packed (48 = 6 bytes a row) and
-    unpacked on the device."""
+    the same batches as JAX's DeviceDataPipeline and DataPipeline,
+    shuffled by default_rng(seed + epoch), the short last batch marked in
+    `valid` and padded as JAX pads it: with index 0 by the resident
+    pipelines, with zero rows by the host ones (ROADMAP.md §C.13); masks
+    bit-packed (48 = 6 bytes a row) and unpacked on the device."""
     path = _copy(root, tmp_path / "d")
     cfg, jcfg = _cfg_pair(path)
     tt, _ = tds.create_datasets(cfg, device="cpu")
     jt, _ = jds.create_datasets(jcfg)
-    jpipe = jpl.DeviceDataPipeline(jt, bs, shuffle=True, seed=7)
-    tdev = tpl.DeviceDataPipeline(tt, bs, "cpu", shuffle=True, seed=7)
-    thost = tpl.DataPipeline(tt, bs, "cpu", shuffle=True, seed=7,
-                             num_workers=2)
+    pairs = ((jpl.DeviceDataPipeline(jt, bs, shuffle=True, seed=7),
+              tpl.DeviceDataPipeline(tt, bs, "cpu", shuffle=True, seed=7)),
+             (jpl.DataPipeline(jt, bs, shuffle=True, seed=7, num_workers=2),
+              tpl.DataPipeline(tt, bs, "cpu", shuffle=True, seed=7,
+                               num_workers=2)))
     for _ in range(2):
-        want = _batches(jpipe)
-        for got in (_batches(tdev), _batches(thost)):
+        for jpipe, tpipe in pairs:
+            want, got = _batches(jpipe), _batches(tpipe)
             assert len(got) == len(want) == -(-len(tt) // bs)
             for g, w in zip(got, want):
                 assert set(g) == set(w)
                 for k in g:
                     np.testing.assert_array_equal(g[k], w[k], err_msg=k)
                     assert g[k].dtype == w[k].dtype, k
-    assert tdev.masks_packed and jpipe.masks_packed
+        # the pad rows: zeros on the host, sample 0's on the card
+        pad = int(got[-1]["valid"].sum())
+        assert not got[-1]["image"][pad:].any()
+    assert pairs[0][1].masks_packed and pairs[0][0].masks_packed
 
 
 def test_unpack_mask_bits_inverts_packbits():

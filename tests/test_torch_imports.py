@@ -3,7 +3,7 @@ PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
 nunchaku and the JAX package blocked (the GPU machine has none of them),
 every module of the port among them (ocr/, ops/imgproc.py, the training
 path, the `auto` loop's modules, the .pth, big-lama and contour modules,
-and the zoo's archs, model sizes and text trainer too), and
+the zoo's archs, model sizes and text trainer, and parallel/ too), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -63,7 +63,11 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.models.archs",
         "unet_watermark_tpu_torch.models.model_size",
         "unet_watermark_tpu_torch.text",
-        "unet_watermark_tpu_torch.text.train_text_watermark"]
+        "unet_watermark_tpu_torch.text.train_text_watermark",
+        "unet_watermark_tpu_torch.parallel",
+        "unet_watermark_tpu_torch.parallel.distributed",
+        "unet_watermark_tpu_torch.parallel.mesh",
+        "unet_watermark_tpu_torch.parallel.spatial"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

@@ -86,17 +86,23 @@ def _one_device_mesh(cfg):
     return make_mesh(devices=jax.devices()[:1])
 
 
-def test_two_epochs_match_jax(folder, tmp_path, monkeypatch):
+@pytest.mark.parametrize("device_cache", [True, False],
+                         ids=["DEVICE_CACHE=True", "DEVICE_CACHE=False"])
+def test_two_epochs_match_jax(folder, tmp_path, monkeypatch, device_cache):
     """train() for 2 epochs on the same folder (11 train, 3 val: a padded
     batch each epoch) from JAX's initial parameters, carried across as a
     float32 .npz (--init-weights), SGD at lr 1e-3 with clipping, no
     augmentation: the history's losses and metrics, and the final
     parameters and running statistics, agree. SGD keeps each update
     linear in its gradient (Adam's first steps are held in
-    test_train_step_matches_jax)."""
+    test_train_step_matches_jax). DATA.DEVICE_CACHE picks the pipeline in
+    both packages: the card-resident one pads the short batch with
+    sample 0, the host one with zero rows (ROADMAP.md §C.13), and the pad
+    rows count in BatchNorm's statistics."""
     cfg, _ = _cfgs(tmp_path / "port")
     _, jcfg = _cfgs(tmp_path / "jax")
     for c, name in ((cfg, "port"), (jcfg, "jax")):
+        c.DATA.DEVICE_CACHE = device_cache
         c.DATA.ROOT_DIR = str(folder)
         c.DATA.CACHE_DIR = str(tmp_path / name / "cache")
         c.TRAIN.EPOCHS = 2

@@ -11,7 +11,13 @@
 
 `train` follows the JAX CLI's order, CLI flags over --opts over the YAML
 over the defaults, and writes checkpoints, training_history.json and the
-shipped-format .npz beside --model-save-path (training/train.py).
+shipped-format .npz beside --model-save-path (training/train.py). Under
+torchrun it trains data parallel over the group, one rank a card:
+
+    torchrun --nproc-per-node N -m unet_watermark_tpu_torch.cli train ...
+
+(`--device cpu` there forms a gloo group of CPU ranks); rank 0 logs and
+writes the files.
 
 Steps 1-5 run as in the JAX CLI, OCR included (--ocr-engine easy gives the
 builtin detector where easyocr is not installed, as there). --device is
@@ -86,13 +92,27 @@ def train_command(args) -> int:
     if args.opts:
         cfg.merge_from_list(args.opts)
 
+    from .parallel import distributed
     from .training.train import train
 
-    result = train(cfg, resume_from=args.resume,
-                   use_blurred_mask=args.use_blurred_mask,
-                   init_weights=args.init_weights, device=device)
-    logger.info("training done: best_val_loss=%.4f over %d epochs",
-                result["best_val_loss"], result["epochs_run"])
+    # under torchrun: one rank a card (cuda:LOCAL_RANK, NCCL) or gloo
+    # ranks on the CPU; a plain run is a world of one and forms no group
+    owned = not distributed.in_group()
+    rank, world = distributed.initialize(device=device)
+    if distributed.in_group() and device == "cuda":
+        device = f"cuda:{distributed.local_rank()}"
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    try:
+        result = train(cfg, resume_from=args.resume,
+                       use_blurred_mask=args.use_blurred_mask,
+                       init_weights=args.init_weights, device=device)
+    finally:
+        if owned:
+            distributed.shutdown()
+    logger.info("training done: best_val_loss=%.4f over %d epochs "
+                "(%d rank%s)", result["best_val_loss"],
+                result["epochs_run"], world, "s" if world > 1 else "")
     return 0
 
 

@@ -188,8 +188,12 @@ class TextWatermarkConfig:
 
 @dataclass
 class ParallelConfig:
-    """JAX's device mesh; stored, not read: the port runs on one device
-    (ROADMAP.md §A's queue: more than one device)."""
+    """The mesh of data-parallel training (parallel/mesh.mesh_from_config
+    reads MESH_SHAPE and MESH_AXES): MESH_SHAPE None spans the process
+    group's world (torchrun's ranks, one card each; JAX's spans the
+    process's devices), a shape whose product is not the world size
+    raises. DATA_AXIS, SPATIAL_AXIS and SPATIAL_HALO are stored, not read,
+    as in JAX."""
     MESH_SHAPE: Optional[List[int]] = None
     MESH_AXES: List[str] = field(default_factory=lambda: ["data"])
     DATA_AXIS: str = "data"

@@ -9,8 +9,9 @@ adds the tiles in plan order, as the JAX package's scan does, so the sums
 are the same float32 sums. The JAX package pads the last chunk of tiles to
 `batch` for its compile cache; eager torch runs it as it is.
 
-predict_tiled_sharded (the mesh version) waits for parallel/ (ROADMAP.md
-§A.8).
+predict_tiled_sharded spreads the tiles over the ranks of a mesh
+(parallel/mesh.py): each rank runs its contiguous share, the logits are
+all-gathered, and every rank blends the whole map, as predict_tiled does.
 """
 from __future__ import annotations
 
@@ -56,13 +57,56 @@ def predict_tiled(forward: Callable[[torch.Tensor], torch.Tensor],
     tiles = torch.stack([image[y:y + tile, x:x + tile] for y, x in coords])
     logits = torch.cat([forward(tiles[i:i + batch])
                         for i in range(0, len(coords), batch)])
-    win = torch.as_tensor(_hann2d(tile), device=image.device)[:, :, None]
-    acc = torch.zeros((h, w, 1), dtype=torch.float32, device=image.device)
+    return _blend(logits, coords, h, w, tile)
+
+
+def _blend(logits: torch.Tensor, coords, h: int, w: int, tile: int
+           ) -> torch.Tensor:
+    """The Hann-weighted mean of the tiles' logits, added in plan order."""
+    win = torch.as_tensor(_hann2d(tile), device=logits.device)[:, :, None]
+    acc = torch.zeros((h, w, 1), dtype=torch.float32, device=logits.device)
     wacc = torch.zeros_like(acc)
     for (y, x), lg in zip(coords, logits):
         acc[y:y + tile, x:x + tile] += lg.float() * win
         wacc[y:y + tile, x:x + tile] += win
     return acc / torch.clamp(wacc, min=1e-8)
+
+
+def predict_tiled_sharded(forward: Callable[[torch.Tensor], torch.Tensor],
+                          image: torch.Tensor, mesh, tile: int = 512,
+                          overlap: int = 64, batch: Optional[int] = None
+                          ) -> torch.Tensor:
+    """predict_tiled over the ranks of `mesh`: the tile count is padded to
+    a multiple of the mesh's size with zero tiles, as in the JAX package;
+    rank r runs the r-th contiguous share (`batch` at a time, or in one
+    call where batch is None, as JAX's one sharded forward), the logits
+    are all-gathered and every rank returns the whole (H, W, 1) float32
+    map. Every rank of the mesh calls it with the same image."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import in_group, rank_and_world
+
+    h, w = image.shape[0], image.shape[1]
+    if h < tile or w < tile:
+        raise ValueError(f"image {h}x{w} smaller than tile {tile}")
+    coords = plan_tiles(h, w, tile, overlap)
+    n, ndev = len(coords), mesh.size
+    per = -(-n // ndev)
+    ranks = mesh.devices.ravel().tolist()  # the share order
+    share = ranks.index(rank_and_world()[0])
+    mine = coords[share * per:(share + 1) * per]
+    tiles = torch.zeros((per, tile, tile) + tuple(image.shape[2:]),
+                        dtype=image.dtype, device=image.device)
+    for i, (y, x) in enumerate(mine):
+        tiles[i] = image[y:y + tile, x:x + tile]
+    step = batch or per
+    logits = torch.cat([forward(tiles[i:i + step])
+                        for i in range(0, per, step)]).float()
+    if in_group():
+        parts = [torch.empty_like(logits) for _ in range(ndev)]
+        dist.all_gather(parts, logits.contiguous())
+        logits = torch.cat([parts[r] for r in ranks])
+    return _blend(logits[:n], coords, h, w, tile)
 
 
 @functools.lru_cache(maxsize=64)

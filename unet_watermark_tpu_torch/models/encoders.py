@@ -28,12 +28,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.quant import QConv2d
+from ..parallel.distributed import all_reduce_sum, rank_and_world
 
 BN_EPS = 1e-5
 
 # set while torch.utils.checkpoint recomputes a forward in the backward
 # pass: the running statistics were updated by the first forward
 _RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+# set by global_batch_stats(): the global statistics' path in a world of
+# one too (a plain flag, not a context variable: autograd's threads
+# recompute checkpointed forwards and must read it as well)
+_FORCE_GLOBAL = False
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -45,7 +51,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     toward the unbiased one). The batch statistics come from the same call
     that normalizes (native_batch_norm's mean and 1/sqrt(var + eps)), and
     each buffer takes one lerp_ toward them. Nothing is updated while a
-    checkpointed forward is recomputed."""
+    checkpointed forward is recomputed.
+
+    In a process group of more than one rank (parallel/, data-parallel
+    training; or under global_batch_stats()) the batch statistics are the
+    global batch's, as under JAX's jit over a sharded batch: flax's mean(x)
+    and mean(x²) - mean(x)² from the per-channel sums of every rank's rows,
+    reduced by a differentiable all-reduce, so the gradient flows through
+    the global statistics; every rank's running buffers take the same
+    values. A world of one keeps the library's batch norm."""
 
     def __init__(self, ch: int, eps: float = BN_EPS):
         super().__init__(ch, eps=eps, momentum=0.1)
@@ -53,6 +67,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if _FORCE_GLOBAL or rank_and_world()[1] > 1:
+            return self._global_forward(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         if not _RECOMPUTING.get():
@@ -61,6 +77,36 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.lerp_(invstd.pow(-2).sub_(self.eps),
                                        self.momentum)
         return y
+
+    def _global_forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # as flax
+        c = x.shape[1]
+        count = x.numel() // c * rank_and_world()[1]
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
+                                         xf.square().sum((0, 2, 3))]))
+        mean, mean2 = sums[:c] / count, sums[c:] / count
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def global_batch_stats():
+    """Every BatchNorm2d in train mode takes the global statistics' path
+    (the sums' all-reduce, flax's variance) in a world of one as well, as
+    a group of more than one rank runs it."""
+    global _FORCE_GLOBAL
+    before, _FORCE_GLOBAL = _FORCE_GLOBAL, True
+    try:
+        yield
+    finally:
+        _FORCE_GLOBAL = before
 
 
 @contextlib.contextmanager

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -459,12 +459,23 @@ def normalize(image: torch.Tensor) -> torch.Tensor:
 
 def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   masks: torch.Tensor, policy="transparent_watermark",
-                  apply_normalize: bool = True
+                  apply_normalize: bool = True,
+                  rows: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw, then apply, then (by default) normalize: images (N, H, W, 3)
-    float [0, 1], masks (N, H, W, 1). `policy` is a name or a policy."""
+    float [0, 1], masks (N, H, W, 1). `policy` is a name or a policy.
+
+    rows=(global_n, start): the batch is rows start.. of a global batch of
+    global_n (one rank's share in data-parallel training); the parameters
+    are drawn for the whole global batch, as one process draws them, and
+    these rows' are kept, so every rank's generator stays in step."""
     n, h, w = images.shape[:3]
-    params = draw_params(gen, n, h, w, policy)
+    if rows is None:
+        params = draw_params(gen, n, h, w, policy)
+    else:
+        total, start = rows
+        params = {k: v[start:start + n] for k, v in
+                  draw_params(gen, total, h, w, policy).items()}
     images, masks = apply_params(images, masks, params, policy)
     if apply_normalize:
         images = normalize(images)

@@ -1,4 +1,4 @@
-"""Phases 3h-3m of chip_smoke.py, and the helpers they share with it: the
+"""Phases 3h-3n of chip_smoke.py, and the helpers they share with it: the
 timers (CUDA events, host clock, torch.profiler), the log line, the
 in-process CLI call, the LaMa segment accounting and the int8 checks.
 chip_smoke.py imports this module; it needs the card, as chip_smoke.py
@@ -45,7 +45,7 @@ does.
      cycle, the default configuration with the yaml at full width:
      UNet++/resnet34, 512², batch 8, bf16, 1 epoch) reusing the earlier
      phases: 3h's folder as the training folder and the held-out triads
-     (8), 3h's 4 checkpoints in the loop's checkpoint folder, 4 of 3d's
+     (8), 3h's 4 checkpoints in the loop's checkpoint folder, 3 of 3d's
      files as the test folder, 3i's clean folder and 3 RGBA logos for
      step 5. Checks: rc 0 and status "success"; step 1 one vmapped forward
      over the 4 checkpoints, and the vmapped probabilities within twice
@@ -53,16 +53,16 @@ does.
      its float32 one, max over pixels) of each checkpoint's own bf16
      forward, their masks agreeing on >= AUTO_VMAP_AGREE; step 5's files
      on the card equal byte for byte to the same generation on the host;
-     the video's MP4 boxes parsed, 4 x 15 samples and 4 sync samples;
+     the video's MP4 boxes parsed, 3 x 15 samples and 3 sync samples;
      the held-out evaluation over 8 triads; K1 and K2 launched by the
      cycle. Logs each step's seconds,
      gen_data samples/s on the card and on the host, and video frames/s
   3k the quality record (scripts/quality_report.py) as users run it:
-     `quality_report.main(["--workdir", W, "--limit", "6", "--tiers",
+     `quality_report.main(["--workdir", W, "--limit", "4", "--tiers",
      "smooth", "textured"])` on the card at full width (UNet++ and Unet
      with resnet34 at 512², batch 8, the bf16 and the int8 tier with the
      shipped sidecars, LaMa and the latent-diffusion engine; the depth is
-     cut from 64 to 6 triads a tier). Checks: 4 segmentation rows a tier,
+     cut from 64 to 4 triads a tier). Checks: 4 segmentation rows a tier,
      the int8 ones too; every number finite; engine "ffc-lama" for LaMa
      in both mask modes; the LaMa repair above the no-op floor on the
      smooth tier in both mask modes; on the textured tier at 512², where
@@ -144,6 +144,28 @@ does.
      the network in turns with bf16, and the conv shapes new to
      uwt_conv_s8 (resnet50's 1x1 convs, UnetTPU's stride-2 skip2_reduce)
      timed one by one beside cuDNN's bf16 conv and their bounds.
+  3n the data-parallel path (sharded_phase) in an NCCL world of one formed
+     in this process through parallel.distributed.initialize with a
+     file:// store in the work folder, destroyed afterwards (this script
+     needs one card; the arithmetic of several ranks is
+     tests/test_torch_parallel.py's and test_torch_dp_train.py's, gloo on
+     the CPU): 2 train steps of 3h's config (UNet++/resnet34, 512², batch
+     8, Adam, transparent_watermark) on 3h's folder inside the group (the
+     state broadcast, the gradients all-reduced, BatchNorm's statistics
+     from all-reduced sums as a group of several ranks takes them) against
+     the same 2 steps from the same state without a group, in float32 (the
+     losses, step 1's gradients and running statistics and the parameters
+     within the SHARD32_* bounds) and in bf16 (the losses and step 1's
+     running statistics within the SHARD_* bounds, the gradients and
+     parameters reported, with both steps' seconds); the
+     `train` command for one epoch in the group on the host pipeline
+     (rc 0, a finite history, rank 0's checkpoint, .npz and .pth);
+     predict_tiled_sharded against
+     predict_tiled on a 1080 x 1920 image with the shipped Unet in bf16
+     (15 tiles of 512, overlap 64; the image is 12 of the training
+     batches' images in a 3 x 4 grid, cropped), bit for bit; sharded_conv2d (3x3,
+     halos zero at the border) against the unsharded conv. Logs the NCCL
+     version and the phase's seconds.
 """
 from __future__ import annotations
 
@@ -1036,8 +1058,9 @@ def fill_training_phase(work: Path, seed: int, dev) -> dict:
 # phase 3j: the `auto` loop's test folder (the first files of 3d's
 # folder), its logos, its held-out limit, the video's frames an image
 # (1.0 s at 15 fps, the loop's VideoGenerator), and the bf16 tolerance of
-# the vmapped forward against each checkpoint's own
-AUTO_TEST_FILES, AUTO_LOGOS, AUTO_HELDOUT = 4, 3, 8
+# the vmapped forward against each checkpoint's own; the test folder cut
+# from 4 files to 3 to buy phase 3n its time
+AUTO_TEST_FILES, AUTO_LOGOS, AUTO_HELDOUT = 3, 3, 8
 AUTO_FRAMES_AN_IMAGE = int(1.0 * 15)
 AUTO_VMAP_AGREE = 0.999
 
@@ -1259,8 +1282,9 @@ def auto_phase(work: Path, seed: int, dev, test_files=AUTO_TEST_FILES,
 # triads (tests/test_torch_quality_e2e_tex.py's) and its card-vs-host
 # bound (that test's, in dB), the calibration set, the new sidecar's masks
 # against the shipped one's (pixel agreement; IoU, which a sidecar with
-# every amax x CALIB_BROKEN must fail), and 3d's files the shells repair
-QUALITY_LIMIT = 6
+# every amax x CALIB_BROKEN must fail), and 3d's files the shells repair;
+# the depth cut from 6 to 4 to buy phase 3n's `train` command its time
+QUALITY_LIMIT = 4
 QUALITY_HOST_TRIADS = 4
 TEX_SIZE, TEX_TRIADS, TEX_DB_TOL = 128, 4, 0.1
 CALIB_IMAGES, CALIB_BATCH = 8, 4
@@ -2668,3 +2692,280 @@ def zoo_phase(work: Path, seed: int, dev, trained=None) -> dict:
                        "text_train_s": trained["train_s"],
                        "text_repair_s": served["wall_s"],
                        "phase_s": time.perf_counter() - t_phase}}
+
+
+# phase 3n: the data-parallel path in an NCCL world of one. Inside the group
+# BatchNorm takes the path a group of more than one rank takes
+# (models/encoders.global_batch_stats: flax's mean(x²) - mean(x)² in float32
+# from the sums an all-reduce adds) where the step without a group runs the
+# library's batch norm. The group's train steps against the steps without a
+# group: 3h's config and folder, 2 steps from one seeded state, in float32 and
+# in the config's bf16. bf16 gates: step 1's loss within SHARD_LOSS1_RTOL,
+# every loss within SHARD_LOSS_RTOL, step 1's running statistics within
+# SHARD_STATS_RTOL of each buffer's largest value; its gradients and parameters
+# are reported (the two bf16 forwards round a BatchNorm output 1 ulp apart here
+# and there, and the network carries that on). Float32 gates: every step's loss
+# within SHARD32_LOSS_RTOL, step 1's gradients within SHARD32_GRAD_RTOL of
+# their global norm, step 1's running statistics within SHARD32_STATS_RTOL of
+# each buffer's largest value, and the parameters after the steps within
+# SHARD32_UPDATE_RTOL of the update's norm (their distance over the distance
+# the steps moved them). The bounds are 3-15x the H100's readings at this seed
+# (float32: losses 0 and 1.7e-5, gradients 5.2e-3, statistics 6.9e-7,
+# parameters 0.030; bf16 step 1's loss 3.1e-6, step 2's 1.1e-3, statistics
+# 1.7e-3). Float32 differs at all because flax's variance cancels where a
+# channel's mean is large against its spread (cuDNN's does not), and Adam turns
+# the sign of a near-zero gradient into a whole step; a gradient summed twice
+# or cut off at the statistics reads of order 1. Then the `train` command runs
+# one epoch in the group on the host pipeline (DATA.DEVICE_CACHE off: a mesh,
+# pinned copies, the broadcast state, the barriers, rank 0's files). The tiled
+# map of a 1080 x 1920 image through predict_tiled_sharded equals
+# predict_tiled's bit for bit (the same tiles in the same calls, the same
+# blend, then the all-gather); the sharded conv equals the unsharded one within
+# SHARD_CONV_RTOL of its largest value (cuDNN may pick another algorithm for
+# the padded shard).
+SHARD_STEPS = 2
+SHARD_LOSS1_RTOL, SHARD_LOSS_RTOL, SHARD_STATS_RTOL = 3e-5, 5e-3, 5e-3
+SHARD32_LOSS_RTOL, SHARD32_GRAD_RTOL = 1e-4, 2e-2
+SHARD32_STATS_RTOL, SHARD32_UPDATE_RTOL = 1e-5, 0.1
+SHARD_CONV_RTOL = 1e-5
+SHARD_TILED_SHAPE = (1080, 1920)
+SHARD_CONV_SHAPE = (2, 256, 256, 16)
+
+
+def _shard_steps(cfg, batches, model, gen_seed: int, dev) -> dict:
+    """SHARD_STEPS train steps of a TrainState over `model` (replicated
+    from rank 0 in a group); the losses, step 1's gradients and running
+    statistics, the final parameters (on the card) and the steps'
+    seconds."""
+    import torch
+    from unet_watermark_tpu_torch.ops import losses
+    from unet_watermark_tpu_torch.parallel import mesh as pmesh
+    from unet_watermark_tpu_torch.training import train as tr
+    from unet_watermark_tpu_torch.training.state import TrainState, \
+        make_optimizer
+
+    state = TrainState(model, make_optimizer(cfg, model))
+    pmesh.replicated(state)
+    step = tr.make_train_step(cfg, losses.get_loss_function(cfg),
+                              cfg.DATA.AUGMENTATION_TYPE,
+                              torch.Generator(dev).manual_seed(gen_seed))
+    grads = {}
+
+    def part(name):
+        if name == "optimizer" and not grads:
+            grads.update({n: p.grad.detach().clone() for n, p in
+                          state.model.named_parameters()})
+        return contextlib.nullcontext()
+
+    seen, stats = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:SHARD_STEPS]:
+        seen.append(float(step(state, b, part)["loss"]))
+        if stats is None:
+            stats = {k: v.detach().clone() for k, v in
+                     state.model.state_dict().items() if "running" in k}
+    torch.cuda.synchronize()
+    return {"losses": seen, "grads": grads, "stats": stats,
+            "params": {k: v.detach().clone() for k, v in
+                       state.model.named_parameters()},
+            "steps_s": time.perf_counter() - t0}
+
+
+def _shard_compare(grouped: dict, alone: dict, start: dict) -> dict:
+    """The group's steps against the steps without one: each loss's
+    relative distance, step 1's gradients' distance over their norm, the
+    running statistics' over each buffer's largest value, the parameters'
+    over the distance the steps moved them."""
+    import torch
+
+    def rel_norm(a, b, ref):
+        diff = sum(((a[n].float() - b[n].float()) ** 2).sum() for n in b)
+        norm = sum((ref[n].float() ** 2).sum() for n in b)
+        return torch.sqrt(diff / norm.clamp(min=1e-30)).item()
+
+    sa, sb = grouped["stats"], alone["stats"]
+    moved = {n: alone["params"][n] - start[n] for n in start}
+    return {"losses_group": grouped["losses"],
+            "losses_alone": alone["losses"],
+            "loss_rel": [abs(a - b) / max(abs(b), 1e-6) for a, b in
+                         zip(grouped["losses"], alone["losses"])],
+            "grad_rel_norm": rel_norm(grouped["grads"], alone["grads"],
+                                      alone["grads"]),
+            "step1_running_stats_max_rel": max(
+                ((sa[n] - sb[n]).abs().max()
+                 / sb[n].abs().max().clamp(min=1e-6)).item() for n in sb),
+            "params_rel_update": rel_norm(grouped["params"],
+                                          alone["params"], moved),
+            "params_max_abs": max((grouped["params"][n] - alone["params"][n]
+                                   ).abs().max().item() for n in start),
+            "steps_s_group": grouped["steps_s"],
+            "steps_s_alone": alone["steps_s"]}
+
+
+def sharded_phase(work: Path, seed: int, dev, pred) -> dict:
+    """Phase 3n: an NCCL world of one in this process (a file:// store in
+    the work folder), then destroyed. The group's train steps against the
+    steps without a group (float32 and bf16), the `train` command in the
+    group, predict_tiled_sharded against predict_tiled with `pred`'s model
+    (the shipped Unet, bf16), sharded_conv2d against the unsharded conv.
+    Returns the timing fields."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from unet_watermark_tpu_torch.configs import (DEFAULT_CONFIG,
+                                                  get_cfg_defaults,
+                                                  update_config)
+    from unet_watermark_tpu_torch.data.dataset import create_datasets
+    from unet_watermark_tpu_torch.inference.tiled import (
+        pad_to_multiple, plan_tiles, predict_tiled, predict_tiled_sharded)
+    from unet_watermark_tpu_torch.models.encoders import global_batch_stats
+    from unet_watermark_tpu_torch.parallel import distributed
+    from unet_watermark_tpu_torch.parallel import mesh as pmesh
+    from unet_watermark_tpu_torch.parallel import spatial
+    from unet_watermark_tpu_torch.training import train as tr
+
+    t_phase = time.perf_counter()
+    cfg = get_cfg_defaults()
+    update_config(cfg, DEFAULT_CONFIG)
+    cfg.DATA.IMG_SIZE = SIZE
+    cfg.DATA.ROOT_DIR = str(work / "train_data")  # 3h's folder, cached
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.MODEL.DTYPE = "float32"
+    train_ds, _ = create_datasets(cfg, device=dev)
+    bs = cfg.TRAIN.BATCH_SIZE
+    batches = []
+    for b in range(SHARD_STEPS):
+        items = [train_ds[i] for i in range(b * bs, (b + 1) * bs)]
+        batches.append({
+            "image": torch.from_numpy(np.stack([im for im, _ in items])
+                                      ).to(dev),
+            "mask": torch.from_numpy(np.stack(
+                [(np.asarray(m) > 127).astype(np.uint8) for _, m in items])
+                )[..., None].to(dev),
+            "valid": torch.ones(bs, device=dev)})
+    base = tr.create_train_state(cfg, seed, dev).model
+    start = {k: v.detach().clone() for k, v in base.named_parameters()}
+    copies = [copy.deepcopy(base) for _ in range(3)]
+    alone = {"bf16": _shard_steps(cfg, batches, base, seed, dev),
+             "f32": _shard_steps(cfg32, batches, copies[0], seed, dev)}
+    del base
+
+    out, ckpt = work / "dp_out", work / "dp_out" / "checkpoints"
+    argv = ["train", "-c", str(DEFAULT_CONFIG), "--data-dir",
+            cfg.DATA.ROOT_DIR, "--epochs", "1", "--output-dir",
+            str(out / "logs"), "--model-save-path",
+            str(out / "models" / "unet_watermark.pth"),
+            "--opts", "DATA.DEVICE_CACHE", "False",
+            "TRAIN.CHECKPOINT_DIR", str(ckpt), "DATA.IMG_SIZE", str(SIZE)]
+    t_group = time.perf_counter()
+    rank, world = distributed.initialize(
+        f"file://{work / 'nccl_store'}", 1, 0, device=dev)
+    try:
+        init_s = time.perf_counter() - t_group
+        mesh = pmesh.mesh_from_config(cfg)
+        with global_batch_stats():
+            grouped = {
+                "bf16": _shard_steps(cfg, batches, copies[1], seed, dev),
+                "f32": _shard_steps(cfg32, batches, copies[2], seed, dev)}
+            rc, cli_s, _ = run_cli(argv, dev, timer=False)
+        del copies
+        history = json.loads(
+            (out / "logs" / "training_history.json").read_text())
+        written = sorted(os.listdir(ckpt)) + sorted(
+            os.listdir(out / "models"))
+        if rc != 0 or len(history["train_loss"]) != 1 or not all(
+                np.isfinite(history[k]).all() for k in ("train_loss",
+                                                        "val_loss")) or \
+                not distributed.in_group() or written != [
+                    "best_model", "seg_unetplusplus_resnet34.npz",
+                    "unet_watermark.pth"]:
+            raise AssertionError(f"train in the group: rc {rc}, history "
+                                 f"{history}, wrote {written}")
+
+        # the tiled map of a 1080p image (the batches' images in a grid),
+        # bf16 Unet, sharded and not
+        h, w = SHARD_TILED_SHAPE
+        tiles_u8 = torch.cat([b["image"] for b in batches])
+        rows, cols = -(-h // SIZE), -(-w // SIZE)
+        grid = tiles_u8[:rows * cols].reshape(rows, cols, SIZE, SIZE, 3)
+        grid = grid.permute(0, 2, 1, 3, 4).reshape(rows * SIZE,
+                                                   cols * SIZE, 3)
+        y0, x0 = (rows * SIZE - h) // 2, (cols * SIZE - w) // 2
+        rgb = grid[y0:y0 + h, x0:x0 + w].float() / 255.0
+        p = pred.cfg.PREDICT
+        padded, _ = pad_to_multiple(rgb, 32, min_size=p.TILE_SIZE)
+        x = pred._normalize(padded)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            plain = predict_tiled(pred._apply_model, x, p.TILE_SIZE,
+                                  p.TILE_OVERLAP, batch=p.BATCH_SIZE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sharded = predict_tiled_sharded(
+                pred._apply_model, x, mesh, p.TILE_SIZE, p.TILE_OVERLAP,
+                batch=p.BATCH_SIZE)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        tiles = len(plan_tiles(x.shape[0], x.shape[1], p.TILE_SIZE,
+                               p.TILE_OVERLAP))
+        if not torch.equal(plain, sharded):
+            raise AssertionError(
+                f"predict_tiled_sharded differs from predict_tiled by "
+                f"{(plain - sharded).abs().max().item()}")
+
+        # the halo-exchange conv against the unsharded one
+        gen = torch.Generator(dev).manual_seed(seed)
+        xc = torch.randn(SHARD_CONV_SHAPE, generator=gen, device=dev)
+        k = torch.randn((3, 3, SHARD_CONV_SHAPE[-1], SHARD_CONV_SHAPE[-1]),
+                        generator=gen, device=dev)
+        halo = spatial.halo_exchange(spatial.shard_spatial(xc, mesh), 1,
+                                     mesh)
+        conv = spatial.gather_spatial(spatial.sharded_conv2d(
+            spatial.shard_spatial(xc, mesh), k, mesh), mesh)
+        ref = F.conv2d(xc.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                       padding=1).permute(0, 2, 3, 1)
+        conv_err = (conv - ref).abs().max().item()
+        conv_scale = ref.abs().max().item()
+        if conv_err > SHARD_CONV_RTOL * conv_scale or \
+                halo[:, :1].any() or halo[:, -1:].any():
+            raise AssertionError(f"sharded_conv2d against the unsharded "
+                                 f"conv: {conv_err} of {conv_scale}")
+        nccl = torch.cuda.nccl.version()
+        nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) \
+            else str(nccl)
+    finally:
+        distributed.shutdown()
+    group_s = time.perf_counter() - t_group
+
+    f32 = _shard_compare(grouped["f32"], alone["f32"], start)
+    bf16 = _shard_compare(grouped["bf16"], alone["bf16"], start)
+    bf16["grad_rel_norm_vs_float32"] = _shard_compare(
+        alone["bf16"], alone["f32"], start)["grad_rel_norm"]
+    fields = {
+        "world": world, "rank": rank, "backend": "nccl", "nccl": nccl,
+        "steps": SHARD_STEPS, "arch": cfg.MODEL.NAME, "batch": bs,
+        "size": SIZE, "float32": f32, "bfloat16": bf16,
+        "train_cli": {"rc": rc, "wall_s": cli_s, "history": history,
+                      "wrote": written},
+        "tiled_shape": list(SHARD_TILED_SHAPE), "tiles": tiles,
+        "tiled_equal": True, "tiled_ms": (t1 - t0) * 1e3,
+        "tiled_sharded_ms": (t2 - t1) * 1e3,
+        "conv_shape": list(SHARD_CONV_SHAPE), "conv_max_abs": conv_err,
+        "conv_scale": conv_scale, "group_init_s": init_s,
+        "group_s": group_s, "phase_s": time.perf_counter() - t_phase}
+    log("sharded", **fields)
+    finite = all(np.isfinite(v).all() for v in (
+        bf16["losses_group"], f32["losses_group"]))
+    if not finite or bf16["loss_rel"][0] > SHARD_LOSS1_RTOL or \
+            max(bf16["loss_rel"]) > SHARD_LOSS_RTOL or \
+            bf16["step1_running_stats_max_rel"] > SHARD_STATS_RTOL or \
+            max(f32["loss_rel"]) > SHARD32_LOSS_RTOL or \
+            f32["grad_rel_norm"] > SHARD32_GRAD_RTOL or \
+            f32["step1_running_stats_max_rel"] > SHARD32_STATS_RTOL or \
+            f32["params_rel_update"] > SHARD32_UPDATE_RTOL:
+        raise AssertionError(f"the group's steps against the steps without "
+                             f"a group: {fields}")
+    return fields

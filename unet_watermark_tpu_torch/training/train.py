@@ -10,6 +10,19 @@ short last batch get logits -20 and zero targets, and the loss is scaled
 by n / sum(valid), as in the JAX package. The step's scalars stay on the
 card; an epoch syncs once, when it reads their sums.
 
+In a process group (parallel/, `torchrun`) train() is data parallel over
+the mesh of PARALLEL.MESH_SHAPE (default: the whole world), as JAX's jit
+over a sharded batch: each rank takes its contiguous share of every
+(zero-padded) global batch from the host pipeline and of its augmentation
+draws; BatchNorm takes the global batch's statistics (models/encoders.py);
+each rank's loss is its rows' share of the global mean (the scale is
+global_n / global sum(valid)), and the gradients are summed over the
+ranks before the optimizer's clip, so the clip sees the global gradient's
+norm. The step's scalars and the eval sums are summed over the ranks, so
+every rank keeps the same history. Rank 0's state goes to every rank at
+the start; rank 0 alone writes the checkpoints, the exports, the plots
+and the history file.
+
 The JAX package also has an epoch-scan path (make_train_epoch_scan): one
 XLA dispatch an epoch, to hide the dispatch latency of its device link. Its
 counterpart here is the per-step loop over the card-resident pipeline
@@ -27,6 +40,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import create_datasets
 from ..data.pipeline import make_pipelines
@@ -37,6 +51,8 @@ from ..models.factory import create_model_from_config, init_model, \
 from ..ops import augment as aug
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
+from ..parallel.distributed import barrier, in_group, rank_and_world
+from ..parallel.mesh import mesh_from_config, replicated
 from ..utils.async_ckpt import AsyncSaver
 from ..utils.device import compute_autocast, resolve_device
 from ..utils.shipping import load_npz, save_params_npz, seg_weights_filename
@@ -70,11 +86,34 @@ def _autocast(cfg, device: torch.device):
 
 
 def _masked(logits, masks, valid):
+    """Pad rows neutralized, and the loss scale n / sum(valid): in a group,
+    this rank's n over the global sum, its share of the global scale."""
     n = logits.shape[0]
     vmask = valid.reshape(n, 1, 1, 1)
     logits = torch.where(vmask > 0, logits.float(), -20.0)
-    scale = n / torch.clamp(valid.sum(), min=1.0)
+    total = valid.sum()
+    if in_group():
+        dist.all_reduce(total)
+    scale = n / torch.clamp(total, min=1.0)
     return logits, masks * vmask, scale
+
+
+def _sum_over_ranks(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A step's scalars summed over the group, in one all-reduce."""
+    if not in_group():
+        return out
+    flat = torch.stack([out[k].float() for k in out])
+    dist.all_reduce(flat)
+    return dict(zip(out, flat.unbind()))
+
+
+def _sum_grads_over_ranks(params) -> None:
+    """Each parameter's .grad summed over the group, in one all-reduce."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
 
 
 def make_train_step(cfg, loss_fn, policy, gen: torch.Generator):
@@ -86,9 +125,13 @@ def make_train_step(cfg, loss_fn, policy, gen: torch.Generator):
     def step(state: TrainState, batch, part: Callable = _no_part):
         model = state.model.train()
         device = batch["image"].device
+        rank, world = rank_and_world()
         with part("augment"):
             images, masks = _to_float(batch)
-            images, masks = aug.augment_batch(gen, images, masks, policy)
+            n = images.shape[0]
+            images, masks = aug.augment_batch(
+                gen, images, masks, policy,
+                rows=(n * world, n * rank) if in_group() else None)
             valid = batch["valid"].float()
         with part("forward_backward"):
             with _autocast(cfg, device):
@@ -99,11 +142,13 @@ def make_train_step(cfg, loss_fn, policy, gen: torch.Generator):
                 p.grad = None
             loss.backward()
         with part("optimizer"):
+            if in_group():
+                _sum_grads_over_ranks(state.opt.params)
             state.opt.step()
             state.step += 1
         stats = metrics_lib.confusion_stats(logits.detach(), targets,
                                             valid=valid)
-        return {"loss": loss.detach(), **stats}
+        return _sum_over_ranks({"loss": loss.detach(), **stats})
 
     return step
 
@@ -120,8 +165,8 @@ def make_eval_step(cfg, loss_fn, threshold: float = 0.5):
         logits, targets, scale = _masked(logits, masks, valid)
         stats = metrics_lib.confusion_stats(logits, targets,
                                             threshold=threshold, valid=valid)
-        return {"loss": loss_fn(logits, targets) * scale,
-                "weight": valid.sum(), **stats}
+        return _sum_over_ranks({"loss": loss_fn(logits, targets) * scale,
+                                "weight": valid.sum(), **stats})
 
     return step
 
@@ -180,6 +225,12 @@ def _epoch_metrics(agg: Dict[str, torch.Tensor], batches: int
 
 def _accumulate(agg, m):
     return dict(m) if agg is None else {k: agg[k] + m[k] for k in agg}
+
+
+def _max_over_ranks(x: float, device) -> float:
+    t = torch.tensor(float(x), dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
 
 
 def run_train_epoch(train_step, state, pipeline, epoch: int,
@@ -274,11 +325,22 @@ def train(cfg, resume_from: Optional[str] = None,
           ) -> Dict[str, Any]:
     """The JAX package's train(): returns best_val_loss, epochs_run,
     history, best_checkpoint and the state. `device` is "cuda" unless it
-    says "cpu"."""
+    says "cpu"; in a process group, this rank's device (the group's
+    ranks all call train() with the same configuration)."""
     device = resolve_device(device)
+    mesh = mesh_from_config(cfg)
+    rank = rank_and_world()[0]
+    logger.info("mesh: %s", mesh)
     if train_ds is None or val_ds is None:
+        # rank 0 first: it writes the decoded cache's files and the masks
+        # made from the clean diff, which the other ranks then open
+        if rank:
+            barrier()
         train_ds, val_ds = create_datasets(cfg, use_blurred_mask, device)
-    train_pipe, val_pipe = make_pipelines(cfg, train_ds, val_ds, device)
+        if not rank:
+            barrier()
+    train_pipe, val_pipe = make_pipelines(cfg, train_ds, val_ds, device,
+                                          mesh=mesh)
 
     state = create_train_state(cfg, seed=cfg.DATA.SEED, device=device)
     if init_weights:
@@ -314,6 +376,7 @@ def train(cfg, resume_from: Optional[str] = None,
         if "early_stopping" in meta:
             early.load_state_dict(meta["early_stopping"])
         logger.info("resumed from %s at epoch %d", path, start_epoch)
+    replicated(state, mesh)  # rank 0's parameters and optimizer state
 
     n_train = len(train_ds)
     best_path = None
@@ -324,6 +387,8 @@ def train(cfg, resume_from: Optional[str] = None,
             log_interval=cfg.TRAIN.LOG_INTERVAL,
             max_steps=max_steps_per_epoch)
         val_m = run_eval_epoch(eval_step, state, val_pipe)
+        if in_group():  # the epoch takes as long as its slowest rank
+            dt = _max_over_ranks(dt, device)
         lr = scheduler.step(val_m["loss"])
         state.with_lr(lr)
         history["train_loss"].append(train_m["loss"])
@@ -348,14 +413,15 @@ def train(cfg, resume_from: Optional[str] = None,
             "config": cfg.to_dict(),
         }
         # host snapshots (copies) are written by one worker thread while
-        # the next epoch trains
+        # the next epoch trains; rank 0's alone
         if val_m["loss"] < best_val_loss:
             best_val_loss = val_m["loss"]
             best_path = os.path.abspath(os.path.join(ckpt_dir, "best_model"))
-            saver.submit(_save_best, cfg, ckpt_dir,
-                         snapshot(state, with_opt=False),
-                         json.loads(json.dumps(meta)))
-        if not cfg.TRAIN.SAVE_BEST_ONLY and (
+            if not rank:
+                saver.submit(_save_best, cfg, ckpt_dir,
+                             snapshot(state, with_opt=False),
+                             json.loads(json.dumps(meta)))
+        if not rank and not cfg.TRAIN.SAVE_BEST_ONLY and (
                 (epoch + 1) % cfg.TRAIN.SAVE_INTERVAL == 0):
             saver.submit(save_checkpoint, ckpt_dir,
                          f"checkpoint_epoch_{epoch + 1}", snapshot(state),
@@ -366,11 +432,13 @@ def train(cfg, resume_from: Optional[str] = None,
 
     saver.flush()  # every checkpoint on disk before the report
     saver.close()
-    save_training_plots(history, cfg.TRAIN.OUTPUT_DIR)
-    os.makedirs(cfg.TRAIN.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.TRAIN.OUTPUT_DIR, "training_history.json"),
-              "w") as f:
-        json.dump(history, f, indent=2)
+    if not rank:
+        save_training_plots(history, cfg.TRAIN.OUTPUT_DIR)
+        os.makedirs(cfg.TRAIN.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.TRAIN.OUTPUT_DIR,
+                               "training_history.json"), "w") as f:
+            json.dump(history, f, indent=2)
+    barrier()  # the other ranks return once rank 0's files are written
     return {"best_val_loss": best_val_loss,
             "epochs_run": len(history["train_loss"]),
             "history": history, "best_checkpoint": best_path,

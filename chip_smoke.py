@@ -128,9 +128,11 @@ Phases, each printing its own line:
      big-lama as the fill, `train --use-blurred-mask`), the model zoo
      (the text trainer and `repair -c` with the text config, the large
      config at 2 x 1024², the eight other archs, UnetTPU's int8 tier),
-     and the data-parallel path in an NCCL world of one (the group's
+     the data-parallel path in an NCCL world of one (the group's
      train steps, `train` in the group, predict_tiled_sharded, the
-     halo-exchange conv):
+     halo-exchange conv), and the JAX package's own files (3o: the zstd
+     decoder's known answers, `repair` over BMP, Adam7 PNG and Adobe CMYK
+     JPEG copies of a PNG folder):
      unet_watermark_tpu_torch/tools/smoke_phases.py, whose docstring lists
      their checks
   4  timings with CUDA events: the main path (img/s) and its stages, each
@@ -171,8 +173,8 @@ try:  # phases 3h-3m and the helpers they share with this file
         BATCH, LAMA_SEGMENTS, PEAK_BF16_FLOPS_PER_S, PEAK_BYTES_PER_S,
         PEAK_INT8_OPS_PER_S, SIZE, auto_phase,
         check_repair, checkpoint_phase, conv_flops, conv_s8_bound,
-        conv_s8_library, cuda_ms, fill_training_phase, host_ms, host_pool,
-        int8_hooks, log, nvidia_smi_line, profile_window, profiled_ms,
+        conv_s8_library, cuda_ms, fill_training_phase, formats_phase,
+        host_ms, host_pool, int8_hooks, log, nvidia_smi_line, profile_window, profiled_ms,
         quality_phase, run_cli, segment_ms, sharded_phase, training_phase,
         zoo_phase, zoo_text_train)
 except ImportError:  # outside a checkout: main() says so and gives no result
@@ -1396,7 +1398,8 @@ def main(argv=None) -> int:
 
     # -- 1 (started): one compiler call a source, all started together;
     # the imports, phase 0 and the profiler's first session run meanwhile
-    sources = ("morph_chain.cu", "conv_s8.cu", "jpeg_entropy.c")
+    sources = ("morph_chain.cu", "conv_s8.cu", "jpeg_entropy.c",
+               "zstd_decode.c", "bmp_rle.c")
     t_build = time.perf_counter()
 
     def timed_build(source):
@@ -1418,7 +1421,8 @@ def main(argv=None) -> int:
     from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
     from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
     from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
-    from unet_watermark_tpu_torch.utils import shipping
+    from unet_watermark_tpu_torch.ops.kernels import zstd
+    from unet_watermark_tpu_torch.utils import bmp, shipping
     from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 
     dev = torch.device("cuda")
@@ -1443,7 +1447,8 @@ def main(argv=None) -> int:
     profiler_setup_s = time.perf_counter() - t0
 
     # -- 1: build ------------------------------------------------------------
-    if sources != (kc.SOURCE, k8.SOURCE, jpeg_entropy.SOURCE):
+    if sources != (kc.SOURCE, k8.SOURCE, jpeg_entropy.SOURCE, zstd.SOURCE,
+                   bmp.SOURCE):
         raise AssertionError(f"the build's sources {sources} are not the "
                              f"kernel modules'")
     built = dict(zip(sources, (f.result() for f in building)))
@@ -1772,6 +1777,8 @@ def main(argv=None) -> int:
                 # -- 3m: the model zoo -----------------------------------
                 zoo = zoo_phase(work, args.seed, dev,
                                 text_trained.result())
+            # -- 3o: the JAX package's own files: zstd, BMP, Adam7, CMYK
+            formats = formats_phase(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1902,6 +1909,7 @@ def main(argv=None) -> int:
     log("timing_quality", **quality["timing"], card=card)
     log("timing_checkpoints", **checkpoints["timing"], card=card)
     log("timing_zoo", **zoo["timing"], card=card)
+    log("timing_formats", **formats["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -1967,6 +1975,7 @@ def main(argv=None) -> int:
             **({"blurred_mask_launches": checkpoints["blurred_k1_launches"]}
                if fn is kc.morph_chain_watermark else {}),
             "zoo_launches": zoo["launches"][fn.__name__],
+            "formats_launches": formats["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

@@ -248,16 +248,28 @@ def test_host_pipeline_stops_its_threads_on_an_early_break(root, tmp_path):
 
 
 def test_unported_formats_refuse_the_folder(tmp_path):
-    """A BMP or TIFF file, which JAX's IMAGE_EXTENSIONS admits and cv2
-    reads, makes the port refuse the folder before any work (naming the
-    ROADMAP.md item), not skip the file silently."""
+    """A TIFF file, which JAX's IMAGE_EXTENSIONS admits and cv2 reads,
+    makes the port refuse the folder before any work (naming the
+    ROADMAP.md item), not skip the file silently. A BMP file decodes now:
+    its item equals the JAX dataset's."""
     for ext in (".bmp", ".tif"):
         d = tmp_path / ext[1:] / "watermarked"
         d.mkdir(parents=True)
+        rng = np.random.default_rng(len(ext))
         cv2.imwrite(str(d / "a.png"), np.zeros((8, 8, 3), np.uint8))
-        cv2.imwrite(str(d / f"b{ext}"), np.zeros((8, 8, 3), np.uint8))
-        with pytest.raises(NotImplementedError, match="§A.5"):
-            tds.WatermarkDataset([str(d)], device="cpu")
+        cv2.imwrite(str(d / f"b{ext}"),
+                    rng.integers(0, 256, (30, 21, 3), dtype=np.uint8))
+        if ext == ".tif":
+            with pytest.raises(NotImplementedError, match="§A.5"):
+                tds.WatermarkDataset([str(d)], device="cpu")
+            continue
+        t = tds.WatermarkDataset([str(d)], img_size=SIZE, device="cpu")
+        j = jds.WatermarkDataset([str(d)], img_size=SIZE)
+        assert [os.path.basename(p) for p in t.image_files] == \
+            [os.path.basename(p) for p in j.image_files]
+        for i in range(len(j)):
+            for a, b in zip(t[i], j[i]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_blurred_masks_raise():

@@ -197,11 +197,19 @@ def test_port_written_files_read_back_by_cv2(tmp_path_factory, h, w, color,
 
 
 def test_interlaced_and_malformed_files_raise(tmp_path):
-    rows = np.zeros((4, 4), np.uint8)
-    (tmp_path / "i.png").write_bytes(_raw_png(rows, 4, 8, 0, interlace=1))
-    for call in (image_io.read_rgb, image_io.check_image):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call(tmp_path / "i.png")
+    """An interlaced file decodes (as cv2 reads it); a bad CRC, a cut
+    JPEG, an Adam7 file whose data is a pass short, and a non-uint8 image
+    to encode raise."""
+    rows = np.arange(16, dtype=np.uint8).reshape(4, 4) * 9
+    (tmp_path / "i.png").write_bytes(_adam7_png(rows[..., None], 8, 0))
+    np.testing.assert_array_equal(image_io.read_rgb(tmp_path / "i.png"),
+                                  _cv2_rgb(tmp_path / "i.png"))
+    assert image_io.check_image(tmp_path / "i.png") == (4, 4)
+    short = _adam7_png(rows[..., None], 8, 0, drop_last_pass=True)
+    (tmp_path / "s.png").write_bytes(short)
+    assert cv2.imread(str(tmp_path / "s.png")) is None
+    with pytest.raises(image_io.PNGError, match="bytes, expected"):
+        image_io.read_rgb(tmp_path / "s.png")
     good = bytearray(_raw_png(rows, 4, 8, 0))
     good[-20] ^= 0xFF  # inside the IDAT chunk: its CRC no longer holds
     (tmp_path / "c.png").write_bytes(bytes(good))
@@ -214,6 +222,81 @@ def test_interlaced_and_malformed_files_raise(tmp_path):
         image_io.read_rgb(tmp_path / "j.jpg")
     with pytest.raises(ValueError, match="uint8"):
         image_io.encode_png(np.zeros((4, 4), np.float32))
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples → (h, rowbytes) packed rows, big-endian 16-bit."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, -1).view(np.uint8)
+    flat = samples.reshape(h, -1).astype(np.int64)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    flat = np.pad(flat, ((0, 0), (0, (-flat.shape[1]) % per)))
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (flat.reshape(h, -1, per) << shifts).sum(2).astype(np.uint8)
+
+
+def _adam7_png(samples, depth, ctype, palette=None, filters=(0,),
+               drop_last_pass=False) -> bytes:
+    """An interlaced PNG of (h, w, c) samples: each Adam7 pass packed and
+    filtered on its own (the types of `filters` cycled over its rows, the
+    bytes of a pixel as the filters' step), its pass-empty ones skipped."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    raw = b""
+    for x0, y0, dx, dy in ADAM7[:6 if drop_last_pass else 7]:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            rows = _pack(sub, depth)
+            n = rows.shape[1] // bpp
+            body = image_io._filter_rows(
+                np.ascontiguousarray(rows.reshape(len(rows), n, bpp)),
+                filters) if rows.shape[1] % bpp == 0 and bpp > 1 else \
+                image_io._filter_rows(np.ascontiguousarray(rows), filters)
+            raw += body
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, 1))
+    if palette is not None:
+        out += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+ADAM7_FORMS = [(0, d) for d in (1, 2, 4, 8, 16)] + [(2, 8), (2, 16)] + \
+    [(3, d) for d in (1, 2, 4, 8)] + [(4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 3), (9, 17), (16, 16)],
+                         ids=str)
+@pytest.mark.parametrize("ctype,depth", ADAM7_FORMS,
+                         ids=[f"type{c}_{d}bit" for c, d in ADAM7_FORMS])
+def test_adam7_matches_cv2(tmp_path, ctype, depth, shape):
+    """Every colour type and bit depth, interlaced, from the writer above
+    (None, Sub, Up, Average and Paeth rows inside the passes): byte-equal
+    to cv2.imread in colour, and in gray for the gray types; PIL's RGBA
+    where read_rgba_tensor reads that form. Tolerance: none."""
+    h, w = shape
+    c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    rng = np.random.default_rng(ctype * 100 + depth + h)
+    samples = rng.integers(0, 1 << depth, (h, w, c))
+    palette = rng.integers(0, 256, (1 << depth, 3)) if ctype == 3 else None
+    path = tmp_path / "a7.png"
+    path.write_bytes(_adam7_png(samples, depth, ctype, palette,
+                                filters=(0, 1, 2, 3, 4)))
+    np.testing.assert_array_equal(image_io.read_rgb(path), _cv2_rgb(path))
+    if ctype in (0, 4):
+        np.testing.assert_array_equal(
+            image_io.read_gray(path),
+            cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+    if depth != 16 and not (ctype == 0 and depth < 8):
+        np.testing.assert_array_equal(
+            image_io.read_rgba_tensor(path, "cpu").numpy(),
+            np.asarray(Image.open(path).convert("RGBA")))
 
 
 # resizes: sources and destinations up and down, odd sizes included

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import with jax, flax, optax, orbax, yaml,
+"""The port and chip_smoke.py import with jax, flax, optax, orbax,
+tensorstore, zstandard, yaml,
 PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
 nunchaku and the JAX package blocked (the GPU machine has none of them),
 every module of the port among them (ocr/, ops/imgproc.py, the training
@@ -14,9 +15,10 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ["jax", "flax", "optax", "orbax", "yaml", "PIL", "cv2",
-           "matplotlib", "tqdm", "torchvision", "requests", "easyocr",
-           "diffusers", "nunchaku", "unet_watermark_tpu"]
+BLOCKED = ["jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
+           "yaml", "PIL", "cv2", "matplotlib", "tqdm", "torchvision",
+           "requests", "easyocr", "diffusers", "nunchaku",
+           "unet_watermark_tpu"]
 # modules that must be among those imported
 MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.ocr.base",
@@ -36,6 +38,9 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.data.pipeline",
         "unet_watermark_tpu_torch.training.state",
         "unet_watermark_tpu_torch.training.checkpoint",
+        "unet_watermark_tpu_torch.training.ocdbt",
+        "unet_watermark_tpu_torch.ops.kernels.zstd",
+        "unet_watermark_tpu_torch.utils.bmp",
         "unet_watermark_tpu_torch.training.train",
         "unet_watermark_tpu_torch.utils.async_ckpt",
         "unet_watermark_tpu_torch.training.train_inpaint",

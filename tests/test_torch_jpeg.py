@@ -375,11 +375,19 @@ def test_refused_forms_raise(tmp_path, form):
             "dac": lambda: data[:2] + b"\xff\xcc\x00\x04\x00\x11"
             + data[2:],
             "12bit": lambda: _patched(data, 0xC0, precision=12),
-            # a 4-component frame: the count is checked before the
-            # component list
+            # a 4-component count over a 3-component list: four-component
+            # files decode now (test_cmyk_and_ycck_equal_cv2), this one is
+            # malformed and cv2 gives None
             "cmyk": lambda: _patched(data, 0xC0, ncomp=4)}[form]()
     path = tmp_path / f"{form}.jpg"
     path.write_bytes(body)
+    if form == "cmyk":
+        assert cv2.imread(str(path)) is None
+        for call in (image_io.read_rgb, image_io.check_image):
+            with pytest.raises(image_io.JPEGError, match="SOF length"):
+                call(path)
+        image_io.require_decodable(path)  # skipped later, not refused
+        return
     for call in (image_io.read_rgb, image_io.check_image,
                  image_io.require_decodable):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A.5"):
@@ -528,3 +536,85 @@ def test_idct_on_coefficients_out_of_range(mode, seed):
                            cv2.IMREAD_GRAYSCALE)
         got = image_io.decode_jpeg(data, "cpu", gray=True).numpy()
         np.testing.assert_array_equal(got, ref)
+
+
+# -- Adobe four-component files: CMYK (transform 0) and YCCK (2) -------------
+
+def cmyk_file(h, w, seed, sampling, prog, transform, orientation=None):
+    """A four-component JPEG: Pillow's CMYK file (its Adobe marker says
+    transform 0; Pillow stores the values inverted, as Photoshop does), with
+    its transform byte rewritten for YCCK (the same coefficients read as
+    Y Cb Cr K) or its marker renamed for no Adobe marker, and an EXIF
+    orientation spliced in."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = np.concatenate([photo(h, w, seed), rng.integers(
+        0, 256, (h, w, 1), dtype=np.uint8)], 2)
+    base[..., 3] = cv2.GaussianBlur(base[..., 3], (5, 5), 2)
+    buf = io.BytesIO()
+    Image.fromarray(base, "CMYK").save(
+        buf, "JPEG", quality=90, progressive=bool(prog),
+        subsampling={"444": 0, "420": 2}[sampling])
+    data = bytearray(buf.getvalue())
+    at = data.index(b"Adobe")
+    assert data[at + 11] == 0  # Pillow's CMYK: transform 0
+    if transform is None:
+        data[at:at + 5] = b"Xdobe"
+    else:
+        data[at + 11] = transform
+    data = bytes(data)
+    if orientation is not None:
+        data = data[:2] + exif_app1(orientation, False) + data[2:]
+    return data
+
+
+@pytest.mark.parametrize("orientation", [None, 6, 3])
+@pytest.mark.parametrize("transform", [0, 2, None],
+                         ids=["cmyk", "ycck", "no_adobe"])
+@pytest.mark.parametrize("prog", [0, 1], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("sampling", ["444", "420"])
+def test_cmyk_and_ycck_equal_cv2(tmp_path, sampling, prog, transform,
+                                 orientation):
+    """CMYK and YCCK at 4:4:4 and 4:2:0 (the first component 2x2),
+    baseline and progressive, with and without an EXIF orientation:
+    read_rgb, read_gray and check_image byte-equal to cv2.imread (libjpeg's
+    CMYK output and cv2's own CMYK -> BGR and -> gray), read_rgba_tensor
+    byte-equal to PIL's convert("RGBA"); the C entropy decoder's
+    coefficients equal to the Python decoder's. Tolerance: none."""
+    from PIL import Image
+
+    data = cmyk_file(29, 43, 5, sampling, prog, transform, orientation)
+    path = tmp_path / "c.jpg"
+    path.write_bytes(data)
+    header = jpeg.parse(data)
+    assert header.color == ("ycck" if transform == 2 else "cmyk")
+    assert_reads_equal_cv2(path)
+    np.testing.assert_array_equal(
+        image_io.read_rgba_tensor(path, "cpu").numpy(),
+        np.asarray(Image.open(path).convert("RGBA")))
+    if shutil.which("cc") is not None:
+        plain = jpeg.decode_scans(header, data)
+        for a, b in zip(plain, jpeg_entropy.decode_scans_c(
+                jpeg.parse(data), data)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cmyk_phase_writer_reads_as_cv2(tmp_path):
+    """chip_smoke's phase 3o writes its Adobe CMYK file with the port's
+    four-component Huffman coder (jpeg_entropy.c): cv2 reads it as the
+    port does, and with K at 255 it gives back the image it was made
+    from within the JPEG loss."""
+    if shutil.which("cc") is None:
+        pytest.skip("needs a host C compiler (cc) to build the encoder")
+    from unet_watermark_tpu_torch.tools import smoke_phases as sp
+
+    img = photo(40, 56, 2)
+    data = sp.cmyk_jpeg(np.concatenate([img, np.full_like(img[..., :1],
+                                                          255)], 2))
+    path = tmp_path / "w.jpg"
+    path.write_bytes(data)
+    assert_reads_equal_cv2(path)
+    assert np.abs(image_io.read_rgb(path).astype(int) - img).mean() < 4

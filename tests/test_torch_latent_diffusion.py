@@ -37,7 +37,6 @@ from unet_watermark_tpu_torch.inference import engines
 from unet_watermark_tpu_torch.models.convert import (ld_torch_name,
                                                      load_flax_weights)
 from unet_watermark_tpu_torch.training import train_latent_diffusion as tld
-from unet_watermark_tpu_torch.training.checkpoint import read_weights
 from unet_watermark_tpu_torch.utils import shipping
 from unet_watermark_tpu_torch.utils.image_io import write_png
 from unet_watermark_tpu_torch.utils.shipping import WEIGHTS_DIR, load_npz
@@ -388,7 +387,7 @@ def test_trainer_writes_what_both_packages_load(tmp_path, monkeypatch):
                      "--ae-steps", "2", "--dn-steps", "2",
                      "--device", "cpu"]) == 0
     assert (out / "tree.npz").exists()
-    flat = read_weights(str(out))
+    flat = shipping.load_variables(str(out))
     assert len(flat) == 112
     npz = tmp_path / "ship" / "latent_diffusion.npz"
     assert tld.ship_weights(flat, str(npz)) == str(npz)

@@ -122,17 +122,24 @@ def test_batch_process_equals_jax(files, detectors, tmp_path):
 
 def test_batch_process_rejects_undecoded_types_first(files, detectors,
                                                       tmp_path):
-    """A folder holding a BMP file raises before any mask is written, as
-    process_folder_batch does."""
-    _, td = detectors
+    """A folder holding a TIFF file raises before any mask is written, as
+    process_folder_batch does. A BMP file is read now: its text mask
+    equals the JAX detector's on the same file."""
+    jd, td = detectors
     src = tmp_path / "src"
     src.mkdir()
     for p in files[:2]:
         (src / p.name).write_bytes(p.read_bytes())
-    (src / "zz.bmp").write_bytes(b"BM\x36\x00\x00\x00")
+    (src / "zz.tif").write_bytes(b"II*\x00\x08\x00\x00\x00")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         td.batch_process(str(src), str(tmp_path / "out"))
     assert not any((tmp_path / "out").iterdir())
+    bmp = tmp_path / "glyphs.bmp"
+    cv2.imwrite(str(bmp), cv2.imread(str(files[3])))
+    np.testing.assert_array_equal(td.generate_text_mask(str(bmp)),
+                                  jd.generate_text_mask(str(bmp)))
+    assert td.detect_text_regions(str(bmp)) == jd.detect_text_regions(
+        str(bmp))
 
 
 def _no_entropy_decode(*args, **kwargs):

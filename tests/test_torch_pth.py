@@ -237,7 +237,7 @@ def test_train_best_save_writes_a_pth_jax_reads(tmp_path):
     """train()'s best save writes the reference's .pth at MODEL_SAVE_PATH
     (beside the shipped-format .npz); JAX imports it completely and its
     arrays are the best checkpoint's."""
-    from unet_watermark_tpu_torch.training.checkpoint import read_weights
+    from unet_watermark_tpu_torch.utils.shipping import load_variables
 
     data = tmp_path / "data"
     write_training_folder(data, 8, 64, seed=2, masks=4)
@@ -257,7 +257,7 @@ def test_train_best_save_writes_a_pth_jax_reads(tmp_path):
     imported, report = jti.import_pth(cfg.TRAIN.MODEL_SAVE_PATH,
                                       jax_init_model(jmodel, 64))
     assert report["missing"] == [] and report["unused"] == []
-    best = read_weights(result["best_checkpoint"])
+    best = load_variables(result["best_checkpoint"])
     got = jship.flatten_tree({"params": imported["params"],
                               "batch_stats": imported["batch_stats"]})
     assert sorted(got) == sorted(best)

@@ -11,8 +11,7 @@ among them), and the --no-unet route with OCR on JPEGs, whose step 3 reads
 JPEG bytes copied under .png names."""
 import json
 import os
-import struct
-import zlib
+import shutil
 from pathlib import Path
 
 import cv2
@@ -583,28 +582,78 @@ def test_predict_mask_matches_jax(preds, folder, mask_type):
 WEBP_HEAD = b"RIFF\x24\x00\x00\x00WEBPVP8 "
 
 
-def _interlaced_png(path: Path) -> None:
-    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)
-    chunk = (struct.pack(">I", 13) + b"IHDR" + ihdr
-             + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr)))
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk)
+# the first bytes of a TIFF file (little-endian)
+TIFF_HEAD = b"II*\x00\x08\x00\x00\x00"
 
 
 @pytest.mark.parametrize("bad", ["photo.webp", "interlaced.png"])
 def test_undecodable_files_raise_before_any_work(preds, folder, tmp_path,
                                                  bad):
+    """A WEBP file, and a TIFF file under a .png name (interlaced PNGs
+    decode now: the content decides, as in cv2), refuse the folder."""
     _, pred = preds
     d = tmp_path / "in"
     _write_folder(d, FOLDER[:1])
-    if bad.endswith(".webp"):
-        (d / bad).write_bytes(WEBP_HEAD)
-    else:
-        _interlaced_png(d / bad)
+    (d / bad).write_bytes(WEBP_HEAD if bad.endswith(".webp") else TIFF_HEAD)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pred.process_folder_batch(str(d), str(tmp_path / "out"),
                                   use_ocr=False)
     assert not (tmp_path / "out" / "step1_masks").exists() or \
         not os.listdir(tmp_path / "out" / "step1_masks")
+
+
+def test_bmp_adam7_and_cmyk_folders_repair_as_png(preds, tmp_path):
+    """The same pixels as a 24-bit BMP, an RLE8 BMP, a 32-bit BI_BITFIELDS
+    top-down V5 BMP, an Adam7 PNG and an Adobe CMYK JPEG (chip_smoke's
+    phase 3o writers), and as PNGs (the CMYK file's decoded pixels): the
+    port's repair writes every mask and image the PNG folder gets, byte
+    for byte, but where it copies an input below the repair threshold (a
+    copy of that input, decoding to the same pixels)."""
+    if shutil.which("cc") is None:
+        pytest.skip("needs a host C compiler (cc) for the JPEG writer")
+    from unet_watermark_tpu_torch.tools import smoke_phases as sp
+    from unet_watermark_tpu_torch.utils import image_io
+
+    _, pred = preds
+    forms = ["24", "rle8", "32td", "adam7", "cmyk"]
+    imgs = sp.format_images(len(forms), 64, 64, seed=3, clean=1)
+    imgs[1] = sp.to_palette(imgs[1])
+    png, mixed = tmp_path / "png", tmp_path / "mixed"
+    png.mkdir()
+    mixed.mkdir()
+    for i, (img, form) in enumerate(zip(imgs, forms)):
+        stem = f"f{i}"
+        if form == "cmyk":
+            (mixed / f"{stem}.jpg").write_bytes(sp.cmyk_jpeg(np.concatenate(
+                [img, np.full_like(img[..., :1], 255)], 2)))
+            img = image_io.read_rgb(mixed / f"{stem}.jpg")
+        elif form == "adam7":
+            (mixed / f"{stem}.png").write_bytes(sp.adam7_png(img))
+        else:
+            (mixed / f"{stem}.bmp").write_bytes(sp.bmp_bytes(img, form))
+        image_io.write_png(png / f"{stem}.png", img)
+        np.testing.assert_array_equal(
+            image_io.read_rgb(next(mixed.glob(f"{stem}.*"))), img)
+    outs = {}
+    for name, d in (("png", png), ("mixed", mixed)):
+        outs[name] = tmp_path / f"out_{name}"
+        stats = pred.process_folder_batch(str(d), str(outs[name]),
+                                          watermark_model="telea",
+                                          use_ocr=False, steps=3)
+        assert stats["status"] == "success"
+    files = {k: sorted(str(p.relative_to(o)) for p in o.rglob("*.png"))
+             for k, o in outs.items()}
+    assert files["png"] == files["mixed"] and files["png"]
+    inputs = {p.stem: p for p in mixed.iterdir()}
+    for rel in files["png"]:
+        a = (outs["png"] / rel).read_bytes()
+        b = (outs["mixed"] / rel).read_bytes()
+        if a != b:  # the pipeline copied its input
+            src = inputs[Path(rel).name.split(".")[0].split("_")[0]]
+            assert b == src.read_bytes(), rel
+            np.testing.assert_array_equal(
+                image_io.read_rgb(outs["png"] / rel),
+                image_io.read_rgb(outs["mixed"] / rel))
 
 
 def _repair_args(folder, out):

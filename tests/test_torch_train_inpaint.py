@@ -543,17 +543,56 @@ def test_jax_npz_resumes_in_the_port():
 
 
 def test_orbax_directories_raise_naming_a7(tmp_path):
-    """What JAX's train_inpaint writes at `output` (an orbax directory)
-    and JAX's training checkpoints (a tree/ folder) raise in the port's
-    loader and as --resume-from, naming ROADMAP.md §A.7."""
+    """What JAX's train_inpaint writes at `output` ({"params",
+    "batch_stats"} saved by orbax's StandardCheckpointer, written here
+    with orbax from a seeded generator) loads in the port's loader and as
+    --resume-from, its weights those JAX's load_variables restores and
+    its fill JAX's generator's with them; a
+    directory that is neither a port checkpoint nor an orbax store (an
+    empty tree/ folder, an orbax metadata file alone) still raises."""
+    import orbax.checkpoint as ocp
+
+    from unet_watermark_tpu.utils.shipping import load_variables
+    from unet_watermark_tpu_torch.models.factory import init_model
+
+    model = init_model(lama.create_lama("lama", torch.float32), 7)
+    flat = module_to_flax(model, lama_flax_path)
+    tree = _tree(flat)
+    out = tmp_path / "lama_out"
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(out, tree)
+    ckptr.wait_until_finished()
+    want = {k: np.asarray(v) for k, v in flatten_tree(
+        load_variables(str(out), tree)).items()}
+    loaded, name = engines.load_lama(str(out), device="cpu",
+                                     dtype=torch.float32)
+    trainer = ti.build_trainer(resume_from=str(out), device="cpu")
+    assert name == "lama"
+    for got in (module_to_flax(loaded, lama_flax_path), trainer.weights()):
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    # the fill: JAX's generator with the variables JAX's loader restored
+    # against the loaded port model, float32, 1 x 32²; atol 1e-4
+    # (tests/test_torch_lama.py's), observed 2.4e-7
+    img = _images(4, n=1, s=32)
+    mask = (np.random.default_rng(5).random((1, 32, 32, 1)) > 0.7).astype(
+        np.float32)
+    jmodel = jlama.create_lama("lama", dtype=jnp.float32)
+    jvars = load_variables(str(out), tree)
+    ref = np.asarray(jax.jit(lambda v, a, b: jmodel.apply(
+        v, a, b, train=False))(jvars, img, mask))
+    with torch.inference_mode():
+        fill = loaded(torch.from_numpy(img), torch.from_numpy(mask))
+    np.testing.assert_allclose(fill.numpy(), ref, rtol=0, atol=1e-4)
     for d in (tmp_path / "orbax", tmp_path / "ck"):
         d.mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
     (tmp_path / "ck" / "tree").mkdir()
     for d in (tmp_path / "orbax", tmp_path / "ck"):
-        with pytest.raises(NotImplementedError, match="§A.7"):
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
             engines.load_lama(d, device="cpu")
-        with pytest.raises(NotImplementedError, match="§A.7"):
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
             ti.build_trainer(resume_from=str(d), device="cpu")
 
 

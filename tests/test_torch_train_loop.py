@@ -210,11 +210,70 @@ def test_checkpoint_round_trip_and_slim_restore(tmp_path):
 
 
 def test_orbax_checkpoint_raises(tmp_path):
+    """A directory that is neither the port's checkpoint nor an orbax
+    store (an empty tree/ folder) raises; JAX's orbax checkpoints resume
+    (test_resume_from_a_jax_checkpoint_matches_jax)."""
     (tmp_path / "ck" / "tree").mkdir(parents=True)
     cfg, _ = _cfgs()
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         tck.restore_checkpoint(str(tmp_path / "ck"),
                                ttrain.create_train_state(cfg, device="cpu"))
+
+
+def test_resume_from_a_jax_checkpoint_matches_jax(folder, tmp_path,
+                                                  monkeypatch):
+    """JAX's train() runs 1 epoch and writes its orbax checkpoint
+    (tree/ and meta.json); then each package resumes from that directory
+    for 2 more epochs (TRAIN.EPOCHS 3): the histories, the learning rate
+    and the final parameters agree at test_two_epochs_match_jax's
+    tolerances. SGD with gradient clipping on: the momentum comes back
+    from opt_state/1/inner_state/1/trace, the injected learning rate from
+    opt_state/1/hyperparams/learning_rate (the Adam and AdamW mappings
+    are held array for array in tests/test_torch_orbax.py)."""
+    cfg, _ = _cfgs(tmp_path / "port")
+    _, jcfg = _cfgs(tmp_path / "jax")
+    for c in (cfg, jcfg):
+        c.DATA.ROOT_DIR = str(folder)
+        c.DATA.DEVICE_CACHE = False
+        c.TRAIN.LOG_INTERVAL = 0
+        c.OPTIMIZER.NAME = "SGD"
+        c.TRAIN.GRADIENT_CLIP = 1.0
+        c.TRAIN.LR = 1e-3
+        c.TRAIN.SAVE_BEST_ONLY = False
+        c.TRAIN.SAVE_INTERVAL = 1
+    cfg.DATA.CACHE_DIR = str(tmp_path / "port" / "cache")
+    jcfg.DATA.CACHE_DIR = str(tmp_path / "jax" / "cache")
+    jcfg.TRAIN.EPOCH_SCAN = False
+    monkeypatch.setitem(jaug.POLICIES, "transparent_watermark",
+                        jaug.AugmentPolicy(**ZERO))
+    monkeypatch.setitem(taug.POLICIES, "transparent_watermark",
+                        taug.AugmentPolicy(**ZERO))
+    monkeypatch.setattr(jtrain, "mesh_from_config", _one_device_mesh)
+    jit_init = jax.jit(jax_init_model, static_argnums=(0, 1, 2))
+    monkeypatch.setattr(jtrain, "init_model",
+                        lambda model, size, seed=0: jit_init(model, size,
+                                                             seed))
+    jcfg.TRAIN.EPOCHS = 1
+    jtrain.train(jcfg)
+    ckpt = jtrain.latest_checkpoint(jcfg.TRAIN.CHECKPOINT_DIR)
+    assert os.path.isdir(os.path.join(ckpt, "tree"))
+    jcfg.TRAIN.EPOCHS = cfg.TRAIN.EPOCHS = 3
+    tres = ttrain.train(cfg, resume_from=ckpt, device="cpu")
+    jres = jtrain.train(jcfg, resume_from=ckpt)
+    jh, th = jres["history"], tres["history"]
+    assert tres["epochs_run"] == jres["epochs_run"] == 3
+    assert len(th["train_loss"]) == len(jh["train_loss"]) == 3
+    assert th["lr"] == jh["lr"]
+    for k in ("train_loss", "val_loss"):
+        np.testing.assert_allclose(th[k], jh[k], rtol=2e-5, err_msg=k)
+    for k in ("val_iou", "val_f1", "val_accuracy"):
+        np.testing.assert_allclose(th[k], jh[k], rtol=2e-3, err_msg=k)
+    want = _flat({"params": jres["state"].params,
+                  "batch_stats": jres["state"].batch_stats})
+    got = to_flax(tres["state"].model)
+    for key in want:
+        scale = max(np.abs(want[key]).max(), 1e-3)
+        assert np.abs(got[key] - want[key]).max() <= 5e-3 * scale, key
 
 
 def test_resume_continues_the_epoch_count(folder, tmp_path):

@@ -11,7 +11,7 @@ threshold at 127; it equals cv2's bytes (on a 0/255 mask that blur moves
 no pixel across 127: the centre weight alone is 0.62 of the sum, all the
 others 0.38). It is cached as a PNG in mask_dirs[0], as in the JAX
 package. A file cv2 cannot read is skipped; a folder with a file in a
-format the port does not decode yet (BMP, TIFF, WEBP) is refused before
+format the port does not decode yet (TIFF, WEBP) is refused before
 any work (image_io.require_decodable).
 
 With use_blurred_mask the thresholded difference takes the JAX package's

@@ -28,9 +28,8 @@ from torch import nn
 from ..inference.tiled import pad_to_multiple
 from ..models.convert import ld_flax_path, ld_torch_name, load_flax_weights
 from ..models.convert import module_to_flax
-from ..training.checkpoint import read_weights
 from ..utils.device import compute_autocast, resolve_device
-from ..utils.shipping import resolve
+from ..utils.shipping import load_variables, resolve
 
 logger = logging.getLogger(__name__)
 
@@ -288,7 +287,7 @@ class LatentInpainter:
         self.dtype = dtype
         with torch.device("meta"):  # shapes only: the weights replace them
             ae, denoiser = TinyAutoencoder(), LatentDenoiser()
-        load_ld_weights(ae, denoiser, read_weights(path))
+        load_ld_weights(ae, denoiser, load_variables(path))
         self.ae = ae.eval().to(self.device)
         self.denoiser = denoiser.eval().to(self.device)
         if self.device.type == "cuda":

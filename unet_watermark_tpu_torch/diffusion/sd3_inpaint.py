@@ -18,7 +18,7 @@ ops/components.py (equal masks): gray, 3x3 elliptic MORPH_GRADIENT, Otsu,
 and aspect guards and the max_mask_ratio clear. Files are read and written
 through utils/image_io.py (PNG, and JPEG at quality 95, by extension);
 process_folder refuses a folder holding a file the port cannot decode yet
-(.webp among them, ROADMAP.md §A.7) before it writes anything.
+(.webp among them, ROADMAP.md §A.5) before it writes anything.
 """
 from __future__ import annotations
 

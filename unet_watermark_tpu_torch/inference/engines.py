@@ -30,8 +30,7 @@ from ..models.lama import LamaGenerator, create_lama
 from ..models.lama_import import load_big_lama
 from ..ops.inpaint import inpaint_pushpull
 from ..utils.device import resolve_device
-from ..training.checkpoint import read_weights
-from ..utils.shipping import resolve
+from ..utils.shipping import load_variables, resolve
 
 logger = logging.getLogger(__name__)
 
@@ -41,8 +40,9 @@ Engine = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 def load_lama(path, variant: str = "lama", device="cuda",
               dtype: torch.dtype = torch.bfloat16
               ) -> Tuple[Optional[LamaGenerator], Optional[str]]:
-    """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping, or a
-    port checkpoint directory: training/checkpoint.read_weights) into
+    """Load a FFC-LaMa checkpoint (the bf16 .npz of utils/shipping, a
+    checkpoint directory of either package or the JAX package's bare orbax
+    directory of train_inpaint: utils/shipping.load_variables) into
     whichever variant's parameters it matches: the requested depth first,
     then 'lama', then 'big-lama' (a checkpoint trained as one variant
     serves the other engine names too). Returns (model in eval mode on
@@ -67,7 +67,7 @@ def load_lama(path, variant: str = "lama", device="cuda",
             return None, None
         logger.info("imported big-lama torch checkpoint %s", path)
         return model, "big-lama-torch"
-    flat = read_weights(path)  # an orbax directory raises (§A.7)
+    flat = load_variables(path)
     for cand in dict.fromkeys((variant, "lama", "big-lama")):
         with torch.device("meta"):  # shapes only: the weights replace them
             model = create_lama(cand, torch.float32)

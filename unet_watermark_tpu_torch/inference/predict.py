@@ -34,11 +34,12 @@ the device. With PREDICT.QUANT every forward (step 1, predict_mask, the
 tiled path, the fused fn) runs the int8 tier (ops/quant.py) through
 _apply_model, with the sidecar next to the weights; without one it warns
 and stays in the model dtype, as the JAX package does. The
-port decodes PNG and JPEG (utils/image_io.py), each file by its content as
-cv2 does (a JPEG copied to {stem}.png by the --no-unet route or a fallback
-is read as the JPEG it is): a folder holding BMP, TIFF or WEBP files, an
-interlaced PNG or a refused JPEG form raises NotImplementedError before any
-work starts.
+port decodes PNG (interlaced too), JPEG (CMYK and YCCK too) and BMP
+(utils/image_io.py), each file by its content as cv2 does (a JPEG copied
+to {stem}.png by the --no-unet route or a fallback is read as the JPEG it
+is): a folder holding TIFF or WEBP files or a refused JPEG form
+(arithmetic-coded, 12-bit, lossless, hierarchical) raises
+NotImplementedError before any work starts.
 
 make_fused_repair_fn is the fused detect→repair path (:931-985), whose
 fill is the learned FFC-LaMa generator by default; predict_artifact_masks
@@ -74,8 +75,7 @@ from ..ops.inpaint import inpaint_pushpull
 from ..ops.resize import resize_linear_f32, resize_linear_u8, resize_nearest
 from ..utils import image_io
 from ..utils.device import resolve_device
-from ..training.checkpoint import read_weights
-from ..utils.shipping import resolve
+from ..utils.shipping import load_variables, resolve
 from . import engines, maskproc
 from .tiled import pad_to_multiple, predict_tiled
 
@@ -155,8 +155,9 @@ def _decode_part(name: str):
 
 class WatermarkPredictor:
     """Holds the segmentation model on `device` with the shipped (or given)
-    weights: a shipped-format .npz, a port checkpoint directory
-    (training/checkpoint.read_weights; an orbax directory raises) or a
+    weights: a shipped-format .npz, a checkpoint directory of either
+    package (utils/shipping.load_variables: the port's tree.npz, or the
+    JAX package's orbax tree/ folder) or a
     reference .pth (_load_pth; an smp-layout UNet++ is detected). A
     float32 model on the card follows the process's TF32 settings
     (`torch.backends.cudnn.allow_tf32`, default on); the caller
@@ -187,7 +188,7 @@ class WatermarkPredictor:
                 # tensor (load_flax_weights raises otherwise)
                 with torch.device("meta"):
                     model = create_model_from_config(self.cfg)
-                self.n_weights = load_flax_weights(model, read_weights(path))
+                self.n_weights = load_flax_weights(model, load_variables(path))
             model = model.eval().to(self.device, self.dtype)
             if self.device.type == "cuda":
                 model = model.to(memory_format=torch.channels_last)

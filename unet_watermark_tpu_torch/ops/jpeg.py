@@ -26,7 +26,17 @@ of an image's blocks at once.
                      (SCALEBITS 16, ONE_HALF rounding), RGB and gray
                      copies; a colour file read as gray is its Y plane
                      (JCS_GRAYSCALE output), an RGB one read as gray goes
-                     through rgb_gray_convert's weights
+                     through rgb_gray_convert's weights. A four-component
+                     file comes out of libjpeg as CMYK (cv2 asks for
+                     JCS_CMYK): CMYK as stored, YCCK through
+                     ycck_cmyk_convert (the YCbCr -> RGB tables on its
+                     first three components, inverted; K as stored); then
+                     cv2's icvCvt_CMYK2BGR_8u_C4C3R (c' = k - ((255 - c) *
+                     k >> 8), R G B = c' m' y') or, read as gray,
+                     icvCvt_CMYK2Gray_8u_C4C1R (its BGR -> gray weights
+                     1868, 9617, 4899 over 2^14, rounded, on c' m' y');
+                     PIL's reading (pil=True) instead takes the values
+                     inverted and converts with its cmyk2rgb
   orientation        EXIF 2-8 as cv2's ExifTransform applies them
 
 decode(header, coefs, gray) takes utils/jpeg.parse's header and the
@@ -362,11 +372,42 @@ def orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
     return img.flip(dims) if dims else img.contiguous()
 
 
+def ycck_to_cmyk(y, cb, cr, k) -> List[torch.Tensor]:
+    """jdcolor.c ycck_cmyk_convert on int32 planes: the inverted RGB of
+    the first three components, K as it is."""
+    rgb = ycc_to_rgb(y, cb, cr).to(torch.int32)
+    return [255 - rgb[..., 0], 255 - rgb[..., 1], 255 - rgb[..., 2], k]
+
+
+def cmyk_to_rgb(c, m, y, k, gray: bool = False) -> torch.Tensor:
+    """cv2's icvCvt_CMYK2BGR_8u_C4C3R as RGB (H, W, 3) uint8, or with gray
+    icvCvt_CMYK2Gray_8u_C4C1R (H, W), on int32 planes."""
+    c, m, y = (k - (((255 - v) * k) >> 8) for v in (c, m, y))
+    if gray:
+        return ((y * 1868 + m * 9617 + c * 4899 + (1 << 13)) >> 14
+                ).to(torch.uint8)
+    return torch.stack([c, m, y], dim=-1).to(torch.uint8)
+
+
+def pil_cmyk_to_rgb(c, m, y, k) -> torch.Tensor:
+    """Pillow's cmyk2rgb (Convert.c): nk = 255 - k, each channel
+    nk - MULDIV255(v, nk), on int32 planes → (H, W, 3) uint8."""
+    nk = 255 - k
+
+    def muldiv255(a):
+        t = a * nk + 128
+        return ((t >> 8) + t) >> 8
+
+    return torch.stack([(nk - muldiv255(v)).clamp(0, 255) for v in (c, m, y)],
+                       dim=-1).to(torch.uint8)
+
+
 def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False,
-           exif: bool = True) -> torch.Tensor:
+           exif: bool = True, pil: bool = False) -> torch.Tensor:
     """The image as cv2.imread gives it (RGB): (H, W, 3) uint8, or (H, W)
     with gray=True, on the coefficients' device, oriented (exif=False: as
-    stored, as PIL's Image.open gives it)."""
+    stored, as PIL's Image.open gives it). pil=True converts a CMYK or
+    YCCK file as PIL's convert("RGB") does."""
     comps = header.components
     h, w = header.height, header.width
     needed = [0] if gray and header.color == "ycc" else range(len(comps))
@@ -380,6 +421,14 @@ def decode(header, coefs: Sequence[torch.Tensor], gray: bool = False,
     elif header.color == "ycc":
         img = planes[0].to(torch.uint8) if gray else \
             ycc_to_rgb(planes[0], planes[1], planes[2])
+    elif header.color in ("cmyk", "ycck"):
+        cmyk = [planes[i] for i in range(4)]
+        if header.color == "ycck":
+            cmyk = ycck_to_cmyk(*cmyk)
+        if pil:  # PIL reads the values inverted ("CMYK;I"), Adobe or not
+            img = pil_cmyk_to_rgb(*[255 - v for v in cmyk])
+        else:
+            img = cmyk_to_rgb(*cmyk, gray=gray)
     else:  # RGB
         img = rgb_to_gray(planes[0], planes[1], planes[2]) if gray else \
             torch.stack([planes[i] for i in range(3)],

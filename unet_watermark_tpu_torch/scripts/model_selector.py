@@ -2,11 +2,11 @@
 JAX package): every checkpoint scores the same sampled images, and the one
 with the highest detection rate wins.
 
-The checkpoints are the port's training directories (tree.npz and
-meta.json, training/checkpoint.py) and .pth files (models/torch_import.py:
-the config's model, drawn by init_model, takes the file's tensors by name
-and shape, as JAX's selector imports them; an orbax directory raises,
-ROADMAP.md §A.7). Checkpoints of one architecture are evaluated in one
+The checkpoints are the training directories of either package (meta.json
+beside the port's tree.npz or the JAX package's orbax tree/ folder,
+training/checkpoint.py) and .pth files (models/torch_import.py: the
+config's model, drawn by init_model, takes the file's tensors by name and
+shape, as JAX's selector imports them). Checkpoints of one architecture are evaluated in one
 forward on `device`: their parameters and buffers are stacked on a leading
 axis and
 the model runs under torch.func.vmap of torch.func.functional_call, in eval
@@ -38,9 +38,9 @@ from ..models.torch_import import import_pth
 from ..ops import components
 from ..ops.augment import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.resize import resize_linear_f32, resize_linear_u8
-from ..training.checkpoint import read_weights
 from ..utils import image_io
 from ..utils.device import resolve_device
+from ..utils.shipping import load_variables
 
 logger = logging.getLogger(__name__)
 
@@ -120,7 +120,7 @@ class ModelSelector:
         else:
             with torch.device("meta"):
                 model = create_model_from_config(self.cfg)
-            load_flax_weights(model, read_weights(path))
+            load_flax_weights(model, load_variables(path))
         return model.eval().to(self.device, torch_dtype(self.cfg.MODEL.DTYPE))
 
     @staticmethod

@@ -10,8 +10,23 @@ per checkpoint with
 
 A best-model save is slim (no optimizer state), as in the JAX package;
 restoring one, or a checkpoint of another optimizer, keeps the parameters
-and statistics with a fresh optimizer state. The JAX package writes orbax
-directories (a tree/ folder), which the port cannot read yet.
+and statistics with a fresh optimizer state (with a warning, as JAX's
+fallback gives one).
+
+The port writes tree.npz where the JAX package writes orbax; it reads
+both. Beside its own directories it reads the JAX package's: a checkpoint
+directory holding the orbax tree in tree/ (and meta.json beside it), and
+a bare orbax directory (train_inpaint's and train_latent_diffusion's
+outputs), through training/ocdbt.py. Their leaves come out under the
+port's flat names, "/".join(key path): params/<flax path>,
+batch_stats/<flax path>, step, and the optax state as it is nested
+(opt_state/1/inner_state/1/mu/<path> and so on). restore_checkpoint maps
+that optax state onto the port's Optimizer for each OPTIMIZER.NAME the
+JAX package builds (its make_optimizer): the injected state is
+opt_state/1 with TRAIN.GRADIENT_CLIP > 0 (the clip chained in front) and
+opt_state itself without; inside it, Adam's moments and count are
+inner_state/1, AdamW's inner_state/0, SGD's trace inner_state/1, and the
+injected learning rate is hyperparams/learning_rate.
 """
 from __future__ import annotations
 
@@ -25,7 +40,7 @@ import numpy as np
 import torch
 
 from ..models.convert import flax_name
-from ..utils.shipping import load_npz
+from .ocdbt import is_orbax_dir, read_pytree
 
 logger = logging.getLogger(__name__)
 
@@ -82,56 +97,71 @@ def save_checkpoint(directory: str, name: str, state, meta: Dict[str, Any]
     return path
 
 
-def _require_port_checkpoint(path: str) -> str:
-    """The tree.npz of the port's checkpoint directory `path`. A directory
-    without one is taken for an orbax checkpoint of the JAX package (its
-    training checkpoints hold a tree/ folder, train_inpaint's and
-    train_latent_diffusion's the orbax files themselves) and raises."""
-    tree = os.path.join(path, "tree.npz")
-    if not os.path.exists(tree):
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path}: an orbax checkpoint of the JAX package; the port "
-                f"reads its own tree.npz checkpoints and shipped .npz "
-                f"weights only (ROADMAP.md §A.7)")
-        raise FileNotFoundError(f"no checkpoint at {path}")
-    return tree
+def _read_meta(path: str) -> Dict[str, Any]:
+    meta_path = os.path.join(path, "meta.json")
+    if not os.path.exists(meta_path):
+        return {}
+    with open(meta_path) as f:
+        return json.load(f)
+
+
+def _restore(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any],
+                                 bool]:
+    """(tree, meta, whether the tree came from orbax) of a checkpoint
+    directory of either package. A directory that is neither raises
+    FileNotFoundError."""
+    path = _abspath(path)
+    tree_npz = os.path.join(path, "tree.npz")
+    if os.path.exists(tree_npz):
+        with np.load(tree_npz) as data:
+            tree = {k: data[k] for k in data.files}
+        return tree, _read_meta(path), False
+    orbax_tree = os.path.join(path, "tree")
+    if is_orbax_dir(orbax_tree):
+        return read_pytree(orbax_tree), _read_meta(path), True
+    if is_orbax_dir(path):
+        return read_pytree(path), _read_meta(path), True
+    raise FileNotFoundError(
+        f"no checkpoint at {path}: neither the port's tree.npz nor an "
+        f"orbax tree (a tree/ folder, or _METADATA and manifest.ocdbt)")
 
 
 def restore_raw(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-    """(tree, meta) of a checkpoint, without a model."""
-    path = _abspath(path)
-    with np.load(_require_port_checkpoint(path)) as data:
-        tree = {k: data[k] for k in data.files}
-    meta = {}
-    meta_path = os.path.join(path, "meta.json")
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
+    """(tree, meta) of a checkpoint, without a model: the port's tree.npz
+    directory, a JAX checkpoint directory (tree/ and meta.json) or a bare
+    orbax directory."""
+    tree, meta, _ = _restore(path)
     return tree, meta
 
 
-def read_weights(path: str) -> Dict[str, np.ndarray]:
-    """Flat flax weights from a shipped-format .npz or from the tree.npz
-    of a port checkpoint directory (its params/ and batch_stats/ entries
-    where it has them, else every array but the step). An orbax directory
-    raises naming ROADMAP.md §A.7."""
-    if not os.path.isdir(path):
-        return load_npz(path)
-    tree, _ = restore_raw(path)
-    weights = {k: v for k, v in tree.items()
-               if k.startswith(("params/", "batch_stats/"))}
-    return weights or {k: v for k, v in tree.items()
-                       if k != "step" and not k.startswith("opt_state/")}
+def _port_opt_keys(tree: Dict[str, np.ndarray], opt
+                   ) -> Dict[str, np.ndarray]:
+    """An orbax tree's optax state under the port's names for `opt`
+    (opt_state/count, opt_state/{mu,nu,trace}/<path>,
+    opt_state/learning_rate); where the tree holds no state of this
+    optimizer and clip setting, none."""
+    base = "opt_state/1" if opt.clip > 0 else "opt_state"
+    inner = f"{base}/inner_state/{0 if opt.name == 'adamw' else 1}/"
+    out = {k: v for k, v in tree.items() if not k.startswith("opt_state/")}
+    for k, v in tree.items():
+        if k.startswith(inner):
+            out["opt_state/" + k[len(inner):]] = v
+    lr = tree.get(f"{base}/hyperparams/learning_rate")
+    if lr is not None:
+        out["opt_state/learning_rate"] = lr
+    return out
 
 
 @torch.no_grad()
 def restore_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
-    """Load a checkpoint into `state` in place; returns (state, meta). The
-    optimizer state comes back where the checkpoint has one for this
-    optimizer, else it starts fresh (with a warning)."""
-    tree, meta = restore_raw(path)
+    """Load a checkpoint of either package into `state` in place; returns
+    (state, meta). The optimizer state comes back where the checkpoint has
+    one for this optimizer (and, from orbax, this clip setting), else it
+    starts fresh (with a warning)."""
+    tree, meta, orbax = _restore(path)
     model, opt = state.model, state.opt
+    if orbax:
+        tree = _port_opt_keys(tree, opt)
     sd = model.state_dict()
     for name, t in sd.items():
         if name.endswith("num_batches_tracked"):
@@ -145,12 +175,14 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
     kinds = opt.state_tensors()
     keys = {kind: [f"opt_state/{kind}/" + flax_name(n)[len("params/"):]
                    for n in names] for kind in kinds}
-    if "opt_state/count" in tree and all(
-            k in tree for ks in keys.values() for k in ks):
-        opt.count.fill_(int(tree["opt_state/count"]))
+    has_count = "opt_state/count" in tree or opt.name == "sgd"
+    if has_count and all(k in tree for ks in keys.values() for k in ks):
+        opt.count.fill_(int(tree.get("opt_state/count", 0)))
         for kind, tensors in kinds.items():
             for key, t in zip(keys[kind], tensors):
                 t.copy_(_torch(tree[key], t))
+        if "opt_state/learning_rate" in tree:
+            opt.lr.fill_(float(tree["opt_state/learning_rate"]))
     else:
         logger.warning("%s holds no %s optimizer state; restoring params "
                        "and batch_stats with a fresh optimizer state", path,

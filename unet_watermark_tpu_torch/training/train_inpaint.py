@@ -42,8 +42,8 @@ from ..ops.metrics import psnr
 from ..ops.resize import resize_linear_u8
 from ..utils import image_io
 from ..utils.device import compute_autocast, resolve_device
-from ..utils.shipping import save_params_npz
-from .checkpoint import read_weights, save_checkpoint
+from ..utils.shipping import load_variables, save_params_npz
+from .checkpoint import save_checkpoint
 from .state import Optimizer
 
 logger = logging.getLogger(__name__)
@@ -344,12 +344,13 @@ def build_trainer(variant: str = "lama", seed: int = 0, device="cuda",
                   resume_from: Optional[str] = None,
                   **kwargs) -> InpaintTrainer:
     """The generator (flax-initialized from `seed`, or the weights of
-    `resume_from`: a shipped-format .npz or a port checkpoint directory)
+    `resume_from`: a shipped-format .npz, a port checkpoint directory or
+    the JAX package's orbax output directory)
     and the discriminator (from seed + 1) on `device`, with their
     optimizers; kwargs go to InpaintTrainer."""
     dev = resolve_device(device)
     if resume_from:
-        flat = read_weights(resume_from)
+        flat = load_variables(resume_from)
         with torch.device("meta"):  # shapes only: the weights replace them
             model = create_lama(variant, torch.float32)
         load_lama_weights(model, flat)

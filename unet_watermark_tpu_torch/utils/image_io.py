@@ -55,7 +55,8 @@ import torch
 
 from ..ops import jpeg as jpeg_pixels
 from ..ops.kernels import jpeg_entropy
-from . import jpeg
+from . import bmp, jpeg
+from .bmp import BMPError
 from .jpeg import JPEGError
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -65,13 +66,16 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 ZLIB_LEVEL = 1  # the deflate level cv2.imwrite uses by default
 # signatures of the formats cv2 reads that the port does not decode yet
-UNPORTED = {"bmp": (b"BM",), "tiff": (b"II*\x00", b"MM\x00*"),
-            "webp": (b"RIFF",)}
-UNPORTED_EXTS = ("bmp", "tiff", "tif", "webp")
+UNPORTED = {"tiff": (b"II*\x00", b"MM\x00*"), "webp": (b"RIFF",)}
+UNPORTED_EXTS = ("tiff", "tif", "webp")
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 class DecodeError(ValueError):
-    """The file is neither a PNG nor a JPEG (cv2.imread gives None)."""
+    """The file is neither a PNG, a JPEG nor a BMP (cv2.imread gives
+    None)."""
 
 
 class PNGError(DecodeError):
@@ -79,16 +83,18 @@ class PNGError(DecodeError):
 
 
 # what a reader raises where cv2.imread would return None
-UNREADABLE = (OSError, DecodeError, JPEGError)
+UNREADABLE = (OSError, DecodeError, JPEGError, BMPError)
 
 
 def sniff(head: bytes) -> Optional[str]:
-    """The format a file's first bytes name: png, jpeg, one of UNPORTED's,
-    or None."""
+    """The format a file's first bytes name: png, jpeg, bmp, one of
+    UNPORTED's, or None."""
     if head.startswith(SIGNATURE):
         return "png"
     if head.startswith(b"\xff\xd8\xff"):
         return "jpeg"
+    if head.startswith(b"BM"):
+        return "bmp"
     for kind, sigs in UNPORTED.items():
         if any(head.startswith(sig) for sig in sigs) and (
                 kind != "webp" or head[8:12] == b"WEBP"):
@@ -98,24 +104,25 @@ def sniff(head: bytes) -> Optional[str]:
 
 def _refuse_unported(path, head: bytes) -> Optional[str]:
     """The format of a file from its first bytes (sniff); raises
-    NotImplementedError, naming the ROADMAP.md item, for a BMP, TIFF or
-    WEBP file, by content, or by name where the content is neither PNG nor
-    JPEG."""
+    NotImplementedError, naming the ROADMAP.md item, for a TIFF or WEBP
+    file, by content, or by name where the content is neither PNG, JPEG
+    nor BMP."""
     kind = sniff(head)
     ext = os.path.splitext(str(path))[1][1:].lower()
     if kind in UNPORTED or (kind is None and ext in UNPORTED_EXTS):
         raise NotImplementedError(
-            f"{path}: a {(kind or ext).upper()} file: the port decodes PNG "
-            f"and JPEG only; BMP, TIFF and WEBP decoding is not ported yet "
+            f"{path}: a {(kind or ext).upper()} file: the port decodes PNG, "
+            f"JPEG and BMP; TIFF and WEBP decoding is not ported yet "
             f"(ROADMAP.md §A.5, other image formats)")
     return kind
 
 
 def require_decodable(path) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for a file
-    this module cannot decode where cv2 could: a BMP, TIFF or WEBP file, an
-    interlaced PNG or a refused JPEG form. A file cv2 would give None for
-    passes: the pipeline logs and skips it, as the JAX package does."""
+    this module cannot decode where cv2 could: a TIFF or WEBP file or a
+    refused JPEG form (arithmetic-coded, 12-bit, lossless, hierarchical).
+    A file cv2 would give None for passes: the pipeline logs and skips it,
+    as the JAX package does."""
     try:
         with open(path, "rb") as f:
             head = f.read(16)
@@ -155,13 +162,9 @@ def _header(body: bytes):
                                                               body)
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise PNGError(f"bad colour type {ctype} / bit depth {depth}")
-    if comp != 0 or filt != 0 or w == 0 or h == 0:
+    if comp != 0 or filt != 0 or w == 0 or h == 0 or interlace > 1:
         raise PNGError("bad IHDR fields")
-    if interlace != 0:
-        raise NotImplementedError(
-            "interlaced (Adam7) PNGs are not decoded yet (ROADMAP.md §A.5, "
-            "other image formats)")
-    return w, h, depth, ctype
+    return w, h, depth, ctype, interlace
 
 
 def check_image(path) -> Tuple[int, int]:
@@ -174,9 +177,12 @@ def check_image(path) -> Tuple[int, int]:
         if kind == "jpeg":
             return jpeg.parse(head + f.read(), headers_only=True
                               ).oriented_size()
+        if kind == "bmp":
+            info = bmp.parse(head + f.read(2048))
+            return info.height, info.width
     if kind != "png" or head[12:16] != b"IHDR":
-        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
-    w, h, _, _ = _header(head[16:29])
+        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+    w, h = _header(head[16:29])[:2]
     return h, w
 
 
@@ -236,10 +242,29 @@ def _wavefront(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out.astype(np.uint8).reshape(h, rowbytes)
 
 
+def _unpack(rows: np.ndarray, w: int, h: int, depth: int, ctype: int,
+            channels: int) -> np.ndarray:
+    """Unfiltered rows → (h, w, channels) uint8 samples: 16-bit ones
+    reduced to their high byte, 1/2/4-bit gray scaled to 8 bits."""
+    if depth == 16:
+        return rows.reshape(h, w, channels, 2)[..., 0]  # the high byte
+    if depth == 8:
+        return rows.reshape(h, w, channels)
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1))
+    px = px.reshape(h, rows.shape[1] * per)[:, :w, None]
+    if ctype == 0:  # scaled to 8 bits, as libpng's expand does
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px
+
+
 def _png_samples(data: bytes):
     """The unfiltered samples of a PNG: (px (H, W, channels) uint8, colour
     type, bit depth, PLTE as (N, 3) or None, tRNS body or None); 16-bit
-    samples reduced to their high byte, 1/2/4-bit gray scaled to 8 bits."""
+    samples reduced to their high byte, 1/2/4-bit gray scaled to 8 bits.
+    An interlaced file's seven Adam7 passes are each unfiltered and
+    unpacked on their own, then scattered into the image."""
     header, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -252,29 +277,35 @@ def _png_samples(data: bytes):
             idat.append(body)
     if header is None or not idat:
         raise PNGError("missing IHDR or IDAT")
-    w, h, depth, ctype = header
+    w, h, depth, ctype, interlace = header
     channels = _CHANNELS[ctype]
     bits = depth * channels
-    rowbytes = (w * bits + 7) // 8
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    shapes = [(-(-(w - x0) // dx), -(-(h - y0) // dy))
+              for x0, y0, dx, dy in passes]
+    sizes = [ph * ((pw * bits + 7) // 8 + 1) if pw and ph else 0
+             for pw, ph in shapes]
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise PNGError(f"bad image data: {e}") from None
-    if raw.size != h * (rowbytes + 1):
+    if raw.size != sum(sizes):
         raise PNGError(f"image data is {raw.size} bytes, expected "
-                       f"{h * (rowbytes + 1)}")
-    rows = _unfilter(raw, h, rowbytes, max(1, bits // 8))
-    if depth == 16:
-        px = rows.reshape(h, w, channels, 2)[..., 0]  # the high byte
-    elif depth == 8:
-        px = rows.reshape(h, w, channels)
-    else:
-        per = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1))
-        px = px.reshape(h, rowbytes * per)[:, :w, None]
-        if ctype == 0:  # scaled to 8 bits, as libpng's expand does
-            px = px * np.uint8(255 // ((1 << depth) - 1))
+                       f"{sum(sizes)}")
+    if interlace:
+        px = np.empty((h, w, channels), np.uint8)
+    at = 0
+    for (x0, y0, dx, dy), (pw, ph), size in zip(passes, shapes, sizes):
+        if not size:
+            continue
+        rowbytes = (pw * bits + 7) // 8
+        rows = _unfilter(raw[at:at + size], ph, rowbytes, max(1, bits // 8))
+        at += size
+        sub = _unpack(rows, pw, ph, depth, ctype, channels)
+        if not interlace:
+            px = sub
+        else:
+            px[y0::dy, x0::dx] = sub
     if ctype == 3:
         if palette is None:
             raise PNGError("palette image without PLTE")
@@ -345,11 +376,12 @@ def _no_part(name: str):
 
 
 def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
-                part: Callable = _no_part, exif: bool = True
-                ) -> torch.Tensor:
+                part: Callable = _no_part, exif: bool = True,
+                pil: bool = False) -> torch.Tensor:
     """JPEG bytes → (H, W, 3) RGB or (H, W) gray uint8 on `device`, as
     cv2.imread gives it (exif=False: as PIL's Image.open gives it, without
-    the EXIF orientation). part(name) wraps each of the two stages,
+    the EXIF orientation; pil=True also converts a CMYK or YCCK file as
+    PIL does). part(name) wraps each of the two stages,
     "jpeg_entropy" (host) and "jpeg_pixels" (upload and pixel stage on the
     device), for a caller that times them."""
     device = torch.device(device)
@@ -359,19 +391,21 @@ def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
     with part("jpeg_pixels"):
         return jpeg_pixels.decode(
             header, [torch.from_numpy(c).to(device) for c in coefs], gray,
-            exif=exif)
+            exif=exif, pil=pil)
 
 
 def _read(path, device, gray: bool, part: Callable = _no_part):
     """The decoded file: a tensor on `device` for a JPEG, a numpy array
-    for a PNG."""
+    for a PNG or a BMP."""
     with open(path, "rb") as f:
         data = f.read()
     kind = _refuse_unported(path, data[:16])
     if kind == "jpeg":
         return decode_jpeg(data, device, gray, part)
+    if kind == "bmp":
+        return bmp.decode(data, gray=gray)
     if kind != "png":
-        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
+        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
     return decode_png(data, gray=gray)
 
 
@@ -388,8 +422,8 @@ def read_gray(path) -> np.ndarray:
 def read_rgb_tensor(path, device, part: Callable = _no_part
                     ) -> torch.Tensor:
     """(H, W, 3) uint8 RGB on `device`: a JPEG decoded there (the C entropy
-    decoder and the card's pixel stage on a CUDA device), a PNG decoded on
-    the host and uploaded inside part("png_upload")."""
+    decoder and the card's pixel stage on a CUDA device), a PNG or a BMP
+    decoded on the host and uploaded inside part("png_upload")."""
     img = _read(path, device, False, part)
     if isinstance(img, np.ndarray):
         with part("png_upload"):
@@ -400,16 +434,20 @@ def read_rgb_tensor(path, device, part: Callable = _no_part
 def read_rgba_tensor(path, device) -> torch.Tensor:
     """(H, W, 4) uint8 on `device`, as PIL's
     Image.open(path).convert("RGBA") gives it: a PNG through
-    decode_png_rgba, a JPEG through decode_jpeg without its EXIF
-    orientation (PIL's open does not apply it) and with alpha 255."""
+    decode_png_rgba, a BMP through bmp.decode_rgba, a JPEG through
+    decode_jpeg without its EXIF orientation (PIL's open does not apply
+    it) and with alpha 255 (a CMYK or YCCK one through PIL's own CMYK ->
+    RGB)."""
     with open(path, "rb") as f:
         data = f.read()
     kind = _refuse_unported(path, data[:16])
     if kind == "png":
         return torch.from_numpy(decode_png_rgba(data)).to(device)
+    if kind == "bmp":
+        return torch.from_numpy(bmp.decode_rgba(data)).to(device)
     if kind != "jpeg":
-        raise DecodeError(f"{path}: neither a PNG nor a JPEG file")
-    rgb = decode_jpeg(data, device, exif=False)
+        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+    rgb = decode_jpeg(data, device, exif=False, pil=True)
     return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], dim=2)
 
 

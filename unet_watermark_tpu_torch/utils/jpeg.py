@@ -7,7 +7,8 @@ returns a Header: the frame, each component's sampling factors and the
 quantization table latched at its first scan (as jdinput.c latches it), the
 colour space as jdapimin.c defaults it (one component: gray; three: YCbCr
 under JFIF or Adobe transform 1, RGB under Adobe transform 0 or component
-ids 'R' 'G' 'B'), the EXIF orientation as cv2 reads it (the first APP1's
+ids 'R' 'G' 'B'; four: CMYK without an Adobe marker or under transform 0,
+YCCK under any other transform), the EXIF orientation as cv2 reads it (the first APP1's
 IFD0 tag 0x0112, either byte order), and each scan with the Huffman tables
 and restart interval in force when it starts and the byte range of its
 entropy-coded data.
@@ -26,8 +27,8 @@ ops/kernels/jpeg_entropy.py runs on the host for the card's route.
 A file without a frame or a scan, with a malformed segment, or with a
 frame over cv2.imread's size limits (MAX_SIDE, MAX_PIXELS) raises
 JPEGError (cv2.imread gives None). Arithmetic coding, lossless and
-hierarchical frames, 12-bit samples and 4-component (CMYK/YCCK) files
-raise NotImplementedError naming ROADMAP.md §A.5.
+hierarchical frames and 12-bit samples raise NotImplementedError naming
+ROADMAP.md §A.5.
 
 block_smoothing(header) is jdcoefct.c's smoothing_ok for a progressive file
 whose coefficients are not all exact (a file cut before its last scan):
@@ -154,7 +155,7 @@ class Header:
     vmax: int
     mcux: int
     mcuy: int
-    color: str = "ycc"                # "gray", "ycc" or "rgb"
+    color: str = "ycc"                # "gray", "ycc", "rgb", "cmyk", "ycck"
     orientation: int = 1              # EXIF 1-8 (others: as 1)
     scans: List[Scan] = field(default_factory=list)
 
@@ -343,7 +344,9 @@ def parse(data: bytes, headers_only: bool = False) -> Header:
     if not scans:
         raise JPEGError("no scan (SOS) marker")
     comps = frame.components
-    if len(comps) == 1:
+    if len(comps) == 4:
+        frame.color = "cmyk" if adobe in (None, 0) else "ycck"
+    elif len(comps) == 1:
         frame.color = "gray"
     elif jfif:
         frame.color = "ycc"
@@ -370,9 +373,7 @@ def _read_sof(body: bytes, marker: int) -> Header:
         raise JPEGError(f"{precision}-bit samples")
     if height == 0 or width == 0:
         raise JPEGError("empty image (or a DNL height)")
-    if nf == 4:
-        _refuse("4-component (CMYK/YCCK)")
-    if nf not in (1, 3):
+    if nf not in (1, 3, 4):
         raise JPEGError(f"{nf} components")
     if len(body) != 6 + 3 * nf:
         raise JPEGError("bad SOF length")

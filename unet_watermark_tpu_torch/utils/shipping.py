@@ -1,9 +1,16 @@
 """Shipped weights: where they are (resolve, the unified registry of
-utils/shipping.py in the JAX package), the .npz reader and writer.
+utils/shipping.py in the JAX package), the .npz reader and writer, and
+load_variables, the one loader of weights in any format.
 
 A float leaf is stored as a uint16 view of its bfloat16 bits under the key
 "BF16::<flax path>"; every other entry is stored as it is. The JAX package's
 load_params_npz reads what save_params_npz writes.
+
+The port's trees are flat: {flax path: array}, "/".join(key path), where
+the JAX package nests dicts. load_params_npz(path, template) and
+load_variables(path, template) are the JAX package's on such trees
+(template: the flat tree whose keys, shapes and dtypes the result takes;
+None for every array the file holds).
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..training.checkpoint import restore_raw
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 WEIGHTS_DIR = REPO_ROOT / "unet_watermark_tpu" / "weights"
@@ -154,3 +163,47 @@ def save_params_npz(path, flat: Dict[str, np.ndarray]) -> str:
             with zf.open(k + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, v, allow_pickle=False)
     return str(path)
+
+
+def load_params_npz(path, template: Optional[Dict[str, np.ndarray]] = None
+                    ) -> Dict[str, np.ndarray]:
+    """The JAX package's load_params_npz: the .npz's arrays (BF16 entries
+    decoded) for each key of `template`, cast to its dtype; a missing key
+    raises KeyError and a shape mismatch ValueError."""
+    stored = load_npz(path)
+    if template is None:
+        return stored
+    out = {}
+    for k, leaf in template.items():
+        leaf = np.asarray(leaf)
+        v = stored.get(k)
+        if v is None:
+            raise KeyError(f"missing weight '{k}' in {path}")
+        if v.shape != leaf.shape:
+            raise ValueError(f"shape mismatch for '{k}': stored {v.shape} "
+                             f"vs template {leaf.shape}")
+        out[k] = v.astype(leaf.dtype)
+    return out
+
+
+def load_variables(path, template: Optional[Dict[str, np.ndarray]] = None
+                   ) -> Dict[str, np.ndarray]:
+    """Weights in any format the JAX package's load_variables reads, as a
+    flat tree: a .npz file through load_params_npz; a checkpoint directory
+    (the port's tree.npz, or JAX's tree/ folder) read raw and filtered to
+    the template's top-level keys (without a template: params/ and
+    batch_stats/ where it has them, else every array but the step and the
+    optimizer state); any other directory as a bare orbax tree (JAX's
+    train_inpaint and train_latent_diffusion outputs), filtered the same
+    way."""
+    path = str(path)
+    if not os.path.isdir(path):
+        return load_params_npz(path, template)
+    tree, _ = restore_raw(path)
+    if template is not None:
+        tops = {k.split("/", 1)[0] for k in template}
+        return {k: v for k, v in tree.items() if k.split("/", 1)[0] in tops}
+    weights = {k: v for k, v in tree.items()
+               if k.startswith(("params/", "batch_stats/"))}
+    return weights or {k: v for k, v in tree.items()
+                       if k != "step" and not k.startswith("opt_state/")}

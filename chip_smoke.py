@@ -5,11 +5,12 @@
 
 Phases, each printing its own line:
   0  versions, and the card's name and power limit (nvidia-smi)
-  1  build the native sources (nvcc → .so for each .cu, cc for the JPEG
-     entropy coder; all compiler calls started together, before the
+  1  build the native sources (nvcc → .so for each .cu, cc for the host
+     C: the JPEG entropy coder, the zstd, RLE, WEBP and TIFF decoders;
+     all compiler calls started together, before the
      port's imports, phase 0 and the profiler's first session, which run
-     meanwhile, as do 4 host workers writing 3d's and 3f's input folders
-     and running 3f's plain entropy decodes; ctypes) and report the build
+     meanwhile, as do 4 host workers writing 3d's, 3f's and 3o's input
+     files and running 3f's plain entropy decodes; ctypes) and report the build
      time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
@@ -130,11 +131,12 @@ Phases, each printing its own line:
      config at 2 x 1024², the eight other archs, UnetTPU's int8 tier),
      the data-parallel path in an NCCL world of one (the group's
      train steps, `train` in the group, predict_tiled_sharded, the
-     halo-exchange conv), and the JAX package's own files (3o: the zstd
-     decoder's known answers, `repair` over BMP, Adam7 PNG and Adobe CMYK
-     JPEG copies of a PNG folder):
-     unet_watermark_tpu_torch/tools/smoke_phases.py, whose docstring lists
-     their checks
+     halo-exchange conv): unet_watermark_tpu_torch/tools/smoke_phases.py,
+     whose docstring lists their checks; and every still image the JAX
+     package reads with its checkpoints' zstd frames (3o: known answers
+     for zstd, WEBP and PNGs read as gray, `repair` over BMP, Adam7 PNG,
+     Adobe CMYK JPEG, WEBP and TIFF copies of a PNG folder, 1080p decode
+     times): unet_watermark_tpu_torch/tools/smoke_formats.py
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -168,15 +170,17 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PORT = "unet_watermark_tpu_torch"
-try:  # phases 3h-3m and the helpers they share with this file
+try:  # phases 3h-3o and the helpers they share with this file
     from unet_watermark_tpu_torch.tools.smoke_phases import (
         BATCH, LAMA_SEGMENTS, PEAK_BF16_FLOPS_PER_S, PEAK_BYTES_PER_S,
         PEAK_INT8_OPS_PER_S, SIZE, auto_phase,
         check_repair, checkpoint_phase, conv_flops, conv_s8_bound,
-        conv_s8_library, cuda_ms, fill_training_phase, formats_phase,
+        conv_s8_library, cuda_ms, fill_training_phase,
         host_ms, host_pool, int8_hooks, log, nvidia_smi_line, profile_window, profiled_ms,
         quality_phase, run_cli, segment_ms, sharded_phase, training_phase,
         zoo_phase, zoo_text_train)
+    from unet_watermark_tpu_torch.tools.smoke_formats import (formats_phase,
+                                                              write_inputs)
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
@@ -756,22 +760,24 @@ def write_jpeg_folder(folder: Path, seed: int, spec=JPEG_FOLDER,
 
 
 def write_folders(work: Path, seed: int) -> dict:
-    """Phases 3d's and 3f's input folders, written by host workers while
+    """Phases 3d's, 3f's and 3o's input files, written by host workers while
     the kernels build (phase 1), and 3f's plain entropy decodes of its
     files (plain_scans), run there too: {"png": (write_cli_folder's sizes,
     seconds), "jpeg": (write_jpeg_folder's files, seconds, {name:
-    plain_scans})}."""
+    plain_scans}), "formats": smoke_formats.write_inputs' result}."""
     t0 = time.perf_counter()
     with host_pool(4) as pool:
         png = pool.submit(write_cli_folder, work / "in", seed)
+        formats = pool.submit(write_inputs, work, seed)
         files = write_jpeg_folder(work / "in_jpeg", seed, pool=pool)
         jpeg_s = time.perf_counter() - t0
         names = sorted(files)
         plains = dict(zip(names, pool.map(plain_scans,
                                           [files[n][0] for n in names])))
         sizes = png.result()
+        formats = formats.result()
     return {"png": (sizes, time.perf_counter() - t0),
-            "jpeg": (files, jpeg_s, plains)}
+            "jpeg": (files, jpeg_s, plains), "formats": formats}
 
 
 def jpeg_folder_file(entry, seed: int, no_logo: bool):
@@ -1399,7 +1405,8 @@ def main(argv=None) -> int:
     # -- 1 (started): one compiler call a source, all started together;
     # the imports, phase 0 and the profiler's first session run meanwhile
     sources = ("morph_chain.cu", "conv_s8.cu", "jpeg_entropy.c",
-               "zstd_decode.c", "bmp_rle.c")
+               "zstd_decode.c", "bmp_rle.c", "webp_decode.c",
+               "tiff_codecs.c")
     t_build = time.perf_counter()
 
     def timed_build(source):
@@ -1421,6 +1428,8 @@ def main(argv=None) -> int:
     from unet_watermark_tpu_torch.ops.kernels import conv_s8 as k8
     from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy
     from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
+    from unet_watermark_tpu_torch.ops.kernels import tiff as tiff_c
+    from unet_watermark_tpu_torch.ops.kernels import webp as webp_c
     from unet_watermark_tpu_torch.ops.kernels import zstd
     from unet_watermark_tpu_torch.utils import bmp, shipping
     from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
@@ -1448,7 +1457,7 @@ def main(argv=None) -> int:
 
     # -- 1: build ------------------------------------------------------------
     if sources != (kc.SOURCE, k8.SOURCE, jpeg_entropy.SOURCE, zstd.SOURCE,
-                   bmp.SOURCE):
+                   bmp.SOURCE, webp_c.SOURCE, tiff_c.SOURCE):
         raise AssertionError(f"the build's sources {sources} are not the "
                              f"kernel modules'")
     built = dict(zip(sources, (f.result() for f in building)))
@@ -1777,8 +1786,9 @@ def main(argv=None) -> int:
                 # -- 3m: the model zoo -----------------------------------
                 zoo = zoo_phase(work, args.seed, dev,
                                 text_trained.result())
-            # -- 3o: the JAX package's own files: zstd, BMP, Adam7, CMYK
-            formats = formats_phase(work, args.seed, dev)
+            # -- 3o: every still image the JAX package reads, and zstd
+            formats = formats_phase(work, args.seed, dev,
+                                    inputs=written["formats"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -302,13 +302,28 @@ def test_cv2_none_cases_are_unreadable(tmp_path):
 
 
 def test_only_tiff_and_webp_stay_unported(tmp_path):
-    assert set(image_io.UNPORTED) == {"tiff", "webp"}
+    """TIFF and WEBP decode now; of them only the rarer forms stay
+    unported: a BigTIFF and an animated WEBP refuse the file naming
+    ROADMAP.md §A.5, while a cut TIFF or WEBP header (cv2.imread gives
+    None) passes require_decodable and reads as unreadable."""
     assert image_io.sniff(b"BM" + bytes(14)) == "bmp"
-    for name, head in (("t.tif", b"II*\x00"), ("w.webp",
-                                                b"RIFF\0\0\0\0WEBPVP8 ")):
-        (tmp_path / name).write_bytes(head + bytes(16))
+    assert image_io.sniff(b"II*\x00" + bytes(12)) == "tiff"
+    assert image_io.sniff(b"RIFF\0\0\0\0WEBPVP8 ") == "webp"
+    vp8x = b"VP8X" + struct.pack("<I", 10) + bytes([0x02, 0, 0, 0]) + \
+        bytes(6)
+    for name, data in (("t.tif", b"II+\x00" + bytes(16)),
+                       ("w.webp", b"RIFF" + struct.pack("<I", 4 + len(vp8x))
+                        + b"WEBP" + vp8x)):
+        (tmp_path / name).write_bytes(data)
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A.5"):
             image_io.require_decodable(tmp_path / name)
+    for name, head in (("c.tif", b"II*\x00"), ("c.webp",
+                                                b"RIFF\0\0\0\0WEBPVP8 ")):
+        (tmp_path / name).write_bytes(head + bytes(16))
+        assert cv2.imread(str(tmp_path / name)) is None
+        image_io.require_decodable(tmp_path / name)
+        with pytest.raises(image_io.UNREADABLE):
+            image_io.read_rgb(tmp_path / name)
 
 
 def test_wider_channel_masks_are_refused(tmp_path):

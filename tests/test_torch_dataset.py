@@ -248,18 +248,20 @@ def test_host_pipeline_stops_its_threads_on_an_early_break(root, tmp_path):
 
 
 def test_unported_formats_refuse_the_folder(tmp_path):
-    """A TIFF file, which JAX's IMAGE_EXTENSIONS admits and cv2 reads,
-    makes the port refuse the folder before any work (naming the
-    ROADMAP.md item), not skip the file silently. A BMP file decodes now:
-    its item equals the JAX dataset's."""
-    for ext in (".bmp", ".tif"):
+    """A TIFF form not ported yet (a 16-bit file, which JAX's
+    IMAGE_EXTENSIONS admits and cv2 reads) makes the port refuse the
+    folder before any work (naming the ROADMAP.md item), not skip the file
+    silently. BMP and 8-bit TIFF files decode now: their items equal the
+    JAX dataset's."""
+    for ext in (".bmp", ".tif", ".tiff"):
         d = tmp_path / ext[1:] / "watermarked"
         d.mkdir(parents=True)
         rng = np.random.default_rng(len(ext))
         cv2.imwrite(str(d / "a.png"), np.zeros((8, 8, 3), np.uint8))
-        cv2.imwrite(str(d / f"b{ext}"),
-                    rng.integers(0, 256, (30, 21, 3), dtype=np.uint8))
-        if ext == ".tif":
+        img = rng.integers(0, 256, (30, 21, 3), dtype=np.uint8)
+        cv2.imwrite(str(d / f"b{ext}"), img.astype(np.uint16) * 257
+                    if ext == ".tiff" else img)
+        if ext == ".tiff":
             with pytest.raises(NotImplementedError, match="§A.5"):
                 tds.WatermarkDataset([str(d)], device="cpu")
             continue

@@ -246,11 +246,15 @@ def test_process_batch_counts_equal_jax(tmp_path, mode, monkeypatch):
 
 
 def test_undecodable_formats_are_refused_first(tmp_path):
-    """A .webp in the folder: the port refuses it (ROADMAP.md §A.7) before
-    any output is written, where cv2 would read it."""
+    """An animated .webp in the folder (a form not ported yet; a still
+    WEBP decodes): the port refuses it (ROADMAP.md §A.5) before any output
+    is written, where cv2 would read its first frame."""
+    import struct
+
     src = _folder(tmp_path / "in")
-    ok, data = cv2.imencode(".webp", np.zeros((8, 8, 3), np.uint8))
-    (src / "w.webp").write_bytes(data.tobytes())
+    vp8x = b"VP8X" + struct.pack("<I", 10) + bytes([2, 0, 0, 0]) + bytes(6)
+    (src / "w.webp").write_bytes(b"RIFF" + struct.pack("<I", 4 + len(vp8x))
+                                 + b"WEBP" + vp8x)
     for run in (lambda out: PS.SDWatermarkRemover(device="cpu")
                 .process_folder(str(src), out),
                 lambda out: PF.FluxProcessor(device="cpu")

@@ -4,7 +4,8 @@ PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
 nunchaku and the JAX package blocked (the GPU machine has none of them),
 every module of the port among them (ocr/, ops/imgproc.py, the training
 path, the `auto` loop's modules, the .pth, big-lama and contour modules,
-the zoo's archs, model sizes and text trainer, and parallel/ too), and
+the zoo's archs, model sizes and text trainer, parallel/, and the WEBP
+and TIFF readers and the formats phase too), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -72,7 +73,14 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.parallel",
         "unet_watermark_tpu_torch.parallel.distributed",
         "unet_watermark_tpu_torch.parallel.mesh",
-        "unet_watermark_tpu_torch.parallel.spatial"]
+        "unet_watermark_tpu_torch.parallel.spatial",
+        "unet_watermark_tpu_torch.utils.decode_error",
+        "unet_watermark_tpu_torch.utils.webp",
+        "unet_watermark_tpu_torch.utils.tiff",
+        "unet_watermark_tpu_torch.ops.webp",
+        "unet_watermark_tpu_torch.ops.kernels.webp",
+        "unet_watermark_tpu_torch.ops.kernels.tiff",
+        "unet_watermark_tpu_torch.tools.smoke_formats"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

@@ -609,7 +609,7 @@ def test_cmyk_phase_writer_reads_as_cv2(tmp_path):
     from within the JPEG loss."""
     if shutil.which("cc") is None:
         pytest.skip("needs a host C compiler (cc) to build the encoder")
-    from unet_watermark_tpu_torch.tools import smoke_phases as sp
+    from unet_watermark_tpu_torch.tools import smoke_formats as sp
 
     img = photo(40, 56, 2)
     data = sp.cmyk_jpeg(np.concatenate([img, np.full_like(img[..., :1],

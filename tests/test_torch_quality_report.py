@@ -143,12 +143,16 @@ def _subdirs(tex):
 
 
 @pytest.mark.parametrize("textured", [False, True])
-def test_ensure_frozen_set_against_jax(tmp_path, textured):
+def test_ensure_frozen_set_against_jax(tmp_path, textured, monkeypatch):
+    """The port's set takes no font draws (ROADMAP.md §C.12): JAX's set
+    equals it where JAX finds no font files."""
     import cv2
 
+    import unet_watermark_tpu.data.gen_data as jgen
     from unet_watermark_tpu.scripts.quality_report import \
         ensure_frozen_set as jfrozen
 
+    monkeypatch.setattr(jgen, "load_system_fonts", lambda: [])
     j = jfrozen(str(tmp_path / "j"), n=4, img_size=64, textured=textured)
     p = pqr.ensure_frozen_set(str(tmp_path / "p"), n=4, img_size=64,
                               textured=textured, device="cpu")

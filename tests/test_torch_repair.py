@@ -578,23 +578,26 @@ def test_predict_mask_matches_jax(preds, folder, mask_type):
                                       jpred.predict_mask(path, mask_type))
 
 
-# the first bytes of a WEBP file (a format the port does not decode yet)
-WEBP_HEAD = b"RIFF\x24\x00\x00\x00WEBPVP8 "
+# an animated WEBP's first chunks (a form the port does not decode yet)
+WEBP_ANIM = (b"RIFF\x16\x00\x00\x00WEBPVP8X\x0a\x00\x00\x00\x02"
+             + bytes(9))
 
 
-# the first bytes of a TIFF file (little-endian)
-TIFF_HEAD = b"II*\x00\x08\x00\x00\x00"
+# the first bytes of a BigTIFF file (a form the port does not decode yet)
+BIGTIFF_HEAD = b"II+\x00\x08\x00\x00\x00\x10\x00\x00\x00\x00\x00\x00\x00"
 
 
 @pytest.mark.parametrize("bad", ["photo.webp", "interlaced.png"])
 def test_undecodable_files_raise_before_any_work(preds, folder, tmp_path,
                                                  bad):
-    """A WEBP file, and a TIFF file under a .png name (interlaced PNGs
-    decode now: the content decides, as in cv2), refuse the folder."""
+    """An animated WEBP, and a BigTIFF under a .png name (still WEBP and
+    TIFF files and interlaced PNGs decode now: the content decides, as in
+    cv2), refuse the folder."""
     _, pred = preds
     d = tmp_path / "in"
     _write_folder(d, FOLDER[:1])
-    (d / bad).write_bytes(WEBP_HEAD if bad.endswith(".webp") else TIFF_HEAD)
+    (d / bad).write_bytes(WEBP_ANIM if bad.endswith(".webp")
+                          else BIGTIFF_HEAD)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pred.process_folder_batch(str(d), str(tmp_path / "out"),
                                   use_ocr=False)
@@ -611,7 +614,7 @@ def test_bmp_adam7_and_cmyk_folders_repair_as_png(preds, tmp_path):
     copy of that input, decoding to the same pixels)."""
     if shutil.which("cc") is None:
         pytest.skip("needs a host C compiler (cc) for the JPEG writer")
-    from unet_watermark_tpu_torch.tools import smoke_phases as sp
+    from unet_watermark_tpu_torch.tools import smoke_formats as sp
     from unet_watermark_tpu_torch.utils import image_io
 
     _, pred = preds

@@ -453,9 +453,30 @@ def test_load_clean_batches_equals_jax(tmp_path):
 
 
 def test_webp_in_the_clean_folder_raises_before_any_work(tmp_path):
+    """A still WEBP in the clean folder decodes as cv2 reads it, and a
+    truncated one (cv2.imread gives None) is skipped as JAX skips it: both
+    samplers count the same images and the host batches equal JAX's. An
+    animated WEBP, a form not ported yet, still refuses the folder before
+    any work (ROADMAP.md §A.5)."""
+    import cv2
+    import struct
+
     d = tmp_path / "webp"
-    _write_folder(d, [(64, 64)])
-    (d / "z.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    _write_folder(d, [(64, 64)] * 2)
+    ok, data = cv2.imencode(".webp", cv2.imread(str(d / "c00.png"))[:, ::-1],
+                            [cv2.IMWRITE_WEBP_QUALITY, 80])
+    (d / "w.webp").write_bytes(data.tobytes())
+    (d / "z.webp").write_bytes(data.tobytes()[:len(data) // 2])
+    assert cv2.imread(str(d / "z.webp")) is None
+    assert ti.device_clean_sampler(str(d), 2, 32, device="cpu")[1] == \
+        jti.device_clean_sampler(str(d), 2, 32)[1] == 3
+    ours = ti.load_clean_batches(str(d), 3, 32, seed=1)
+    ref = jti.load_clean_batches(str(d), 3, 32, seed=1)
+    for _ in range(2):
+        np.testing.assert_array_equal(next(ours), next(ref))
+    vp8x = b"VP8X" + struct.pack("<I", 10) + bytes([2, 0, 0, 0]) + bytes(6)
+    (d / "z.webp").write_bytes(b"RIFF" + struct.pack("<I", 4 + len(vp8x))
+                               + b"WEBP" + vp8x)
     for call in (lambda: ti.device_clean_sampler(str(d), 2, 32,
                                                  device="cpu"),
                  lambda: next(ti.load_clean_batches(str(d), 2, 32)),

@@ -44,7 +44,8 @@ class ModelConfig:
     # concat form the port runs; stored, not read
     FUSED_DECODER: bool = True
     # UNet++ decoder layout: "canonical" (the Zhou grid of the shipped
-    # weights); "smp" (the layout of reference .pth imports) is not ported
+    # weights) or "smp" (the layout of reference .pth imports,
+    # models/unet.SMPUnetPlusPlusDecoder; repair --model X.pth sets it)
     DECODER_IMPL: str = "canonical"
 
 

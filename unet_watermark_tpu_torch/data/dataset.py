@@ -10,9 +10,12 @@ gray, threshold, open with the 3 x 3 ellipse, GaussianBlur 3 x 3 σ 0.5,
 threshold at 127; it equals cv2's bytes (on a 0/255 mask that blur moves
 no pixel across 127: the centre weight alone is 0.62 of the sum, all the
 others 0.38). It is cached as a PNG in mask_dirs[0], as in the JAX
-package. A file cv2 cannot read is skipped; a folder with a file in a
-format the port does not decode yet (TIFF, WEBP) is refused before
-any work (image_io.require_decodable).
+package. Images and masks are read as cv2 reads them
+(utils/image_io.py: PNG, JPEG, BMP, TIFF, WEBP; a colour or palette mask
+PNG read as gray through libpng's rule). A file cv2 cannot read is
+skipped; a folder with a form the port does not decode yet (a BigTIFF, an
+animated WEBP, ROADMAP.md §A.5) is refused before any work
+(image_io.require_decodable).
 
 With use_blurred_mask the thresholded difference takes the JAX package's
 blurred finishing instead (_blurred_mask): open(3) → close(7)x3 →

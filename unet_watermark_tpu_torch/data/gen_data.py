@@ -8,8 +8,9 @@ source images, kinds, file names, sizes, angles, alphas and placements.
 The image work runs as torch ops on `device` ("cuda" unless the caller
 passes "cpu"): ops/pil.py gives Pillow's rotate, LANCZOS resize, Gaussian
 blur and alpha composite bit for bit, utils/image_io.py reads the sources
-as PIL's Image.open(...).convert("RGBA") does (no EXIF rotation) and
-writes the JPEGs Pillow's save(quality=95) writes, byte for byte.
+(PNG, JPEG, BMP, TIFF, WEBP logos and images) as PIL's
+Image.open(...).convert("RGBA") does (no EXIF rotation) and writes the
+JPEGs Pillow's save(quality=95) writes, byte for byte.
 
 The one stated difference is the text raster. JAX rasterises text with
 FreeType (ImageFont.truetype over the system fonts, or load_default());
@@ -360,14 +361,17 @@ def generate_dataset(clean_dir: str, output_root: str,
                      seed: int = 42,
                      resume: bool = True,
                      use_ocr_mask: bool = False,
-                     device="cuda") -> dict:
+                     device="cuda",
+                     fonts: Optional[Sequence[str]] = None) -> dict:
     """`count` samples into output_root/{watermarked,clean,masks}: sample
     i draws from random.Random(f"{seed}:{i}") its source, its kind by
     `ratios` ({"logo", "text", "mixed", "multi"} weights) and the rest;
     an existing output is skipped (resume) without drawing. Returns the
     count of each kind and of skipped files. A sample that fails is logged
     and skipped, as in JAX; an input form the port does not read yet
-    (NotImplementedError) is raised."""
+    (NotImplementedError) is raised. `fonts` stands for the system's font
+    files (load_system_fonts, as JAX finds them; their number sets the
+    draws a text sample takes)."""
     device = resolve_device(device)
     ratios = ratios or {"logo": 0.4, "text": 0.3, "mixed": 0.15,
                         "multi": 0.15}
@@ -375,7 +379,7 @@ def generate_dataset(clean_dir: str, output_root: str,
     if not cleans:
         raise FileNotFoundError(f"no clean images in {clean_dir}")
     logos = load_watermarks(logos_dir) if logos_dir else []
-    fonts = load_system_fonts()
+    fonts = load_system_fonts() if fonts is None else list(fonts)
     wm_dir = os.path.join(output_root, "watermarked")
     cl_dir = os.path.join(output_root, "clean")
     mk_dir = os.path.join(output_root, "masks")

@@ -12,8 +12,8 @@ by default) filled by the native latent diffusion
 where its weights do not resolve. Images are numpy BGR
 uint8; the pixel work runs on `device` ("cuda" unless the caller asks for
 the CPU). Files go through utils/image_io.py as in sd3_inpaint.py
-(process_batch refuses a folder holding a file the port cannot decode yet,
-.webp among them, ROADMAP.md §A.5).
+(process_batch refuses a folder holding a form the port cannot decode
+yet, an animated WEBP among them, ROADMAP.md §A.5).
 """
 from __future__ import annotations
 

@@ -17,8 +17,9 @@ ops/components.py (equal masks): gray, 3x3 elliptic MORPH_GRADIENT, Otsu,
 9x3 rectangular close, 8-connected components, then the area, region-ratio
 and aspect guards and the max_mask_ratio clear. Files are read and written
 through utils/image_io.py (PNG, and JPEG at quality 95, by extension);
-process_folder refuses a folder holding a file the port cannot decode yet
-(.webp among them, ROADMAP.md §A.5) before it writes anything.
+process_folder refuses a folder holding a form the port cannot decode yet
+(an animated WEBP, a BigTIFF, ROADMAP.md §A.5) before it writes anything;
+still WEBP files decode.
 """
 from __future__ import annotations
 

@@ -34,12 +34,12 @@ the device. With PREDICT.QUANT every forward (step 1, predict_mask, the
 tiled path, the fused fn) runs the int8 tier (ops/quant.py) through
 _apply_model, with the sidecar next to the weights; without one it warns
 and stays in the model dtype, as the JAX package does. The
-port decodes PNG (interlaced too), JPEG (CMYK and YCCK too) and BMP
-(utils/image_io.py), each file by its content as cv2 does (a JPEG copied
-to {stem}.png by the --no-unet route or a fallback is read as the JPEG it
-is): a folder holding TIFF or WEBP files or a refused JPEG form
-(arithmetic-coded, 12-bit, lossless, hierarchical) raises
-NotImplementedError before any work starts.
+port decodes PNG (interlaced too), JPEG (CMYK and YCCK too), BMP, TIFF
+and WEBP (utils/image_io.py), each file by its content as cv2 does (a
+JPEG copied to {stem}.png by the --no-unet route or a fallback is read as
+the JPEG it is): a folder holding a form not ported yet (a BigTIFF, an
+animated WEBP, an arithmetic-coded, 12-bit, lossless or hierarchical JPEG;
+ROADMAP.md §A.5) raises NotImplementedError before any work starts.
 
 make_fused_repair_fn is the fused detect→repair path (:931-985), whose
 fill is the learned FFC-LaMa generator by default; predict_artifact_masks

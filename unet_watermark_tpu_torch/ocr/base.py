@@ -2,8 +2,9 @@
 
 Region dicts follow the reference's format: bbox is either [x, y, w, h] or
 the 8-coordinate polygon [x1, y1, ..., x4, y4], plus text and confidence.
-Images are read with utils/image_io.py (PNG and JPEG) as RGB, where the JAX
-package reads BGR with cv2; every detector here takes that into account.
+Images are read with utils/image_io.py (PNG, JPEG, BMP, TIFF, WEBP) as
+RGB, where the JAX package reads BGR with cv2; every detector here takes
+that into account.
 A path's size comes from its headers: only a detector that looks at the
 pixels decodes it, on its own device.
 """

@@ -59,8 +59,12 @@ def build(source: str) -> Tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
+        try:
+            proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                                  capture_output=True, text=True)
+        except OSError as e:  # no compiler: not a file the reader can skip
+            raise RuntimeError(f"cannot run {compiler} on {src.name}: {e}"
+                               ) from None
         if proc.returncode != 0:
             raise RuntimeError(f"{Path(compiler).name} failed on {src.name} "
                                f"(rc {proc.returncode}):\n{proc.stderr}")
@@ -72,6 +76,11 @@ def build(source: str) -> Tuple[Path, str]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and dlopen csrc/<source>."""
+    """Build (if needed) and dlopen csrc/<source>; a failure raises
+    RuntimeError (never an OSError, which readers take for an unreadable
+    file)."""
     lib, _ = build(source)
-    return ctypes.CDLL(str(lib))
+    try:
+        return ctypes.CDLL(str(lib))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {lib.name}: {e}") from None

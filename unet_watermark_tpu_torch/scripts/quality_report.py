@@ -63,7 +63,8 @@ def ensure_frozen_set(workdir: str, n: int = 64,
     watermarked/ clean/ masks/, n samples, made on first use (the clean
     sources under clean_src[_tex], 12 logos under logos) and reused once
     complete; the generators' per-index streams make a re-run's files
-    equal."""
+    equal, and the set's bytes do not depend on the machine (its text
+    samples take no font draws)."""
     from ..data.gen_data import generate_dataset
     from ..data.synth_clean import generate_clean_dataset, generate_logo_set
 
@@ -81,9 +82,13 @@ def ensure_frozen_set(workdir: str, n: int = 64,
                            texture_ratio=1.0 if textured else 0.0,
                            device=device)
     generate_logo_set(logos, count=12, seed=CLEAN_SEED + 1)
+    # no fonts: JAX's generator takes draws for the font files it finds,
+    # so its set depends on the machine's fonts (ROADMAP.md §C.12); this
+    # one draws as JAX's does on a machine without any, everywhere
     stats = generate_dataset(
         clean_src, root, logos_dir=logos, count=n,
-        seed=TEX_COMPOSE_SEED if textured else COMPOSE_SEED, device=device)
+        seed=TEX_COMPOSE_SEED if textured else COMPOSE_SEED, device=device,
+        fonts=())
     logger.info("frozen held-out set%s: %s", suffix, stats)
     return root
 

@@ -3,8 +3,8 @@ package): switch-style, side by side, and three-way (original, mask heat
 map, repaired), with letterboxed frames and text overlays.
 
 The frames are JAX's, built the same way on `device` (torch uint8 BGR, as
-cv2 holds them): the images read as cv2.imread reads them
-(utils/image_io.py), resize_image_with_padding by cv2's INTER_LINEAR
+cv2 holds them): the images (PNG, JPEG, BMP, WEBP) read as cv2.imread
+reads them (utils/image_io.py), resize_image_with_padding by cv2's INTER_LINEAR
 (ops/resize.resize_linear_u8), add_text_overlay by ops/draw.py (the
 labels' pixels are cv2's at the sizes the products draw, see there),
 COLORMAP_HOT for the mask. They are written by utils/mp4v.Mp4vWriter,

@@ -1,4 +1,4 @@
-"""Phases 3h-3o of chip_smoke.py, and the helpers they share with it: the
+"""Phases 3h-3n of chip_smoke.py, and the helpers they share with it: the
 timers (CUDA events, host clock, torch.profiler), the log line, the
 in-process CLI call, the LaMa segment accounting and the int8 checks.
 chip_smoke.py imports this module; it needs the card, as chip_smoke.py
@@ -73,7 +73,9 @@ does.
      batch; the smooth tier's frozen files (16 clean JPEGs, 12 logos, the
      first 4 triads) equal byte for byte to their generation on the host.
      The textured witness: the frozen textured set at 128² (4 triads)
-     made on the card and on the host, byte-equal, and its tight e2e
+     made on the card and on the host, byte-equal, and equal to its
+     known digest (TEX_SET_SHA256: the set does not depend on the
+     machine, ROADMAP.md §C.12), and its tight e2e
      repair (segmentation in float32) on each, within TEX_DB_TOL dB, the
      LaMa repair above the no-op floor there, as JAX's and the port's on
      the CPU (tests/test_torch_quality_e2e_tex.py). Then
@@ -166,24 +168,8 @@ does.
      batches' images in a 3 x 4 grid, cropped), bit for bit; sharded_conv2d (3x3,
      halos zero at the border) against the unsharded conv. Logs the NCCL
      version and the phase's seconds.
-  3o the JAX package's own files (formats_phase): csrc/zstd_decode.c and
-     csrc/bmp_rle.c built by the card machine's cc with the other sources, and two known-answer
-     frames (ZSTD_KNOWN: Huffman literals with FSE sequences and a
-     checksum; several blocks without a content size) decoded to their
-     SHA-256s; `repair --no-ocr` over a folder of FORMAT_FILES PNGs of
-     SIZE² (utils/synthetic's images, 2 of them without a logo; the RLE8
-     one cut to 216 colours)
-     and over the same pixels as a 24-bit BMP, an RLE8 palette BMP, a 32-bit
-     BI_BITFIELDS top-down V5 BMP, two Adam7 PNGs and an Adobe CMYK JPEG
-     (transform 0, written by the phase's helper through jpeg_entropy.c's
-     four-component Huffman coder): rc 0, K1 and K2 launched in both runs,
-     every output PNG of the first five byte-equal to the PNG folder's
-     (or, where the pipeline copies an image below the repair threshold,
-     a copy of its input decoding to the same pixels),
-     the CMYK file's decode on the card (colour and gray) equal to its CPU
-     route. Logs the host decode ms of a 1080 x 1920 24-bit BMP, RLE8 BMP
-     and Adam7 PNG, and a 1080 x 1920 CMYK JPEG's entropy (host, C) and
-     pixel (the card) ms.
+  3o lives in tools/smoke_formats.py (formats_phase), which lists its
+     checks.
 """
 from __future__ import annotations
 
@@ -1305,6 +1291,11 @@ def auto_phase(work: Path, seed: int, dev, test_files=AUTO_TEST_FILES,
 QUALITY_LIMIT = 4
 QUALITY_HOST_TRIADS = 4
 TEX_SIZE, TEX_TRIADS, TEX_DB_TOL = 128, 4, 0.1
+# the textured 128² set's files (watermarked, clean, masks; _set_digest) as
+# made on a CPU with torch 2.13 and numpy 2.0.2: other libraries and other
+# installed fonts write the same bytes
+TEX_SET_SHA256 = ("6ffc172f352c887459bb6656e3f191004112dc031fe93ca03ce891"
+                  "3978d845b2")
 CALIB_IMAGES, CALIB_BATCH = 8, 4
 CALIB_AGREE, CALIB_IOU, CALIB_BROKEN = 0.99, 0.9, 0.25
 SHELL_FILES = ("a00", "a01", "a10", "a11")
@@ -1323,6 +1314,18 @@ def _non_finite(node, path: str = "") -> list:
     if isinstance(node, (int, float)) and not isinstance(node, bool):
         return [] if math.isfinite(node) else [path]
     return []
+
+
+def _set_digest(root: Path) -> str:
+    """SHA-256 over a triad set's relative paths and bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for sub in ("watermarked", "clean", "masks"):
+        for name in sorted(os.listdir(root / sub)):
+            h.update(f"{sub}/{name}".encode())
+            h.update((root / sub / name).read_bytes())
+    return h.hexdigest()
 
 
 def _same_files(a: Path, b: Path, names) -> list:
@@ -1522,6 +1525,10 @@ def quality_phase(work: Path, dev, limit: int = QUALITY_LIMIT,
     if tex_differ:
         failures.append(f"textured {TEX_SIZE}² set card vs host: "
                         f"{tex_differ}")
+    tex_digest = _set_digest(tex_roots["card"])
+    if tex_digest != TEX_SET_SHA256:
+        failures.append(f"textured {TEX_SIZE}² set: digest {tex_digest}, "
+                        f"not the known {TEX_SET_SHA256}")
     card, host = tex["card"], tex["host"]
     tex_err = max(abs(card[e][k] - host[e][k])
                   for e in ("floor", "pushpull", "lama")
@@ -1537,6 +1544,8 @@ def quality_phase(work: Path, dev, limit: int = QUALITY_LIMIT,
     tex_s = time.perf_counter() - t0
     log("quality_textured_witness", size=TEX_SIZE, triads=TEX_TRIADS,
         mask_mode="tight", seg_dtype="float32", files_equal_host=True,
+        set_sha256=tex_digest, set_equals_known=tex_digest ==
+        TEX_SET_SHA256,
         card=card, host=host, card_vs_host_max_abs_db=tex_err,
         gate_db=TEX_DB_TOL, seconds=tex_s)
     # (c) the calibration, into the work directory
@@ -2987,357 +2996,3 @@ def sharded_phase(work: Path, seed: int, dev, pred) -> dict:
         raise AssertionError(f"the group's steps against the steps without "
                              f"a group: {fields}")
     return fields
-
-
-# phase 3o: the JAX package's own files. Two known-answer zstd frames, made
-# on a host with the `zstandard` package (0.25): A is
-# ZstdCompressor(level=19, write_checksum=True).compress(text) for
-# text = b" ".join(WORDS[(i * i + 3 * i) % 16] + str(i % 97).encode() for
-# i in range(400)) (3449 bytes: one compressed block, Huffman literals in
-# four streams, FSE-compressed sequence tables, an XXH64 checksum); B is
-# ZstdCompressor(level=3, write_content_size=False).compress(
-# bytes((i * 7919) % 251 for i in range(300000))) (several blocks, no
-# content size). Each is held to its content's SHA-256.
-ZSTD_KNOWN = (
-    ("28b52ffd64790cbd180076e34c199029190e405b7ce0af96feb776773e524a99"
-     "524a12fbee80095a003e003d00523472bfe7f778d1886fbba6e77051a7d2d76d"
-     "d9458bc411de25c760d1c8bd01070a0a06866ee0162b1a69500090806038c281"
-     "05030e06172810283034814021818084810807080a00181620a17030044242c1"
-     "408200050506010ba97fe42ebfc78b466e979ec345d3be6ecb365ae490a7598e"
-     "acd146ee8edb8a46ee7251555515553442642a9146543433321f4f87b3282119"
-     "11b94b9944452377b928a191bb94459d7ef95deef1a291dbe6eca291d66dd9b5"
-     "45a49066c905479bc9ee725b148ddce542ee7251442377b9a8a191bb5c94d0c8"
-     "5d06452377b990bacb45118dd05d8ea28646ee723125347271b9a8d3c8fd7251"
-     "a691bb5c5469e42e17451ab9cb458d667297db68e42e175277b928a291bb5c04"
-     "8189a821a8bcc7ce6ea1898031266f03210408d396c40349bb77a8a55857424d"
-     "213c065229942d94dd6d41b77f7bd028eb0654969d17204a81b610f02cd11514"
-     "47413704923a56a92b253a90114558c3450523ca45095afce7d12ae72eddcb24"
-     "3a8ba21e0df9125a0b6423b5ba32a6086da2c9550b832435c705081d21901a31"
-     "6831bf47c9e96536f76c22070ab762ed3c34a1db29b3544124c9de647e256c96"
-     "22b1661d80f4c6d63c7f25b99d65928a200288f2a7a356fee76db1111da0e598"
-     "7b235354c2592716280081647ecbbc7e4b89245ac4e60ac26120d54169616c51"
-     "07b5ec6458b040d2c0750042858b5d1076621d04414bfe8c26a7d7d9ccb3230f"
-     "28ddca1af313c56f43195283b0e47a6bfe4aee594e62893c20a0f1dae655896f"
-     "6399a422880222f2cb512a97cc7bb18b7e40a1c9854eb912d3a631a20661c9fd"
-     "d6fc7e93122b4bc4cc35c262949aa0cc560ca8cc4d5147fcab8e0c08d9e81ae6"
-     "df95dc8632484510b555f4d7a33b189f9f04dd48022a9bbcc029a2a86e7d19a5"
-     "0ac292e4cdf93f64ccfac08e7aa0406b6b9e9f43b80d652f7550cbba37cfff50"
-     "6476026ca200946e7d8de6f9506e4d994b6d5081b2eb6df37ec898f5c1f25507"
-     "969b64415347c8b5215b290485ac7863cd71ba5d24a9e502613026a557d500f0"
-     "2a0b4f084e",
-     "8f1bca7d5bcbf7c222171c3164299a060406efde5c09195a7cc77fa2383c015d"),
-    ("28b52ffd00482c0800b40f008a19a332bc4bd564ee7d0c9625af3ec857e170fa"
-     "8918a231bb4ad463ed7c0b9524ae3dc756e06ff98817a130ba49d362ec7b0a94"
-     "23ad3cc655df6ef88716a02fb948d261eb7a099322ac3bc554de6df786159f2e"
-     "b847d160ea79089221ab3ac453dd6cf685149e2db746d05fe978079120aa39c3"
-     "52dc6bf584139d2cb645cf5ee87706901fa938c251db6af483129c2bb544ce5d"
-     "e776058f1ea837c150da69f382119b2ab443cd5ce675048e1da736c04fd968f2"
-     "81109a29b342cc5be574038d1ca635bf4ed867f1800f9928b241cb5ae473028c"
-     "1ba534be4dd766f07f0e9827b140ca59e372018b1aa433bd4cd665ef7e0d9726"
-     "b03fc958e27101007b817f7f6ea44c0000087b0100fcff3910024d000008f601"
-     "00dc131d0801",
-     "8c2d8ae844f0b98f041a85f0208f857e73cdc7e22492308755d3657480439207"))
-FORMAT_FILES = 6        # the folder's images, SIZE² each
-FORMAT_CMYK = "f5"      # the stem written as an Adobe CMYK JPEG
-FORMAT_TIMED = (1080, 1920)
-
-
-def bmp_bytes(rgb, form: str) -> bytes:
-    """An (H, W, 3) uint8 image as a BMP: "24" (BITMAPINFOHEADER,
-    bottom-up), "rle8" (8-bit palette of the image's colours, RLE8 with an
-    end of line a row and an end of bitmap; at most 256 colours), "32td"
-    (a V5 header, BI_BITFIELDS with the masks B G R A, top-down)."""
-    import struct
-
-    import numpy as np
-
-    h, w = rgb.shape[:2]
-    pal = b""
-    if form == "24":
-        pitch = (3 * w + 3) & ~3
-        rows = np.zeros((h, pitch), np.uint8)
-        rows[:, :3 * w] = rgb[..., ::-1].reshape(h, -1)
-        body, bpp, comp, height = rows[::-1].tobytes(), 24, 0, h
-        info = b""
-    elif form == "32td":
-        px = np.concatenate([rgb[..., ::-1], np.full((h, w, 1), 255,
-                                                     np.uint8)], 2)
-        body, bpp, comp, height = px.tobytes(), 32, 3, -h
-        info = struct.pack("<4I", 0xFF0000, 0xFF00, 0xFF, 0xFF000000)
-        info += bytes(124 - 40 - len(info))
-    else:
-        colors, idx = np.unique(rgb.reshape(-1, 3), axis=0,
-                                return_inverse=True)
-        if len(colors) > 256:
-            raise ValueError(f"{len(colors)} colours for an 8-bit palette")
-        idx = idx.reshape(h, w).astype(np.uint8)
-        pal = np.concatenate([colors[:, ::-1], np.zeros((len(colors), 1),
-                                                        np.uint8)], 1)
-        pal = pal.tobytes()
-        out = bytearray()
-        for r in idx[::-1]:
-            cuts = np.flatnonzero(np.diff(r.astype(np.int16))) + 1
-            starts = np.concatenate([[0], cuts])
-            ends = np.concatenate([cuts, [w]])
-            for s, e in zip(starts, ends):
-                while e - s > 0:
-                    n = min(e - s, 255)
-                    out += bytes([n, int(r[s])])
-                    s += n
-            out += b"\x00\x00"
-        out[-2:] = b"\x00\x01"
-        body, bpp, comp, height = bytes(out), 8, 1, h
-        info = b""
-    header = 124 if form == "32td" else 40
-    head = struct.pack("<IiiHHIIiiII", header, w, height, 1, bpp, comp,
-                       len(body), 2835, 2835, len(pal) // 4, 0) + info
-    off = 14 + len(head) + len(pal)
-    return (b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + head
-            + pal + body)
-
-
-def adam7_png(rgb) -> bytes:
-    """An (H, W, 3) uint8 image as an interlaced (Adam7) 8-bit RGB PNG,
-    each pass's rows Up-filtered (its own first row against zeros)."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    from unet_watermark_tpu_torch.utils import image_io
-
-    h, w = rgb.shape[:2]
-    raw = b"".join(image_io._filter_rows(np.ascontiguousarray(
-        rgb[y0::dy, x0::dx]), (2,)) for x0, y0, dx, dy in image_io.ADAM7
-        if rgb[y0::dy, x0::dx].size)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1)
-    return (image_io.SIGNATURE + image_io._chunk(b"IHDR", ihdr)
-            + image_io._chunk(b"IDAT", zlib.compress(raw, 1))
-            + image_io._chunk(b"IEND", b""))
-
-
-def cmyk_jpeg(cmyk, quality: int = 90) -> bytes:
-    """An (H, W, 4) uint8 CMYK image as a baseline 4:4:4 JPEG with an Adobe
-    marker of transform 0 (values stored as given): the port's FDCT and
-    quantizer (ops/jpeg.py) a component, the luma table for C and the
-    chroma one for M, Y and K, and jpeg_entropy.c's Huffman coding of the
-    four components in MCU order."""
-    import struct
-
-    import numpy as np
-    import torch
-
-    from unet_watermark_tpu_torch.ops import jpeg as jpx
-    from unet_watermark_tpu_torch.ops.kernels import jpeg_entropy as je
-    from unet_watermark_tpu_torch.utils import jpeg
-
-    h, w = cmyk.shape[:2]
-    bh, bw = -(-h // 8), -(-w // 8)
-    tables = jpx.quality_tables(quality)
-    blocks = []
-    for c in range(4):
-        plane = jpx._extend(torch.from_numpy(cmyk[..., c]).long(), 8 * bh,
-                            8 * bw)
-        coef = jpx.quantize(jpx.fdct_islow(jpx._blocks(plane) - 128),
-                            tables[c > 0])
-        blocks.append(coef[..., jpx._ZIGZAG].to(torch.int16).numpy())
-    order = np.ascontiguousarray(np.stack(blocks, 2).reshape(-1, 64))
-    comp = np.tile(np.arange(4, dtype=np.int32), bh * bw)
-    codes, lens = je._std_codes()
-    codes4 = np.ascontiguousarray(codes[[0, 1, 1, 1]])
-    lens4 = np.ascontiguousarray(lens[[0, 1, 1, 1]])
-    cap = order.size * 8 + 1024
-    out = np.empty(cap, np.uint8)
-    size = je._lib().uwt_jpeg_encode_scan(
-        order.ctypes.data, order.shape[0], comp.ctypes.data, 4,
-        codes4.ctypes.data, lens4.ctypes.data, out.ctypes.data, cap)
-    if size < 0:
-        raise RuntimeError(f"uwt_jpeg_encode_scan failed ({size})")
-    seg = jpeg._segment
-    parts = [jpeg.SOI, seg(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0]))]
-    for t, q in enumerate(tables):
-        parts.append(seg(0xDB, bytes([t]) + bytes(q[i] for i in
-                                                  jpeg.NATURAL[:64])))
-    parts.append(seg(0xC0, struct.pack(">BHHB", 8, h, w, 4) + bytes(
-        [1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1, 4, 0x11, 1])))
-    for cls_t, (bits, vals) in ((0x00, jpeg.STD_DC_LUMA),
-                                (0x10, jpeg.STD_AC_LUMA),
-                                (0x01, jpeg.STD_DC_CHROMA),
-                                (0x11, jpeg.STD_AC_CHROMA)):
-        parts.append(seg(0xC4, bytes([cls_t]) + bytes(bits) + bytes(vals)))
-    parts.append(seg(0xDA, bytes([4, 1, 0x00, 2, 0x11, 3, 0x11, 4, 0x11, 0,
-                                  63, 0])))
-    return b"".join(parts) + out[:size].tobytes() + b"\xff\xd9"
-
-
-def format_images(n: int, h: int, w: int, seed: int, clean: int = 0):
-    """utils/synthetic's watermarked images as (n, h, w, 3) uint8, the
-    last `clean` without a logo (their empty masks classify as the
-    watermark type, whose parity chain runs K1 and K2)."""
-    import numpy as np
-
-    from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
-
-    imgs = np.rint(watermarked_images(n, max(h, w), seed=seed,
-                                      clean=clean)[0] * 255)
-    return imgs[:, :h, :w].astype(np.uint8)
-
-
-def to_palette(img):
-    """An image cut to at most 216 colours (6 levels a channel), so an
-    8-bit palette holds it."""
-    return img // 43 * 51
-
-
-def formats_phase(work: Path, seed: int, dev, size: int = SIZE,
-                  timed_shape=FORMAT_TIMED) -> dict:
-    """Phase 3o: the zstd decoder's known answers (the C library built from
-    the checkout), then `repair --no-ocr` over two folders of the same
-    FORMAT_FILES images: PNGs, and the same pixels as a 24-bit BMP, an RLE8
-    BMP, a 32-bit BI_BITFIELDS top-down V5 BMP, two Adam7 PNGs and (the
-    last) an Adobe CMYK JPEG. Every output of the first five equals the
-    PNG folder's byte for byte; the CMYK file's decode on the card equals
-    its CPU route; K1 and K2 launched in both runs. Then the host decode
-    ms of a 1080p BMP and Adam7 PNG, and a 1080p CMYK JPEG's entropy and
-    pixel ms on the card. Returns the timing fields and the launches.
-    On the CPU (a rehearsal) the CLI runs with --device cpu."""
-    import hashlib
-
-    import numpy as np
-    import torch
-
-    from unet_watermark_tpu_torch.ops.kernels import morph_chain as kc
-    from unet_watermark_tpu_torch.ops.kernels import zstd
-    from unet_watermark_tpu_torch.utils import bmp, image_io
-
-    t_phase = time.perf_counter()
-    answers = []
-    for frame, sha in ZSTD_KNOWN:
-        out = zstd.decompress(bytes.fromhex(frame))
-        answers.append({"bytes": len(out),
-                        "sha256_ok": hashlib.sha256(out).hexdigest() == sha})
-    if not all(a["sha256_ok"] for a in answers):
-        raise AssertionError(f"zstd known answers: {answers}")
-
-    dev = torch.device(dev)
-    forms = ["24", "rle8", "32td", "adam7", "adam7", "cmyk"]
-    imgs = format_images(FORMAT_FILES, size, size, seed + 31, clean=2)
-    imgs[forms.index("rle8")] = to_palette(imgs[forms.index("rle8")])
-    png, mixed = work / "fmt_png", work / "fmt_mixed"
-    png.mkdir()
-    mixed.mkdir()
-    t0 = time.perf_counter()
-    for i, (img, form) in enumerate(zip(imgs, forms)):
-        stem = f"f{i}"
-        image_io.write_png(png / f"{stem}.png", img)
-        if form == "cmyk":
-            # Adobe's inverted convention with no black: c' = R, and so on
-            cmyk = np.concatenate([img, np.full_like(img[..., :1], 255)], 2)
-            (mixed / f"{stem}.jpg").write_bytes(cmyk_jpeg(cmyk))
-        elif form == "adam7":
-            (mixed / f"{stem}.png").write_bytes(adam7_png(img))
-        else:
-            (mixed / f"{stem}.bmp").write_bytes(bmp_bytes(img, form))
-    write_s = time.perf_counter() - t0
-    for path in sorted(mixed.iterdir()):  # the host decode as cv2 reads
-        if path.suffix != ".jpg" and not np.array_equal(
-                image_io.read_rgb(path), imgs[int(path.stem[1:])]):
-            raise AssertionError(f"{path.name} does not decode to the "
-                                 f"pixels written")
-
-    runs = {}
-    for name, folder in (("png", png), ("mixed", mixed)):
-        kc.reset_launch_counts()
-        argv = ["repair", "--input", str(folder), "--no-ocr", "--output",
-                str(work / f"{name}_out")]
-        if dev.type != "cuda":
-            argv += ["--device", dev.type]
-        rc, wall, _ = run_cli(argv, dev, timer=False)
-        launches = {k.__name__: k.launches for k in kc.KERNELS}
-        if rc != 0 or (dev.type == "cuda" and min(launches.values()) < 1):
-            raise AssertionError(f"repair over {folder.name}: rc {rc}, "
-                                 f"launches {launches}")
-        runs[name] = {"rc": rc, "wall_s": wall, "launches": launches}
-    # every output PNG of the first five files byte-equal to the PNG
-    # folder's, but where the pipeline copies the input file (an image
-    # below the repair threshold, as the JAX package copies it): then a
-    # copy of the BMP or Adam7 input, decoding to the PNG folder's pixels
-    a, b = work / "png_out", work / "mixed_out"
-    inputs = {p.stem: p for p in mixed.iterdir()}
-    outputs = {}
-    for root in (a, b):
-        outputs[root] = {str(p.relative_to(root)) for p in root.rglob("*.png")
-                         if not p.name.startswith(FORMAT_CMYK)}
-    compared, copied, differ = 0, 0, []
-    if outputs[a] != outputs[b]:
-        differ.append(sorted(outputs[a] ^ outputs[b]))
-    for rel in sorted(outputs[a] & outputs[b]):
-        x, y = (a / rel).read_bytes(), (b / rel).read_bytes()
-        compared += 1
-        if x == y:
-            continue
-        src = inputs[Path(rel).name.split(".")[0].split("_")[0]]
-        if y == src.read_bytes() and np.array_equal(
-                image_io.read_rgb(a / rel), image_io.read_rgb(b / rel)):
-            copied += 1
-        else:
-            differ.append(rel)
-    if differ or not compared:
-        raise AssertionError(f"repair outputs of the BMP/Adam7 folder differ "
-                             f"from the PNG folder's: {differ}")
-
-    data = (mixed / f"{FORMAT_CMYK}.jpg").read_bytes()
-    card = image_io.decode_jpeg(data, dev).cpu()
-    cpu = image_io.decode_jpeg(data, "cpu")
-    card_gray = image_io.decode_jpeg(data, dev, gray=True).cpu()
-    if not (torch.equal(card, cpu) and torch.equal(
-            card_gray, image_io.decode_jpeg(data, "cpu", gray=True))):
-        raise AssertionError("the CMYK JPEG's decode on the card differs "
-                             "from its CPU route")
-    cmyk_err = (card.int() - torch.from_numpy(
-        imgs[int(FORMAT_CMYK[1:])]).int()).abs().float().mean().item()
-
-    # 1080p decodes: BMP and Adam7 on the host, the CMYK JPEG's entropy
-    # decode (host, C) and pixel stage (the card) split
-    th, tw = timed_shape
-    big = format_images(1, th, tw, seed + 32)[0]
-    timed = {}
-    for key, blob, fn, reps in (
-            ("bmp24", bmp_bytes(big, "24"), bmp.decode, 3),
-            ("bmp_rle8", bmp_bytes(to_palette(big), "rle8"), bmp.decode, 3),
-            ("adam7", adam7_png(big), image_io.decode_png, 3)):
-        ms = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn(blob)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        timed[f"{key}_1080x1920_decode_ms"] = ms  # (at timed_shape)
-    jpg = cmyk_jpeg(np.concatenate([big, np.full_like(big[..., :1], 255)],
-                                   2))
-    parts = collections.defaultdict(list)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-
-    @contextlib.contextmanager
-    def part(name):
-        sync()
-        t0 = time.perf_counter()
-        yield
-        sync()
-        parts[name].append((time.perf_counter() - t0) * 1e3)
-
-    for _ in range(4):
-        image_io.decode_jpeg(jpg, dev, part=part)
-    timed["cmyk_1080x1920_entropy_ms"] = parts["jpeg_entropy"][1:]
-    timed["cmyk_1080x1920_pixels_ms"] = parts["jpeg_pixels"][1:]
-    fields = {"zstd_known_answers": answers, "files": FORMAT_FILES,
-              "size": size, "timed_shape": list(timed_shape), "forms": forms, "write_s": write_s,
-              "outputs_compared": compared, "outputs_equal": True,
-              "outputs_input_copies": copied,
-              "cmyk_card_equals_cpu": True,
-              "cmyk_mean_abs_vs_pixels": cmyk_err,
-              "repair": runs, **timed,
-              "phase_s": time.perf_counter() - t_phase}
-    log("formats", **fields)
-    return {"timing": {k: v for k, v in fields.items()
-                       if k.endswith(("_ms", "_s"))},
-            "launches": runs["mixed"]["launches"]}

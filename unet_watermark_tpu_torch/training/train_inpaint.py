@@ -135,9 +135,11 @@ def inpaint_loss(pred: torch.Tensor, target: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def clean_files(clean_dir: str) -> List[str]:
-    """The folder's image files, sorted. Raises FileNotFoundError for a
-    folder without any, and NotImplementedError (ROADMAP.md §A.5) for a
-    file the port cannot decode where cv2 could, before any work."""
+    """The folder's image files (JPEG, PNG, WEBP), sorted. Raises
+    FileNotFoundError for a folder without any, and NotImplementedError
+    (ROADMAP.md §A.5) for a form the port cannot decode where cv2 could
+    (an animated WEBP), before any work; a file cv2 cannot read is
+    skipped by the readers, as JAX skips it."""
     files = sorted(os.path.join(clean_dir, f) for f in os.listdir(clean_dir)
                    if f.lower().endswith(CLEAN_EXTS))
     if not files:

@@ -1,29 +1,37 @@
 """Image read and write: the port's stand-in for the JAX package's
-cv2.imread / cv2.imwrite (the GPU machine has no cv2 or PIL). PNG is read
-and written with numpy and zlib; JPEG is read by utils/jpeg.py's parser,
-the entropy decoder of ops/kernels/jpeg_entropy.py and the pixel stage of
-ops/jpeg.py. As in cv2, a file's content picks its decoder, not its name.
+cv2.imread / cv2.imwrite (the GPU machine has no cv2 or PIL). As in cv2, a
+file's content picks its decoder, not its name: PNG here (numpy and zlib),
+JPEG (utils/jpeg.py's parser, ops/kernels/jpeg_entropy.py, the pixel stage
+of ops/jpeg.py), BMP (utils/bmp.py), TIFF (utils/tiff.py) and WEBP
+(utils/webp.py: csrc/webp_decode.c on the host, ops/webp.py's pixel
+stage on the device).
 
 read_rgb(path) returns what cv2.cvtColor(cv2.imread(path), BGR2RGB) returns:
-(H, W, 3) uint8. PNG: alpha dropped (no compositing), gray replicated to
-three channels, palettes expanded, 1/2/4-bit gray scaled to 8 bits and
-16-bit samples reduced to their high byte (as libpng's strip_16 does under
-cv2). JPEG: libjpeg-turbo's pixels, EXIF orientation applied.
-read_gray(path) is cv2.imread(path, IMREAD_GRAYSCALE) for PNGs stored as
-gray (with or without alpha; the mask files the pipeline writes) and for
-every JPEG (a colour JPEG's Y plane). A colour PNG read as gray raises
-NotImplementedError: cv2 converts it inside libpng with a gamma-aware rule
-that is not ported. Both decode on the host (a JPEG with the plain Python
-entropy decoder). read_rgb_tensor(path, device) returns the RGB image on a
-device: a JPEG's pixel stage runs there, and on a CUDA device its entropy
-decode is the C decoder; a PNG is decoded on the host and uploaded.
-Interlaced PNGs, BMP, TIFF and WEBP files and the JPEG forms utils/jpeg.py
-refuses raise NotImplementedError; a file cv2 would give None for raises
-one of UNREADABLE.
+(H, W, 3) uint8. PNG: interlaced or not, alpha dropped (no compositing),
+gray replicated to three channels, palettes expanded, 1/2/4-bit gray
+scaled to 8 bits and 16-bit samples reduced to their high byte (as
+libpng's strip_16 does under cv2). JPEG: libjpeg-turbo's pixels, EXIF
+orientation applied. read_gray(path) is cv2.imread(path,
+IMREAD_GRAYSCALE): a gray PNG as stored; a colour or palette PNG through
+libpng's rgb_to_gray as cv2 sets it up (png_set_rgb_to_gray(png, 1, 0.299,
+0.587)): (9797 R + 19234 G + 3737 B) >> 15, truncated at 8 bits, rounded
+at 16 bits and before strip_16, and through libpng's gamma tables where a
+gAMA or sRGB chunk gives a significant file gamma (_rgb_to_gray); a
+JPEG's Y plane; the other formats as their modules say. Both decode on
+the host (a JPEG with the plain Python entropy decoder, a WEBP with the C
+decoder and its pixel stage on the CPU). read_rgb_tensor(path, device)
+returns the RGB image on a device: a JPEG's or a WEBP's pixel stage runs
+there (on a CUDA device a JPEG's entropy decode is the C decoder); a PNG,
+BMP or TIFF is decoded on the host and uploaded. The forms the format
+modules refuse (a BigTIFF, a TIFF of other depths, codecs or colour
+spaces, an animated WEBP, the JPEG forms utils/jpeg.py refuses) raise
+NotImplementedError naming ROADMAP.md §A.5; a file cv2 would give None
+for raises one of UNREADABLE.
 
 read_rgba_tensor(path, device) is PIL's Image.open(path).convert("RGBA")
-(data/gen_data.py's reads): a PNG's alpha channel or tRNS kept, a JPEG
-without its EXIF orientation; 16-bit PNGs raise NotImplementedError.
+(data/gen_data.py's reads): a PNG's alpha channel or tRNS kept (a 16-bit
+gray PNG as PIL's I;16 clipped to 255, other 16-bit samples' high byte), a
+JPEG without its EXIF orientation, a WEBP's alpha, a TIFF as PIL opens it.
 
 write_png(path, img) stores an (H, W) gray, (H, W, 3) RGB or (H, W, 4)
 RGBA uint8 image as cv2.imwrite stores it (after RGB2BGR for colour):
@@ -45,18 +53,19 @@ of one pixel), then the Up rows from the top.
 from __future__ import annotations
 
 import contextlib
-import os
+import math
 import struct
 import zlib
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import jpeg as jpeg_pixels
 from ..ops.kernels import jpeg_entropy
-from . import bmp, jpeg
+from . import bmp, jpeg, tiff, webp
 from .bmp import BMPError
+from .decode_error import DecodeError
 from .jpeg import JPEGError
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -65,70 +74,44 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 ZLIB_LEVEL = 1  # the deflate level cv2.imwrite uses by default
-# signatures of the formats cv2 reads that the port does not decode yet
-UNPORTED = {"tiff": (b"II*\x00", b"MM\x00*"), "webp": (b"RIFF",)}
-UNPORTED_EXTS = ("tiff", "tif", "webp")
 # Adam7's passes: (first column, first row, column step, row step)
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-
-
-class DecodeError(ValueError):
-    """The file is neither a PNG, a JPEG nor a BMP (cv2.imread gives
-    None)."""
 
 
 class PNGError(DecodeError):
     """The file is not a well-formed PNG."""
 
 
-# what a reader raises where cv2.imread would return None
+# what a reader raises where cv2.imread would return None (PNGError,
+# tiff.TIFFError and webp.WEBPError are DecodeErrors)
 UNREADABLE = (OSError, DecodeError, JPEGError, BMPError)
+FORMATS = "PNG, JPEG, BMP, TIFF or WEBP"
 
 
 def sniff(head: bytes) -> Optional[str]:
-    """The format a file's first bytes name: png, jpeg, bmp, one of
-    UNPORTED's, or None."""
+    """The format a file's first bytes name: png, jpeg, bmp, tiff, webp or
+    None (a file cv2 reads by none of the port's decoders)."""
     if head.startswith(SIGNATURE):
         return "png"
     if head.startswith(b"\xff\xd8\xff"):
         return "jpeg"
     if head.startswith(b"BM"):
         return "bmp"
-    for kind, sigs in UNPORTED.items():
-        if any(head.startswith(sig) for sig in sigs) and (
-                kind != "webp" or head[8:12] == b"WEBP"):
-            return kind
+    if tiff.is_tiff(head):
+        return "tiff"
+    if webp.is_webp(head):
+        return "webp"
     return None
-
-
-def _refuse_unported(path, head: bytes) -> Optional[str]:
-    """The format of a file from its first bytes (sniff); raises
-    NotImplementedError, naming the ROADMAP.md item, for a TIFF or WEBP
-    file, by content, or by name where the content is neither PNG, JPEG
-    nor BMP."""
-    kind = sniff(head)
-    ext = os.path.splitext(str(path))[1][1:].lower()
-    if kind in UNPORTED or (kind is None and ext in UNPORTED_EXTS):
-        raise NotImplementedError(
-            f"{path}: a {(kind or ext).upper()} file: the port decodes PNG, "
-            f"JPEG and BMP; TIFF and WEBP decoding is not ported yet "
-            f"(ROADMAP.md §A.5, other image formats)")
-    return kind
 
 
 def require_decodable(path) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for a file
-    this module cannot decode where cv2 could: a TIFF or WEBP file or a
-    refused JPEG form (arithmetic-coded, 12-bit, lossless, hierarchical).
-    A file cv2 would give None for passes: the pipeline logs and skips it,
-    as the JAX package does."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(16)
-    except OSError:
-        head = b""
-    _refuse_unported(path, head)
+    this module cannot decode where cv2 could: a form check_image refuses
+    (a BigTIFF, a TIFF of other depths, codecs or colour spaces, an
+    animated WEBP, an arithmetic-coded, 12-bit, lossless or hierarchical
+    JPEG). A file cv2 would give None for passes: the pipeline logs and
+    skips it, as the JAX package does."""
     try:
         check_image(path)
     except UNREADABLE:
@@ -169,8 +152,9 @@ def _header(body: bytes):
 
 def check_image(path) -> Tuple[int, int]:
     """(height, width) of the image cv2.imread would return, from the
-    headers alone (a JPEG's up to its first scan, EXIF orientation
-    applied); raises as the decoder would for a file it cannot decode."""
+    headers alone (a JPEG's up to its first scan, a TIFF's first IFD, a
+    WEBP's chunks up to its image's, EXIF or TIFF orientation applied);
+    raises as the decoder would for a file it cannot decode."""
     with open(path, "rb") as f:
         head = f.read(33)
         kind = sniff(head)
@@ -180,8 +164,16 @@ def check_image(path) -> Tuple[int, int]:
         if kind == "bmp":
             info = bmp.parse(head + f.read(2048))
             return info.height, info.width
+        if kind == "tiff":
+            info = tiff.parse(head + f.read())
+            if info.orientation in (5, 6, 7, 8):
+                raise tiff.TIFFError(f"{path}: cv2.imread reads no TIFF "
+                                     f"turned a quarter")
+            return info.height, info.width
+        if kind == "webp":
+            return webp.oriented_size(webp.parse(head + f.read()))
     if kind != "png" or head[12:16] != b"IHDR":
-        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+        raise DecodeError(f"{path}: not a {FORMATS} file")
     w, h = _header(head[16:29])[:2]
     return h, w
 
@@ -243,11 +235,15 @@ def _wavefront(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _unpack(rows: np.ndarray, w: int, h: int, depth: int, ctype: int,
-            channels: int) -> np.ndarray:
+            channels: int, wide: bool = False) -> np.ndarray:
     """Unfiltered rows → (h, w, channels) uint8 samples: 16-bit ones
-    reduced to their high byte, 1/2/4-bit gray scaled to 8 bits."""
+    reduced to their high byte (wide=True: kept, uint16), 1/2/4-bit gray
+    scaled to 8 bits."""
     if depth == 16:
-        return rows.reshape(h, w, channels, 2)[..., 0]  # the high byte
+        pairs = rows.reshape(h, w, channels, 2)
+        if wide:
+            return pairs[..., 0].astype(np.uint16) << 8 | pairs[..., 1]
+        return pairs[..., 0]  # the high byte
     if depth == 8:
         return rows.reshape(h, w, channels)
     per = 8 // depth
@@ -259,13 +255,27 @@ def _unpack(rows: np.ndarray, w: int, h: int, depth: int, ctype: int,
     return px
 
 
-def _png_samples(data: bytes):
-    """The unfiltered samples of a PNG: (px (H, W, channels) uint8, colour
-    type, bit depth, PLTE as (N, 3) or None, tRNS body or None); 16-bit
-    samples reduced to their high byte, 1/2/4-bit gray scaled to 8 bits.
-    An interlaced file's seven Adam7 passes are each unfiltered and
-    unpacked on their own, then scattered into the image."""
+class PNGSamples(NamedTuple):
+    px: np.ndarray               # (H, W, channels) uint8, or uint16 (wide)
+    ctype: int                   # colour type
+    depth: int                   # bit depth
+    palette: Optional[np.ndarray]  # PLTE as (N, 3) uint8
+    trns: Optional[bytes]        # the tRNS body
+    gamma: Optional[int]         # the file gamma x 100000 libpng takes
+    sig_bit: int                 # sBIT's largest colour entry, 0 if none
+
+
+def _png_samples(data: bytes, wide: bool = False) -> PNGSamples:
+    """The unfiltered samples of a PNG, 16-bit ones reduced to their high
+    byte (wide=True: kept), 1/2/4-bit gray scaled to 8 bits, with the
+    chunks the readers use. An interlaced file's seven Adam7 passes are
+    each unfiltered and unpacked on their own, then scattered into the
+    image. The gamma is libpng's: sRGB's 45455 where an sRGB chunk comes
+    before PLTE and IDAT, else such a gAMA chunk's value (16 up to
+    625000000), else None."""
     header, palette, trns, idat = None, None, None, []
+    gama = srgb = None
+    sig_bit = 0
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = _header(body)
@@ -275,6 +285,14 @@ def _png_samples(data: bytes):
             trns = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif palette is None and not idat:  # libpng's place for these
+            if kind == b"gAMA" and len(body) == 4 and gama is None:
+                g = struct.unpack(">I", body)[0]
+                gama = g if 16 <= g <= 625000000 else None
+            elif kind == b"sRGB" and len(body) == 1 and body[0] < 4:
+                srgb = 45455
+            elif kind == b"sBIT" and body:
+                sig_bit = max(body[:3])
     if header is None or not idat:
         raise PNGError("missing IHDR or IDAT")
     w, h, depth, ctype, interlace = header
@@ -293,7 +311,8 @@ def _png_samples(data: bytes):
         raise PNGError(f"image data is {raw.size} bytes, expected "
                        f"{sum(sizes)}")
     if interlace:
-        px = np.empty((h, w, channels), np.uint8)
+        px = np.empty((h, w, channels),
+                      np.uint16 if wide and depth == 16 else np.uint8)
     at = 0
     for (x0, y0, dx, dy), (pw, ph), size in zip(passes, shapes, sizes):
         if not size:
@@ -301,7 +320,7 @@ def _png_samples(data: bytes):
         rowbytes = (pw * bits + 7) // 8
         rows = _unfilter(raw[at:at + size], ph, rowbytes, max(1, bits // 8))
         at += size
-        sub = _unpack(rows, pw, ph, depth, ctype, channels)
+        sub = _unpack(rows, pw, ph, depth, ctype, channels, wide)
         if not interlace:
             px = sub
         else:
@@ -311,26 +330,113 @@ def _png_samples(data: bytes):
             raise PNGError("palette image without PLTE")
         if px.max(initial=0) >= len(palette):
             raise PNGError("palette index out of range")
-    return px, ctype, depth, palette, trns
+    return PNGSamples(px, ctype, depth, palette, trns, srgb or gama,
+                      sig_bit if ctype != 3 else 0)
+
+
+# png_set_rgb_to_gray(png, 1, 0.299, 0.587) (cv2's call) at libpng's 15
+# bits: red and green truncated, blue the rest
+_RC, _GC = 9797, 19234
+_BC = 32768 - _RC - _GC
+
+
+def _reciprocal(a: int) -> int:
+    return int(math.floor(1e10 / a + .5))  # png_reciprocal
+
+
+def _significant(g: int) -> bool:
+    return g < 95000 or g > 105000  # png_gamma_significant
+
+
+def _table8(gamma: int) -> np.ndarray:
+    """png_build_8bit_table: value -> floor(255 (v / 255)^g + .5)."""
+    v = np.arange(256, dtype=np.float64)
+    if not _significant(gamma):
+        return np.arange(256, dtype=np.int64)
+    t = np.floor(255 * np.power(v / 255, gamma * 1e-5) + .5).astype(np.int64)
+    t[0], t[255] = 0, 255
+    return t
+
+
+def _table16(shift: int, gamma: int) -> np.ndarray:
+    """png_build_16bit_table, indexed by value >> shift."""
+    top = (1 << (16 - shift)) - 1
+    ig = np.arange(top + 1, dtype=np.int64)
+    if not _significant(gamma):
+        return (ig * 65535 + (1 << (15 - shift))) // top
+    return np.floor(65535. * np.power(ig / top, gamma * 1e-5) + .5
+                    ).astype(np.int64)
+
+
+def _table16to8(shift: int, gamma: int) -> np.ndarray:
+    """png_build_16to8_table, indexed by value >> shift: the 16-bit form
+    (i * 257) of the 8-bit value nearest each input's gamma-corrected
+    one."""
+    top = (1 << (16 - shift)) - 1
+    out = np.full(top + 1, 65535, np.int64)
+    last = 0
+    for i in range(255):
+        v = i * 257 + 128  # the boundary above output i
+        bound = int(math.floor(65535 * math.pow(v / 65535, gamma * 1e-5)
+                               + .5)) if 0 < v < 65535 else v
+        bound = (bound * top + 32768) // 65535 + 1
+        if bound > last:
+            out[last:bound] = i * 257
+            last = bound
+    return out
+
+
+def _rgb_to_gray(rgb: np.ndarray, gamma: Optional[int], sig_bit: int
+                 ) -> np.ndarray:
+    """libpng's png_do_rgb_to_gray under cv2's IMREAD_GRAYSCALE, then
+    strip_16: (..., 3) uint8 or uint16 samples -> uint8 gray. Without a
+    significant file gamma: (rc R + gc G + bc B) >> 15, truncated at 8
+    bits and rounded at 16. With one (gAMA or sRGB), through libpng's
+    gamma_to_1 and gamma_from_1 tables (the screen gamma is the file's
+    reciprocal), and at 16 bits its 16-to-8 table for gray pixels."""
+    x = rgb.astype(np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    same = (r == g) & (g == b)
+    wide = rgb.dtype == np.uint16
+    tables = gamma is not None and (_significant(gamma)
+                                    or _significant(_reciprocal(gamma)))
+    if not tables:
+        if not wide:
+            return np.where(same, r, (_RC * r + _GC * g + _BC * b) >> 15
+                            ).astype(np.uint8)
+        return (((_RC * r + _GC * g + _BC * b + 16384) >> 15) >> 8
+                ).astype(np.uint8)
+    screen = _reciprocal(gamma)
+    if not wide:
+        to1, from1 = _table8(screen), _table8(_reciprocal(screen))
+        y = from1[(_RC * to1[r] + _GC * to1[g] + _BC * to1[b] + 16384) >> 15]
+        return np.where(same, r, y).astype(np.uint8)
+    shift = 16 - sig_bit if 0 < sig_bit < 16 else 0
+    shift = min(max(shift, 16 - 11), 8)  # PNG_MAX_GAMMA_8 under strip_16
+    to1 = _table16(shift, screen)
+    from1 = _table16(shift, _reciprocal(screen))
+    same16 = _table16to8(shift, int(math.floor(gamma * 1e-5 * screen + .5)))
+    lin = (_RC * to1[r >> shift] + _GC * to1[g >> shift]
+           + _BC * to1[b >> shift] + 16384) >> 15
+    y = np.where(same, same16[r >> shift], from1[lin >> shift])
+    return (y >> 8).astype(np.uint8)
 
 
 def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     """PNG bytes → (H, W, 3) RGB uint8, or (H, W) uint8 with gray=True
     (see the module docstring for the rules)."""
-    px, ctype, _, palette, _ = _png_samples(data)
+    s = _png_samples(data, wide=gray)
+    px, ctype = s.px, s.ctype
     if ctype == 3:
-        if gray:
-            raise NotImplementedError(
-                "a palette PNG read as gray: cv2 converts it with libpng's "
-                "gamma-aware rule, which is not ported")
-        return palette[px[..., 0]]
+        rgb = s.palette[px[..., 0]]
+        return _rgb_to_gray(rgb, s.gamma, 0) if gray else rgb
     if ctype in (0, 4):
         g = np.ascontiguousarray(px[..., 0])
+        if g.dtype == np.uint16:
+            g = (g >> 8).astype(np.uint8)
         return g if gray else np.repeat(g[..., None], 3, axis=2)
     if gray:
-        raise NotImplementedError(
-            "a colour PNG read as gray: cv2 converts it with libpng's "
-            "gamma-aware rule, which is not ported")
+        return _rgb_to_gray(px[..., :3], s.gamma, s.sig_bit)
     return np.ascontiguousarray(px[..., :3])
 
 
@@ -338,20 +444,17 @@ def decode_png_rgba(data: bytes) -> np.ndarray:
     """PNG bytes → (H, W, 4) uint8 as PIL's Image.open(p).convert("RGBA")
     gives it: gray replicated, palettes expanded, alpha from the file's
     alpha channel or from tRNS (per palette index, or 0 where a gray or
-    RGB pixel equals the tRNS colour), else 255. PIL keeps 16 bits and
-    compares a low-depth gray tRNS against unscaled samples, so 16-bit
-    files and 1/2/4-bit gray files with tRNS raise NotImplementedError."""
-    px, ctype, depth, palette, trns = _png_samples(data)
-    if depth == 16:
-        raise NotImplementedError(
-            "a 16-bit PNG read as RGBA: PIL keeps 16-bit samples where the "
-            "port reduces them to 8 bits (ROADMAP.md §A.5, other image "
-            "formats)")
-    if ctype == 0 and trns is not None and depth < 8:
-        raise NotImplementedError(
-            "a 1/2/4-bit gray PNG with tRNS read as RGBA: PIL matches the "
-            "transparent sample before scaling (ROADMAP.md §A.5, other "
-            "image formats)")
+    RGB pixel equals the tRNS colour's low bytes), else 255. A 16-bit
+    gray file is PIL's I;16 image, each sample clipped to 255; other
+    16-bit samples are reduced to their high byte; the tRNS key is matched
+    against those 8-bit values. A 1-bit gray tRNS makes the 0 bits
+    transparent where it is 0 and the 1 bits where not; a 2/4-bit one is
+    matched against the sample scaled to 8 bits."""
+    s = _png_samples(data, wide=True)
+    px, ctype, depth, palette, trns = s.px, s.ctype, s.depth, s.palette, \
+        s.trns
+    if px.dtype == np.uint16:
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(np.uint8)
     h, w = px.shape[:2]
     alpha = np.full((h, w, 1), 255, np.uint8)
     if ctype == 3:
@@ -366,7 +469,12 @@ def decode_png_rgba(data: bytes) -> np.ndarray:
     color = px[..., :1].repeat(3, axis=2) if ctype in (0, 4) else px[..., :3]
     if trns is not None and ctype in (0, 2):
         key = np.frombuffer(trns, ">u2").astype(np.int64)
-        same = (px[..., :len(key)].astype(np.int64) == key).all(axis=2)
+        sample = px[..., :len(key)].astype(np.int64)
+        if ctype == 0 and depth == 1:  # mode "1": any nonzero key is white
+            sample, key = sample != 0, key != 0
+        else:  # PIL keeps the key's low byte
+            key = key & 0xFF
+        same = (sample == key).all(axis=2)
         alpha = np.where(same, 0, 255).astype(np.uint8)[..., None]
     return np.ascontiguousarray(np.concatenate([color, alpha], axis=2))
 
@@ -395,17 +503,21 @@ def decode_jpeg(data: bytes, device="cuda", gray: bool = False,
 
 
 def _read(path, device, gray: bool, part: Callable = _no_part):
-    """The decoded file: a tensor on `device` for a JPEG, a numpy array
-    for a PNG or a BMP."""
+    """The decoded file: a tensor on `device` for a JPEG or a WEBP, a
+    numpy array for a PNG, a BMP or a TIFF."""
     with open(path, "rb") as f:
         data = f.read()
-    kind = _refuse_unported(path, data[:16])
+    kind = sniff(data[:16])
     if kind == "jpeg":
         return decode_jpeg(data, device, gray, part)
+    if kind == "webp":
+        return webp.decode(data, device, gray, part)
     if kind == "bmp":
         return bmp.decode(data, gray=gray)
+    if kind == "tiff":
+        return tiff.decode(data, gray=gray)
     if kind != "png":
-        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+        raise DecodeError(f"{path}: not a {FORMATS} file")
     return decode_png(data, gray=gray)
 
 
@@ -421,9 +533,12 @@ def read_gray(path) -> np.ndarray:
 
 def read_rgb_tensor(path, device, part: Callable = _no_part
                     ) -> torch.Tensor:
-    """(H, W, 3) uint8 RGB on `device`: a JPEG decoded there (the C entropy
-    decoder and the card's pixel stage on a CUDA device), a PNG or a BMP
-    decoded on the host and uploaded inside part("png_upload")."""
+    """(H, W, 3) uint8 RGB on `device`: a JPEG or a WEBP decoded there
+    (the host's entropy decode, then the pixel stage on the device, inside
+    part("jpeg_entropy"/"jpeg_pixels") or part("webp_entropy"/
+    "webp_pixels"); a JPEG's entropy decode is the C decoder on a CUDA
+    device), a PNG, a BMP or a TIFF decoded on the host and uploaded
+    inside part("png_upload")."""
     img = _read(path, device, False, part)
     if isinstance(img, np.ndarray):
         with part("png_upload"):
@@ -434,19 +549,24 @@ def read_rgb_tensor(path, device, part: Callable = _no_part
 def read_rgba_tensor(path, device) -> torch.Tensor:
     """(H, W, 4) uint8 on `device`, as PIL's
     Image.open(path).convert("RGBA") gives it: a PNG through
-    decode_png_rgba, a BMP through bmp.decode_rgba, a JPEG through
-    decode_jpeg without its EXIF orientation (PIL's open does not apply
-    it) and with alpha 255 (a CMYK or YCCK one through PIL's own CMYK ->
-    RGB)."""
+    decode_png_rgba, a BMP through bmp.decode_rgba, a TIFF through
+    tiff.decode_rgba, a WEBP through webp.decode (its alpha kept, no EXIF
+    orientation), a JPEG through decode_jpeg without its EXIF orientation
+    (PIL's open does not apply it) and with alpha 255 (a CMYK or YCCK one
+    through PIL's own CMYK -> RGB)."""
     with open(path, "rb") as f:
         data = f.read()
-    kind = _refuse_unported(path, data[:16])
+    kind = sniff(data[:16])
     if kind == "png":
         return torch.from_numpy(decode_png_rgba(data)).to(device)
     if kind == "bmp":
         return torch.from_numpy(bmp.decode_rgba(data)).to(device)
+    if kind == "tiff":
+        return torch.from_numpy(tiff.decode_rgba(data)).to(device)
+    if kind == "webp":
+        return webp.decode(data, device, exif=False, rgba=True)
     if kind != "jpeg":
-        raise DecodeError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+        raise DecodeError(f"{path}: not a {FORMATS} file")
     rgb = decode_jpeg(data, device, exif=False, pil=True)
     return torch.cat([rgb, torch.full_like(rgb[..., :1], 255)], dim=2)
 

@@ -497,3 +497,698 @@ def write_training_folder(root, n: int, size: int, seed: int = 0,
         write_png(os.path.join(root, "clean", name), to_u8(clean[i]))
         if i < masks:
             write_png(os.path.join(root, "masks", name), to_u8(logos[i]))
+
+
+TIFF_CODECS = {"none": 1, "lzw": 5, "deflate": 8, "deflate32946": 32946,
+               "packbits": 32773}
+
+
+def tiff_bytes(img: np.ndarray, compression: str = "none",
+               predictor: int = 1, planar: int = 1,
+               tile: Optional[Tuple[int, int]] = None,
+               rows_per_strip: Optional[int] = None, byteorder: str = "<",
+               colormap: Optional[np.ndarray] = None,
+               extra: Optional[int] = None, min_is_white: bool = False,
+               orientation: Optional[int] = None) -> bytes:
+    """A classic 8-bit TIFF of an (H, W) or (H, W, C) uint8 image: C 1 gray
+    (min-is-black, or min-is-white with the samples stored inverted so the
+    image reads the same), 2 gray and alpha, 3 RGB, 4 RGB and alpha (an
+    ExtraSamples tag of `extra`: 0 unspecified, 1 associated, 2
+    unassociated; default 2 where C is 2 or 4), or palette indices with
+    `colormap` ((3, 256) uint16). `compression` is a key of TIFF_CODECS
+    (LZW and PackBits through csrc/tiff_codecs.c, Deflate through zlib),
+    `predictor` 2 differences each row's samples (LZW and Deflate), planar
+    2 stores each sample in its own strips or tiles, `tile` (rows, cols;
+    multiples of 16) writes tiles instead of strips of `rows_per_strip`
+    rows, `byteorder` "<" little-endian (II) or ">" (MM); `orientation`
+    adds the tag. The pixel data come first, the IFD after them."""
+    import zlib
+
+    from ..ops.kernels import tiff as tiff_c
+
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, spp = img.shape
+    samples = img.copy()
+    if min_is_white:
+        samples[..., 0] = 255 - img[..., 0]
+    if colormap is not None:
+        photometric = 3
+    elif spp in (1, 2):
+        photometric = 0 if min_is_white else 1
+    else:
+        photometric = 2
+    if extra is None and spp in (2, 4):
+        extra = 2
+    planes = ([np.ascontiguousarray(samples[..., c:c + 1])
+               for c in range(spp)] if planar == 2 else [samples])
+    if tile:
+        th, tw = tile
+        blocks_y, blocks_x = -(-h // th), -(-w // tw)
+    else:
+        rps = min(rows_per_strip or h, h)
+        th, tw = rps, w
+        blocks_y, blocks_x = -(-h // rps), 1
+
+    def encode(block: np.ndarray) -> bytes:
+        if predictor == 2:
+            d = block.astype(np.int16)
+            d[:, 1:] -= block[:, :-1]
+            block = (d & 0xFF).astype(np.uint8)
+        raw = block.tobytes()
+        if compression == "lzw":
+            return tiff_c.lzw_encode(raw)
+        if compression.startswith("deflate"):
+            return zlib.compress(raw, 6)
+        if compression == "packbits":
+            return tiff_c.packbits_encode(raw, block.shape[1] *
+                                          block.shape[2])
+        return raw
+
+    body, offsets, counts = bytearray(b"\0" * 8), [], []
+    for plane in planes:
+        for by in range(blocks_y):
+            for bx in range(blocks_x):
+                block = plane[by * th:(by + 1) * th, bx * tw:(bx + 1) * tw]
+                if tile:  # edge tiles padded to the full tile
+                    full = np.zeros((th, tw, plane.shape[2]), np.uint8)
+                    full[:block.shape[0], :block.shape[1]] = block
+                    block = full
+                data = encode(block)
+                offsets.append(len(body))
+                counts.append(len(data))
+                body += data
+                if len(body) & 1:
+                    body += b"\0"
+    bo = byteorder
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp),
+            259: (3, [TIFF_CODECS[compression]]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra is not None and spp in (2, 4):
+        tags[338] = (3, [extra])
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in np.asarray(colormap).reshape(-1)])
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    if tile:
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                     325: (4, counts)})
+    else:
+        tags.update({273: (4, offsets), 278: (4, [th]), 279: (4, counts)})
+    ifd = len(body)
+    n = len(tags)
+    extra_at = ifd + 2 + 12 * n + 4
+    entries, blob = b"", b""
+    for tag in sorted(tags):
+        kind, values = tags[tag]
+        fmt = "H" if kind == 3 else "I"
+        packed = struct.pack(f"{bo}{len(values)}{fmt}", *values)
+        if len(packed) <= 4:
+            field = packed.ljust(4, b"\0")
+        else:
+            field = struct.pack(f"{bo}I", extra_at + len(blob))
+            blob += packed + (b"\0" if len(packed) & 1 else b"")
+        entries += struct.pack(f"{bo}HHI", tag, kind, len(values)) + field
+    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(f"{bo}I", ifd)
+    body[:8] = head
+    return (bytes(body) + struct.pack(f"{bo}H", n) + entries
+            + struct.pack(f"{bo}I", 0) + blob)
+
+
+# -- WEBP writers (test data: cv2's encoder never writes some of these) --
+
+# the DC dequantizers at base_q 10 with no deltas (the decoder's tables):
+# Y2's is twice DC_TABLE[10], the chroma's DC_TABLE[10]
+_Q10_Y2_DC, _Q10_UV_DC = 26, 13
+
+
+def _vp8_dc_pred(top, left) -> int:
+    """VP8's DC prediction of a block from its top row and left column
+    (None where outside the frame)."""
+    if top is not None and left is not None:
+        return (int(top.sum()) + int(left.sum()) + top.size) >> (
+            top.size.bit_length())
+    if top is not None or left is not None:
+        edge = top if top is not None else left
+        return (int(edge.sum()) + (edge.size >> 1)) >> (
+            edge.size.bit_length() - 1)
+    return 128
+
+
+def _vp8_from_image(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Modes and levels (base_q 10) that make a VP8 frame approximate an
+    (H, W, 3) RGB image: 16x16 and chroma DC prediction everywhere, one
+    luma level a macroblock (its Y2 DC) and one level a 4x4 chroma block,
+    each the nearest to the BT.601 Y, U or V mean of its block given the
+    frame reconstructed so far (as the decoder predicts, from unfiltered
+    neighbours)."""
+    h, w = img.shape[:2]
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    x = np.pad(img.astype(np.float64), ((0, mb_h * 16 - h),
+                                        (0, mb_w * 16 - w), (0, 0)),
+               mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    planes = (16 + (65.738 * r + 129.057 * g + 25.064 * b) / 256,
+              128 + (-37.945 * r - 74.494 * g + 112.439 * b) / 256,
+              128 + (112.439 * r - 94.154 * g - 18.285 * b) / 256)
+    y_mean = planes[0].reshape(mb_h, 16, mb_w, 16).mean(axis=(1, 3))
+    c_mean = [c.reshape(mb_h * 2, 8, mb_w * 2, 8).mean(axis=(1, 3))
+              for c in planes[1:]]
+    levels = np.zeros((mb_h * mb_w, 25, 16), np.int16)
+    rec_y = np.zeros((mb_h * 16, mb_w * 16), np.int64)
+    rec_c = [np.zeros((mb_h * 8, mb_w * 8), np.int64) for _ in range(2)]
+
+    def nearest(target, pred, recon):
+        """The level in -74..74 whose reconstruction is nearest."""
+        lv = np.arange(-74, 75)
+        out = np.clip(pred + recon(lv), 0, 255)
+        i = int(np.argmin(np.abs(out - target)))
+        return int(lv[i]), int(out[i])
+
+    for my in range(mb_h):
+        for mx in range(mb_w):
+            k = my * mb_w + mx
+            y0, x0 = my * 16, mx * 16
+            pred = _vp8_dc_pred(rec_y[y0 - 1, x0:x0 + 16] if my else None,
+                                rec_y[y0:y0 + 16, x0 - 1] if mx else None)
+            lev, val = nearest(y_mean[my, mx], pred, lambda v: (
+                ((v * _Q10_Y2_DC + 3) >> 3) + 4) >> 3)
+            levels[k, 24, 0] = lev
+            rec_y[y0:y0 + 16, x0:x0 + 16] = val
+            for c in range(2):
+                rc, cy, cx = rec_c[c], my * 8, mx * 8
+                pred = _vp8_dc_pred(rc[cy - 1, cx:cx + 8] if my else None,
+                                    rc[cy:cy + 8, cx - 1] if mx else None)
+                for blk in range(4):
+                    by, bx = blk >> 1, blk & 1
+                    lev, val = nearest(c_mean[c][my * 2 + by, mx * 2 + bx],
+                                       pred, lambda v: (v * _Q10_UV_DC + 4)
+                                       >> 3)
+                    levels[k, 16 + 4 * c + blk, 0] = lev
+                    rc[cy + 4 * by:cy + 4 * by + 4,
+                       cx + 4 * bx:cx + 4 * bx + 4] = val
+    return np.zeros((mb_h * mb_w, 21), np.uint8), levels
+
+
+def vp8_bytes(h: int, w: int, seed: int = 0, partitions: int = 1,
+              segments: bool = True, loop_filter: Optional[str] = "normal",
+              image: Optional[np.ndarray] = None) -> bytes:
+    """A lossy WEBP file ("VP8 " chunk) of a VP8 key frame coded with the
+    default probabilities (the coder is csrc/webp_decode.c's
+    uwt_vp8_encode). Without `image`: every header field, macroblock mode
+    (each 16x16, B_PRED and chroma mode, segments, skips) and quantized
+    level drawn from `seed`, levels up to 74 (every token category) with
+    most blocks sparse; the quantizer indices stay at 18 or below and Y2's
+    levels at 8, so every dequantized coefficient stays inside the 12 bits
+    libwebp's SIMD transforms are exact for (cv2's and Pillow's decoders
+    take them; a real encoder's coefficients stay there). With `image` ((h, w, 3) uint8 RGB): a blocky
+    approximation of it, DC prediction and one level a block
+    (_vp8_from_image). `partitions` is 1, 2, 4 or 8; `loop_filter` is
+    "normal", "simple" or None (level 0)."""
+    from ..ops.kernels import webp as webp_c
+
+    rng = np.random.default_rng(seed)
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    n = mb_w * mb_h
+    hdr = {"w": w, "h": h, "log2parts": {1: 0, 2: 1, 4: 2, 8: 3}[partitions],
+           "simple": int(loop_filter == "simple"),
+           "level": 0 if loop_filter is None else int(rng.integers(1, 64)),
+           "sharpness": int(rng.integers(0, 8)), "use_lf_delta": 1,
+           "ref_lf0": int(rng.integers(-8, 9)),
+           "mode_lf0": int(rng.integers(-8, 9)),
+           "base_q": int(rng.integers(0, 9)) if image is None else 10}
+    if image is None:
+        hdr.update({f"dq_{k}": int(rng.integers(-4, 5)) for k in
+                    ("y1_dc", "y2_dc", "y2_ac", "uv_dc", "uv_ac")})
+        hdr.update({"use_skip": 1, "skip_p": int(rng.integers(1, 256))})
+    if segments:
+        absolute = int(rng.integers(0, 2))
+        hdr.update({"use_segment": 1, "update_map": 1,
+                    "absolute_delta": absolute,
+                    **{f"seg_q{s}": int(rng.integers(0, 13) if absolute
+                                        else rng.integers(-6, 7))
+                       for s in range(4)},
+                    **{f"seg_lf{s}": int(rng.integers(0, 64) if absolute
+                                         else rng.integers(-20, 21))
+                       for s in range(4)},
+                    **{f"seg_p{s}": int(rng.integers(1, 256))
+                       for s in range(3)}})
+    if image is not None:
+        hdr.update({"use_segment": 0, "update_map": 0})
+        mbs, levels = _vp8_from_image(np.asarray(image))
+    else:
+        mbs = np.zeros((n, 21), np.uint8)
+        mbs[:, 0] = rng.integers(0, 4, n) if segments else 0
+        mbs[:, 1] = rng.random(n) < 0.1
+        mbs[:, 2] = rng.random(n) < 0.5
+        mbs[:, 3] = rng.integers(0, 4, n)
+        mbs[:, 4] = rng.integers(0, 4, n)
+        mbs[:, 5:] = rng.integers(0, 10, (n, 16))
+        levels = np.zeros((n, 25, 16), np.int16)
+        nnz = np.minimum(rng.geometric(0.35, (n, 25)) - 1, 16)
+        pos = np.arange(16)
+        mag = np.where(rng.random((n, 25, 16)) < 0.08,
+                       rng.integers(5, 75, (n, 25, 16)),
+                       rng.integers(1, 5, (n, 25, 16)))
+        sign = np.where(rng.random((n, 25, 16)) < 0.5, -1, 1)
+        keep = (pos < nnz[..., None]) & (rng.random((n, 25, 16)) < 0.8)
+        levels[:] = np.where(keep, mag * sign, 0)
+        levels[:, 24] = np.clip(levels[:, 24], -8, 8)
+    frame = webp_c.vp8_encode(hdr, mbs, levels)
+    return webp_container(b"VP8 ", frame)
+
+
+def _reverse(code: np.ndarray, length: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(code)
+    for i in range(15):
+        out |= ((code >> i) & 1) << np.maximum(length - 1 - i, 0) * (i < length)
+    return out * (length > 0)
+
+
+def _code_lengths(counts: np.ndarray, limit: int) -> np.ndarray:
+    """Huffman code lengths of the nonzero counts, at most `limit` (counts
+    halved until they fit); a single symbol gets length 1."""
+    import heapq
+
+    counts = np.asarray(counts, np.int64)
+    lengths = np.zeros(counts.size, np.int64)
+    used = np.flatnonzero(counts)
+    if used.size == 1:
+        lengths[used[0]] = 1
+    if used.size <= 1:
+        return lengths
+    c = counts.copy()
+    while True:
+        heap = [(int(c[s]), int(s), [int(s)]) for s in used]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(used.tolist(), 0)
+        while len(heap) > 1:
+            a, b = heapq.heappop(heap), heapq.heappop(heap)
+            for s in a[2] + b[2]:
+                depth[s] += 1
+            heapq.heappush(heap, (a[0] + b[0], min(a[1], b[1]), a[2] + b[2]))
+        if max(depth.values()) <= limit:
+            for s, d in depth.items():
+                lengths[s] = d
+            return lengths
+        c[used] = (c[used] + 1) // 2
+
+
+def _canonical(lengths: np.ndarray) -> np.ndarray:
+    """Each symbol's canonical code (by length, then symbol), reversed for
+    least-significant-bit-first packing."""
+    lengths = np.asarray(lengths, np.int64)
+    codes = np.zeros(lengths.size, np.int64)
+    code = 0
+    for ln in range(1, 16):
+        for s in np.flatnonzero(lengths == ln):
+            codes[s] = code
+            code += 1
+        code <<= 1
+    return _reverse(codes, lengths)
+
+
+class _Bits:
+    """(value, bit count) pairs, packed least significant bit first."""
+
+    def __init__(self):
+        self.codes: List[np.ndarray] = []
+        self.lens: List[np.ndarray] = []
+
+    def put(self, value: int, nbits: int) -> None:
+        self.codes.append(np.array([value], np.uint32))
+        self.lens.append(np.array([nbits], np.uint8))
+
+    def extend(self, codes: np.ndarray, lens: np.ndarray) -> None:
+        self.codes.append(np.asarray(codes, np.uint32).reshape(-1))
+        self.lens.append(np.asarray(lens, np.uint8).reshape(-1))
+
+    def pack(self) -> bytes:
+        from ..ops.kernels import webp as webp_c
+        return webp_c.pack_bits_lsb(np.concatenate(self.codes),
+                                    np.concatenate(self.lens))
+
+
+CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12,
+                     13, 14, 15)
+
+
+def _put_code(bits: _Bits, lengths: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Writes a prefix code's lengths; returns each symbol's reversed code
+    and the bits it takes (none for a code of one symbol)."""
+    used = np.flatnonzero(lengths)
+    if used.size <= 1:
+        s = int(used[0]) if used.size else 0
+        if s < 256:
+            bits.put(1, 1)                 # simple code
+            bits.put(0, 1)                 # one symbol
+            bits.put(int(s > 1), 1)
+            bits.put(s, 8 if s > 1 else 1)
+            return (np.zeros(lengths.size, np.int64),
+                    np.zeros(lengths.size, np.int64))
+    cl = _code_lengths(np.bincount(lengths, minlength=19), 7)
+    num = max(4, max(i for i, s in enumerate(CODE_LENGTH_ORDER) if cl[s]) + 1)
+    bits.put(0, 1)
+    bits.put(num - 4, 4)
+    for i in range(num):
+        bits.put(int(cl[CODE_LENGTH_ORDER[i]]), 3)
+    bits.put(0, 1)                     # max_symbol: the whole alphabet
+    if np.count_nonzero(cl) == 1:      # one length: no bits a symbol
+        bits.extend(np.zeros(lengths.size), np.zeros(lengths.size))
+    else:
+        bits.extend(_canonical(cl)[lengths], cl[lengths])
+    if used.size == 1:
+        return (np.zeros(lengths.size, np.int64),
+                np.zeros(lengths.size, np.int64))
+    return _canonical(lengths), lengths
+
+
+def _prefix(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """VP8L's prefix coding of values >= 1: (symbol, extra bits, count)."""
+    d = np.asarray(v, np.int64) - 1
+    hb = np.where(d < 4, 0, np.floor(np.log2(np.maximum(d, 1))).astype(
+        np.int64))
+    nbits = np.where(d < 4, 0, hb - 1)
+    sym = np.where(d < 4, d, 2 * hb + ((d >> np.maximum(hb - 1, 0)) & 1))
+    return sym, d & ((1 << nbits) - 1), nbits
+
+
+def _entropy_image(bits: _Bits, argb: np.ndarray, cache_bits: int = 0,
+                   backrefs: bool = False, meta_bits: int = 0,
+                   level0: bool = True) -> None:
+    """Writes an image's colour cache, prefix codes and pixels."""
+    h, w = argb.shape
+    flat = argb.reshape(-1).astype(np.int64)
+    if cache_bits:
+        bits.put(1, 1)
+        bits.put(cache_bits, 4)
+    else:
+        bits.put(0, 1)
+    groups = np.zeros(h * w, np.int64)
+    if level0:
+        bits.put(int(meta_bits > 0), 1)
+        if meta_bits:
+            mh, mw = -(-h // (1 << meta_bits)), -(-w // (1 << meta_bits))
+            tiles = (np.arange(mh)[:, None] + np.arange(mw)) % 2
+            bits.put(meta_bits - 2, 3)
+            _entropy_image(bits, (tiles << 8).astype(np.uint32), level0=False)
+            ys, xs = np.divmod(np.arange(h * w), w)
+            groups = tiles[ys >> meta_bits, xs >> meta_bits]
+    # the symbol stream: (kind, value) with kind 0 literal, 1 copy, 2 cache
+    syms = []
+    if cache_bits or backrefs:
+        cache = np.zeros(1 << max(cache_bits, 1), np.int64)
+        i, n = 0, h * w
+        while i < n:
+            run = 0
+            if backrefs and i >= w:
+                while i + run < n and run < 4096 and \
+                        flat[i + run] == flat[i + run - w]:
+                    run += 1
+            if run >= 3:
+                syms.append((1, run, 1, i))     # plane code 1: the row above
+            else:
+                run = 0
+                if backrefs and i >= 1:
+                    while i + run < n and run < 4096 and \
+                            flat[i + run] == flat[i - 1]:
+                        run += 1
+                if run >= 3:
+                    syms.append((1, run, 121, i))   # distance 1, no plane
+                else:
+                    run = 1
+                    key = (int(flat[i]) * 0x1E35A7BD & 0xFFFFFFFF) >> (
+                        32 - cache_bits) if cache_bits else 0
+                    if cache_bits and cache[key] == flat[i]:
+                        syms.append((2, key, 0, i))
+                    else:
+                        syms.append((0, int(flat[i]), 0, i))
+            if cache_bits:
+                for j in range(i, i + run):
+                    cache[(int(flat[j]) * 0x1E35A7BD & 0xFFFFFFFF) >> (
+                        32 - cache_bits)] = flat[j]
+            i += run
+        kind = np.array([s[0] for s in syms])
+        val = np.array([s[1] for s in syms], np.int64)
+        dist = np.array([s[2] for s in syms], np.int64)
+        at = np.array([s[3] for s in syms], np.int64)
+    else:
+        kind = np.zeros(h * w, np.int64)
+        val, dist, at = flat, np.zeros(h * w, np.int64), np.arange(h * w)
+    grp = groups[at]
+    ngroups = int(groups.max()) + 1
+    green_size = 256 + 24 + (1 << cache_bits if cache_bits else 0)
+    lit = kind == 0
+    lsym, lext, lnb = _prefix(np.maximum(val, 1))
+    dsym, dext, dnb = _prefix(np.maximum(dist, 1))
+    green = np.where(lit, (val >> 8) & 0xFF,
+                     np.where(kind == 1, 256 + lsym, 280 + val))
+    chans = [green, (val >> 16) & 0xFF, val & 0xFF, (val >> 24) & 0xFF, dsym]
+    masks = [np.ones_like(lit), lit, lit, lit, kind == 1]
+    sizes = [green_size, 256, 256, 256, 40]
+    tables = []
+    for g in range(ngroups):
+        sel = grp == g
+        row = []
+        for c in range(5):
+            counts = np.bincount(chans[c][sel & masks[c]],
+                                 minlength=sizes[c])
+            row.append(_put_code(bits, _code_lengths(counts, 15)))
+        tables.append(row)
+    # the symbols in order: green, then red, blue, alpha (a literal) or
+    # the length's extra bits, the distance and its extra bits (a copy)
+    n = kind.size
+    codes = np.zeros((n, 6), np.int64)
+    lens = np.zeros((n, 6), np.int64)
+    for c in range(5):
+        code_t = np.stack([tables[g][c][0] for g in range(ngroups)])
+        len_t = np.stack([tables[g][c][1] for g in range(ngroups)])
+        col = c if c < 4 else 4
+        sym = np.clip(chans[c], 0, sizes[c] - 1)
+        on = masks[c]
+        if c == 4:  # copies: length extra bits first, then the distance
+            codes[:, 1] = np.where(kind == 1, lext, codes[:, 1])
+            lens[:, 1] = np.where(kind == 1, lnb, lens[:, 1])
+            codes[:, 2] = np.where(on, code_t[grp, sym], codes[:, 2])
+            lens[:, 2] = np.where(on, len_t[grp, sym], lens[:, 2])
+            codes[:, 3] = np.where(on, dext, codes[:, 3])
+            lens[:, 3] = np.where(on, dnb, lens[:, 3])
+            continue
+        codes[:, col] = np.where(on, code_t[grp, sym], codes[:, col])
+        lens[:, col] = np.where(on, len_t[grp, sym], lens[:, col])
+    bits.extend(codes.reshape(-1), lens.reshape(-1))
+
+
+def _forward_predict(argb: np.ndarray, modes: np.ndarray, tbits: int
+                     ) -> np.ndarray:
+    """The residuals of the predictor transform (each pixel minus its
+    tile's mode's prediction from the original neighbours)."""
+    h, w = argb.shape
+    px = argb.view(np.uint8).reshape(h, w, 4).astype(np.int64)
+    left = np.zeros_like(px)
+    left[:, 1:] = px[:, :-1]
+    up = np.zeros_like(px)
+    up[1:] = px[:-1]
+    ul = np.zeros_like(px)
+    ul[1:, 1:] = px[:-1, :-1]
+    ur = np.zeros_like(px)
+    ur[1:, :-1] = px[:-1, 1:]
+    ur[1:, -1] = px[1:, 0]   # the last column's up-right: this row's first
+
+    def avg(a, b):
+        return (a + b) >> 1
+
+    def select(t, l_, tl):
+        pa_minus_pb = (np.abs(l_ - tl) - np.abs(t - tl)).sum(axis=-1,
+                                                            keepdims=True)
+        return np.where(pa_minus_pb <= 0, t, l_)
+
+    black = np.zeros_like(px)
+    black[..., 3] = 255
+    half = avg(left, up)
+    preds = [black, left, up, ur, ul, avg(avg(left, ur), up), avg(left, ul),
+             avg(left, up), avg(ul, up), avg(up, ur),
+             avg(avg(left, ul), avg(up, ur)), select(up, left, ul),
+             np.clip(left + up - ul, 0, 255),
+             np.clip(half + (half - ul) // 2 + ((half - ul) < 0) *
+                     ((half - ul) % 2 != 0), 0, 255)]
+    ys, xs = np.mgrid[:h, :w]
+    mode = modes[ys >> tbits, xs >> tbits]
+    mode[0, :] = 1
+    mode[:, 0] = 2
+    mode[0, 0] = 0
+    pred = np.choose(mode[..., None], preds)
+    res = ((px - pred) & 0xFF).astype(np.uint8)
+    return res.reshape(h, w * 4).view(np.uint32).reshape(h, w)
+
+
+def vp8l_stream(argb: np.ndarray, transforms: Sequence[str] = (),
+                seed: int = 0, cache_bits: int = 0, backrefs: bool = False,
+                meta_bits: int = 0, header: bool = True) -> bytes:
+    """A VP8L stream of an (H, W) uint32 ARGB image: its header (unless
+    header=False, an ALPH stream), the `transforms` in the order applied
+    ("palette", "subtract_green", "predictor", "cross_color"; tile modes
+    and multipliers drawn from `seed`), then the pixels' prefix codes
+    (meta codes over 2^meta_bits tiles, a colour cache of cache_bits,
+    backward references to the row above and the pixel before)."""
+    rng = np.random.default_rng(seed)
+    argb = np.ascontiguousarray(argb, np.uint32)
+    h, w = argb.shape
+    bits = _Bits()
+    if header:
+        alpha = bool(((argb >> 24) != 255).any())
+        bits.put(0x2F, 8)
+        bits.put(w - 1, 14)
+        bits.put(h - 1, 14)
+        bits.put(int(alpha), 1)
+        bits.put(0, 3)
+    img = argb
+    for t in transforms:
+        bits.put(1, 1)
+        px = img.view(np.uint8).reshape(img.shape[0], img.shape[1], 4
+                                        ).astype(np.int64)
+        if t == "subtract_green":
+            bits.put(2, 2)
+            px[..., 0] -= px[..., 1]  # B
+            px[..., 2] -= px[..., 1]  # R
+            img = (px & 0xFF).astype(np.uint8).reshape(img.shape[0], -1
+                                                       ).view(np.uint32)
+        elif t == "palette":
+            colors, idx = np.unique(img.reshape(-1), return_inverse=True)
+            if colors.size > 256:
+                raise ValueError(f"{colors.size} colours for a palette")
+            n = colors.size
+            pbits = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+            bits.put(3, 2)
+            bits.put(n - 1, 8)
+            pal = colors.view(np.uint8).reshape(n, 4).astype(np.int64)
+            delta = pal.copy()
+            delta[1:] -= pal[:-1]
+            _entropy_image(bits, (delta & 0xFF).astype(np.uint8).reshape(
+                1, -1).view(np.uint32), level0=False)
+            idx = idx.reshape(img.shape)
+            per = 1 << pbits
+            pw = -(-img.shape[1] // per)
+            padded = np.zeros((img.shape[0], pw * per), np.int64)
+            padded[:, :img.shape[1]] = idx
+            shifts = (np.arange(per) * (8 >> pbits))
+            packed = (padded.reshape(img.shape[0], pw, per) << shifts).sum(-1)
+            img = (packed << 8).astype(np.uint32)
+        else:
+            tbits = int(rng.integers(2, 5))
+            th, tw = -(-img.shape[0] // (1 << tbits)), \
+                -(-img.shape[1] // (1 << tbits))
+            if t == "predictor":
+                bits.put(0, 2)
+                bits.put(tbits - 2, 3)
+                modes = rng.integers(0, 14, (th, tw))
+                _entropy_image(bits, (modes << 8).astype(np.uint32),
+                               level0=False)
+                img = _forward_predict(img, modes, tbits)
+            else:
+                bits.put(1, 2)
+                bits.put(tbits - 2, 3)
+                mult = rng.integers(0, 256, (th, tw, 3))
+                _entropy_image(bits, (mult[..., 2] << 16 | mult[..., 1] << 8
+                                      | mult[..., 0]).astype(np.uint32),
+                               level0=False)
+                ys, xs = np.mgrid[:img.shape[0], :img.shape[1]]
+                m = mult[ys >> tbits, xs >> tbits].astype(np.int8).astype(
+                    np.int64)
+                g = px[..., 1].astype(np.uint8).astype(np.int8).astype(
+                    np.int64)
+                red = px[..., 2].astype(np.uint8).astype(np.int8).astype(
+                    np.int64)
+                px[..., 2] -= (m[..., 0] * g) >> 5
+                px[..., 0] -= ((m[..., 1] * g) >> 5) + ((m[..., 2] * red)
+                                                        >> 5)
+                img = (px & 0xFF).astype(np.uint8).reshape(img.shape[0], -1
+                                                           ).view(np.uint32)
+    bits.put(0, 1)  # no more transforms
+    _entropy_image(bits, img, cache_bits, backrefs, meta_bits, level0=True)
+    return bits.pack()
+
+
+def to_argb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) RGB or (H, W, 4) RGBA uint8 -> (H, W) uint32 ARGB."""
+    img = np.asarray(img, np.uint8)
+    a = img[..., 3] if img.shape[2] == 4 else np.full(img.shape[:2], 255,
+                                                      np.uint8)
+    bgra = np.stack([img[..., 2], img[..., 1], img[..., 0], a], axis=2)
+    return np.ascontiguousarray(bgra).view(np.uint32)[..., 0]
+
+
+def vp8l_bytes(img: np.ndarray, transforms: Sequence[str] = (),
+               seed: int = 0, cache_bits: int = 0, backrefs: bool = False,
+               meta_bits: int = 0) -> bytes:
+    """A lossless WEBP file ("VP8L" chunk) of an (H, W, 3) RGB or (H, W, 4)
+    RGBA uint8 image (see vp8l_stream)."""
+    return webp_container(b"VP8L", vp8l_stream(
+        to_argb(img), transforms, seed, cache_bits, backrefs, meta_bits))
+
+
+def alph_bytes(alpha: np.ndarray, method: int = 1, filtering: int = 0,
+               **vp8l) -> bytes:
+    """An ALPH chunk's payload for an (H, W) uint8 alpha plane: the filter
+    (0 none, 1 horizontal, 2 vertical, 3 gradient) applied, then stored raw
+    (method 0) or as a headerless VP8L stream of green values."""
+    a = np.asarray(alpha, np.int64)
+    pred = np.zeros_like(a)
+    if filtering:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        if filtering == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif filtering == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0,
+                                   255)
+    res = ((a - pred) & 0xFF).astype(np.uint32)
+    head = bytes([method | filtering << 2])
+    if method == 0:
+        return head + res.astype(np.uint8).tobytes()
+    return head + vp8l_stream(res << 8 | 0xFF000000, header=False, **vp8l)
+
+
+def webp_container(tag: bytes, payload: bytes, alpha: Optional[bytes] = None,
+                   exif: Optional[bytes] = None, icc: Optional[bytes] = None,
+                   xmp: Optional[bytes] = None,
+                   size: Optional[Tuple[int, int]] = None) -> bytes:
+    """A RIFF WEBP file of one "VP8 " or "VP8L" chunk: simple, or an
+    extended (VP8X) file where an ALPH, EXIF, ICCP or XMP chunk is given
+    (`size`, (w, h), the canvas; read from the payload where None)."""
+    def chunk(t: bytes, body: bytes) -> bytes:
+        return t + struct.pack("<I", len(body)) + body + b"\0" * (
+            len(body) & 1)
+
+    if alpha is None and exif is None and icc is None and xmp is None:
+        body = chunk(tag, payload)
+    else:
+        if size is None:
+            if tag == b"VP8L":
+                v = int.from_bytes(payload[1:5], "little")
+                size = ((v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1)
+            else:
+                size = (int.from_bytes(payload[6:8], "little") & 0x3FFF,
+                        int.from_bytes(payload[8:10], "little") & 0x3FFF)
+        flags = (0x20 * (icc is not None) | 0x10 * (alpha is not None)
+                 | 0x08 * (exif is not None) | 0x04 * (xmp is not None))
+        w, h = size
+        body = chunk(b"VP8X", struct.pack("<I", flags)
+                     + (w - 1).to_bytes(3, "little")
+                     + (h - 1).to_bytes(3, "little"))
+        if icc is not None:
+            body += chunk(b"ICCP", icc)
+        if alpha is not None:
+            body += chunk(b"ALPH", alpha)
+        body += chunk(tag, payload)
+        if exif is not None:
+            body += chunk(b"EXIF", exif)
+        if xmp is not None:
+            body += chunk(b"XMP ", xmp)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body

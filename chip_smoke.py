@@ -6,12 +6,13 @@
 Phases, each printing its own line:
   0  versions, and the card's name and power limit (nvidia-smi)
   1  build the native sources (nvcc → .so for each .cu, cc for the host
-     C: the JPEG entropy coder, the zstd, RLE, WEBP and TIFF decoders;
+     C: the JPEG entropy coder, the zstd, RLE, WEBP and TIFF decoders,
+     the host connected components of utils/native.py;
      all compiler calls started together, before the
      port's imports, phase 0 and the profiler's first session, which run
      meanwhile, as do 4 host workers writing 3d's, 3f's and 3o's input
-     files and running 3f's plain entropy decodes; ctypes) and report the build
-     time
+     files and running 3f's plain entropy decodes; ctypes) and report the
+     build time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
      borders, and blob masks, at the main path's shape (BATCH x SIZE²) and
@@ -137,6 +138,14 @@ Phases, each printing its own line:
      for zstd, WEBP and PNGs read as gray, `repair` over BMP, Adam7 PNG,
      Adobe CMYK JPEG, WEBP and TIFF copies of a PNG folder, 1080p decode
      times): unet_watermark_tpu_torch/tools/smoke_formats.py
+  3p the library surface (unet_watermark_tpu_torch.utils and the
+     per-type helpers) on 3b's predictor and images: the per-type mask
+     helpers equal to the plain chains with K1 and K2 launched, the
+     padded OptimizedPredictor over the artifact surface and its batch
+     tuning's peaks, the memory manager against mem_get_info and the
+     system monitor, utils.native against ops/components, the
+     method comparison report, the text diagnosis, and TrainingOptimizer's
+     accumulated steps: unet_watermark_tpu_torch/tools/smoke_library.py
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -181,6 +190,7 @@ try:  # phases 3h-3o and the helpers they share with this file
         zoo_phase, zoo_text_train)
     from unet_watermark_tpu_torch.tools.smoke_formats import (formats_phase,
                                                               write_inputs)
+    from unet_watermark_tpu_torch.tools.smoke_library import library_phase
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
@@ -1406,7 +1416,7 @@ def main(argv=None) -> int:
     # the imports, phase 0 and the profiler's first session run meanwhile
     sources = ("morph_chain.cu", "conv_s8.cu", "jpeg_entropy.c",
                "zstd_decode.c", "bmp_rle.c", "webp_decode.c",
-               "tiff_codecs.c")
+               "tiff_codecs.c", "maskops.c")
     t_build = time.perf_counter()
 
     def timed_build(source):
@@ -1431,7 +1441,7 @@ def main(argv=None) -> int:
     from unet_watermark_tpu_torch.ops.kernels import tiff as tiff_c
     from unet_watermark_tpu_torch.ops.kernels import webp as webp_c
     from unet_watermark_tpu_torch.ops.kernels import zstd
-    from unet_watermark_tpu_torch.utils import bmp, shipping
+    from unet_watermark_tpu_torch.utils import bmp, native, shipping
     from unet_watermark_tpu_torch.utils.synthetic import watermarked_images
 
     dev = torch.device("cuda")
@@ -1457,7 +1467,7 @@ def main(argv=None) -> int:
 
     # -- 1: build ------------------------------------------------------------
     if sources != (kc.SOURCE, k8.SOURCE, jpeg_entropy.SOURCE, zstd.SOURCE,
-                   bmp.SOURCE, webp_c.SOURCE, tiff_c.SOURCE):
+                   bmp.SOURCE, webp_c.SOURCE, tiff_c.SOURCE, native.SOURCE):
         raise AssertionError(f"the build's sources {sources} are not the "
                              f"kernel modules'")
     built = dict(zip(sources, (f.result() for f in building)))
@@ -1789,6 +1799,8 @@ def main(argv=None) -> int:
             # -- 3o: every still image the JAX package reads, and zstd
             formats = formats_phase(work, args.seed, dev,
                                     inputs=written["formats"])
+            # -- 3p: the library surface ---------------------------------
+            surface = library_phase(work, args.seed, dev, pred_d, images_d)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1920,6 +1932,7 @@ def main(argv=None) -> int:
     log("timing_checkpoints", **checkpoints["timing"], card=card)
     log("timing_zoo", **zoo["timing"], card=card)
     log("timing_formats", **formats["timing"], card=card)
+    log("timing_library", **surface["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -1986,6 +1999,9 @@ def main(argv=None) -> int:
                if fn is kc.morph_chain_watermark else {}),
             "zoo_launches": zoo["launches"][fn.__name__],
             "formats_launches": formats["launches"][fn.__name__],
+            "library_launches": surface["launches"][fn.__name__],
+            "library_predictor_launches":
+                surface["predictor_launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

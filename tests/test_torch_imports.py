@@ -1,11 +1,13 @@
 """The port and chip_smoke.py import with jax, flax, optax, orbax,
 tensorstore, zstandard, yaml,
 PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
-nunchaku and the JAX package blocked (the GPU machine has none of them),
+nunchaku, psutil and the JAX package blocked (the GPU machine has none of
+them),
 every module of the port among them (ocr/, ops/imgproc.py, the training
 path, the `auto` loop's modules, the .pth, big-lama and contour modules,
 the zoo's archs, model sizes and text trainer, parallel/, and the WEBP
-and TIFF readers and the formats phase too), and
+and TIFF readers and the formats phase too, and the library surface:
+utils/, method_compare, diagnose and the library phase), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -18,7 +20,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ["jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
            "yaml", "PIL", "cv2", "matplotlib", "tqdm", "torchvision",
-           "requests", "easyocr", "diffusers", "nunchaku",
+           "requests", "easyocr", "diffusers", "nunchaku", "psutil",
            "unet_watermark_tpu"]
 # modules that must be among those imported
 MUST = ["unet_watermark_tpu_torch.ops.imgproc",
@@ -80,7 +82,21 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.ops.webp",
         "unet_watermark_tpu_torch.ops.kernels.webp",
         "unet_watermark_tpu_torch.ops.kernels.tiff",
-        "unet_watermark_tpu_torch.tools.smoke_formats"]
+        "unet_watermark_tpu_torch.tools.smoke_formats",
+        "unet_watermark_tpu_torch.utils.batching",
+        "unet_watermark_tpu_torch.utils.memory",
+        "unet_watermark_tpu_torch.utils.model_manager",
+        "unet_watermark_tpu_torch.utils.native",
+        "unet_watermark_tpu_torch.utils.optimization_config",
+        "unet_watermark_tpu_torch.utils.optimization_manager",
+        "unet_watermark_tpu_torch.utils.optimized_dataloader",
+        "unet_watermark_tpu_torch.utils.optimized_predictor",
+        "unet_watermark_tpu_torch.utils.performance_analyzer",
+        "unet_watermark_tpu_torch.utils.profiler",
+        "unet_watermark_tpu_torch.utils.training_optimizer",
+        "unet_watermark_tpu_torch.scripts.method_compare",
+        "unet_watermark_tpu_torch.text.diagnose",
+        "unet_watermark_tpu_torch.tools.smoke_library"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

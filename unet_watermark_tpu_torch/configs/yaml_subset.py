@@ -16,6 +16,7 @@ sexagesimal numbers.
 """
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, Dict, List, Tuple
 
@@ -224,3 +225,44 @@ def _block(lines, start: int, indent: int) -> Tuple[Dict[str, Any], int]:
         else:
             out[key] = None
     return out, i
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "." not in text and "e" in text:  # 1e-06 → 1.0e-06, a YAML float
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    if isinstance(v, str):
+        return json.dumps(v)  # a double-quoted YAML scalar
+    raise ValueError(f"cannot write {type(v).__name__} into the YAML subset")
+
+
+def dump(tree: Dict[str, Any], indent: int = 0) -> str:
+    """The inverse of load for a map of scalars and nested (non-empty)
+    maps: block maps indented by two spaces, strings double-quoted, floats with a dot
+    (as PyYAML writes them), so both this reader and PyYAML's safe_load
+    give back the same values."""
+    lines = []
+    pad = " " * indent
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            if not v:
+                raise ValueError(f"empty map {key!r}: outside the YAML "
+                                 f"subset")
+            lines.append(f"{pad}{key}:")
+            lines.append(dump(v, indent + 2).rstrip("\n"))
+        else:
+            lines.append(f"{pad}{key}: {_dump_scalar(v)}")
+    return "\n".join(lines) + "\n"

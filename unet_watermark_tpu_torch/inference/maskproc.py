@@ -9,6 +9,8 @@ optimize_watermark_mask_batch_pallas: kernel K1 (the morphology chain), the
 largest-component rule on each image, kernel K2 (smooth + threshold), with
 the same output as the plain chain. optimize_mask_batch_partitioned runs one
 strategy per image, the watermark strategy of parity mode through K1 and K2.
+optimize_mask_by_type and optimize_mask_batch_by_type are the public
+per-type helpers: one mask and its type code, a batch and its codes.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from ..ops import components as cc
 from ..ops import morphology as m
-from ..ops.kernels.morph_chain import (gaussian_smooth_threshold,
+from ..ops.kernels.morph_chain import (K1_MAX_SIZE,
+                                       gaussian_smooth_threshold,
                                        morph_chain_watermark)
 
 TYPE_CODES = {"watermark": 0, "text": 1, "mixed": 2}
@@ -105,10 +108,11 @@ def optimize_mask_batch_partitioned(masks: torch.Tensor,
     """One strategy per image, by its type code (0 watermark, 1 text,
     2 mixed): the batch is split by code and each strategy runs once on its
     images. Code 0 runs optimize_watermark_mask_batch (K1 → components →
-    K2) in parity mode and the tight chain in tight mode.
+    K2) in parity mode where the masks are square (the plain chain for
+    another shape) and the tight chain in tight mode.
 
-    masks: (N, S, S) float on any device; codes: N ints, known on the host.
-    Returns float32 (N, S, S) {0, 1} on the masks' device. The JAX function
+    masks: (N, H, W) float on any device; codes: N ints, known on the host.
+    Returns float32 (N, H, W) {0, 1} on the masks' device. The JAX function
     pads each group to a power of two, for XLA's compile cache, and returns
     numpy; neither is needed here."""
     masks = m.threshold_binary(masks, 0.5)
@@ -117,14 +121,46 @@ def optimize_mask_batch_partitioned(masks: torch.Tensor,
         raise ValueError(f"{len(codes)} codes for {masks.shape[0]} masks")
     strategies = {
         0: (optimize_watermark_mask_tight if mode == "tight"
-            else optimize_watermark_mask_batch),
+            else _watermark_strategy),
         1: optimize_text_mask, 2: optimize_mixed_mask}
+    if not set(codes) <= set(strategies):
+        raise ValueError(f"type codes must be 0, 1 or 2, got {codes}")
     out = torch.empty_like(masks)
     for code in sorted(set(codes)):
         idx = torch.tensor([i for i, c in enumerate(codes) if c == code],
                            device=masks.device)
         out[idx] = strategies[code](masks[idx])
     return out
+
+
+def _watermark_strategy(masks: torch.Tensor) -> torch.Tensor:
+    """The parity watermark chain of (N, H, W) masks: K1 → components → K2
+    where the masks are square and within K1's size, the plain chain for
+    any other shape (a route by shape; a kernel's error raises)."""
+    _, h, w = masks.shape
+    if h == w and h <= K1_MAX_SIZE:
+        return optimize_watermark_mask_batch(masks)
+    return optimize_watermark_mask(masks)
+
+
+def optimize_mask_by_type(mask: torch.Tensor, type_code) -> torch.Tensor:
+    """One (H, W) mask: threshold at 0.5, then the strategy of its type
+    code, 0 watermark (the parity chain: K1 → components → K2 as a batch of
+    one where the mask is square), 1 text, 2 mixed."""
+    return optimize_mask_batch_by_type(mask[None], [type_code])[0]
+
+
+def optimize_mask_batch_by_type(masks: torch.Tensor, codes) -> torch.Tensor:
+    """(N, H, W) masks and N type codes (a sequence, or a tensor on any
+    device, read once on the host) → float32 (N, H, W) {0, 1}: each image
+    thresholded at 0.5 and optimized by the strategy of its code, code 0
+    through K1 and K2 where the masks are square. JAX's function runs all
+    three strategies on every image and selects, three times the work, to
+    keep one graph; this is optimize_mask_batch_partitioned in parity mode
+    (one strategy per image) and gives the same masks."""
+    codes = (codes.reshape(-1).tolist() if torch.is_tensor(codes)
+             else list(codes))
+    return optimize_mask_batch_partitioned(masks, codes, mode="parity")
 
 
 # ---------------------------------------------------------------------------

@@ -457,6 +457,28 @@ def normalize(image: torch.Tensor) -> torch.Tensor:
     return (image - c["mean"]) / c["std"]
 
 
+def denormalize(image: torch.Tensor) -> torch.Tensor:
+    """The inverse of normalize: image * std + mean."""
+    c = _consts(image.device)
+    return image * c["std"] + c["mean"]
+
+
+def augment_sample(gen: torch.Generator, image: torch.Tensor,
+                   mask: torch.Tensor, policy="transparent_watermark",
+                   params: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Augment one (H, W, 3) float [0, 1] image and its (H, W, 1) mask:
+    draw_params for one sample from `gen` (or the given `params`, a batch
+    of one), then apply_params. JAX's augment_sample takes a PRNG key; the
+    draws here come from a torch.Generator, with the same distributions
+    and not the same values (as augment_batch's)."""
+    h, w = image.shape[:2]
+    if params is None:
+        params = draw_params(gen, 1, h, w, policy)
+    images, masks = apply_params(image[None], mask[None], params, policy)
+    return images[0], masks[0]
+
+
 def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   masks: torch.Tensor, policy="transparent_watermark",
                   apply_normalize: bool = True,

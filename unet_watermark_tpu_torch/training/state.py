@@ -15,14 +15,19 @@ sync:
 scale_by_adam is optax's with b1 0.9, b2 0.999, eps 1e-8, eps_root 0: the
 moments (1-b)·g + b·m, an int32 count, bias corrections 1 - b^count in
 float32. The learning rate is a float32 tensor on the device that the
-epoch loop sets (with_lr), as optax's injected hyperparameter.
+epoch loop sets (with_lr), as optax's injected hyperparameter, or, given
+`schedule`, schedule(k) before the k-th update (k from 0), as optax's
+scale_by_learning_rate(schedule). `accumulate` = k > 1 is optax.MultiSteps
+(k): each step folds its gradients into their running mean (acc + (g -
+acc) / (n + 1)), and every k-th step applies the update to that mean and
+clears it; the other steps leave the parameters as they are.
 
 LRScheduler and EarlyStopping are the JAX package's plain Python classes.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -33,7 +38,9 @@ OPTIMIZERS = ("adam", "adamw", "sgd")
 
 class Optimizer:
     def __init__(self, params, name: str = "adam", lr: float = 1e-3,
-                 weight_decay: float = 0.0, clip: float = 0.0):
+                 weight_decay: float = 0.0, clip: float = 0.0,
+                 accumulate: int = 1,
+                 schedule: Optional[Callable[[int], float]] = None):
         self.name = name.lower()
         if self.name not in OPTIMIZERS:
             raise ValueError(f"unsupported optimizer '{name}'")
@@ -47,6 +54,13 @@ class Optimizer:
         self.mu = zeros() if self.name != "sgd" else []
         self.nu = zeros() if self.name != "sgd" else []
         self.trace = zeros() if self.name == "sgd" else []
+        self.accumulate = int(accumulate)
+        if self.accumulate < 1:
+            raise ValueError(f"accumulate must be >= 1, got {accumulate}")
+        self.acc = zeros() if self.accumulate > 1 else []
+        self.mini_step = 0  # steps folded into acc since the last update
+        self.updates = 0  # updates applied: the schedule's step
+        self.schedule = schedule
 
     def clip_by_global_norm(self, grads: List[torch.Tensor]) -> None:
         """In place: optax's clip_by_global_norm. The norm sums in float64
@@ -59,10 +73,29 @@ class Optimizer:
         torch._foreach_mul_(grads, torch.where(keep, 1.0, self.clip))
 
     @torch.no_grad()
-    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+    def step(self, grads: Optional[List[torch.Tensor]] = None) -> bool:
         """Update the parameters in place from `grads` (default: each
-        parameter's .grad), which this overwrites."""
+        parameter's .grad), which this overwrites. Returns whether the
+        parameters moved (False on a step that only accumulates)."""
         g = [p.grad for p in self.params] if grads is None else list(grads)
+        if self.accumulate > 1:
+            diff = torch._foreach_sub(g, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step += 1
+            if self.mini_step < self.accumulate:
+                return False
+            self.mini_step = 0
+            g = self.acc  # used, then cleared below
+        if self.schedule is not None:
+            self.lr.fill_(float(self.schedule(self.updates)))
+        self._apply(g)
+        self.updates += 1
+        if self.accumulate > 1:
+            torch._foreach_zero_(self.acc)
+        return True
+
+    def _apply(self, g: List[torch.Tensor]) -> None:
         if self.clip > 0:
             self.clip_by_global_norm(g)
         if self.wd and self.name in ("adam", "sgd"):

@@ -32,6 +32,7 @@ no step waits for the host.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import logging
 import os
@@ -55,6 +56,7 @@ from ..parallel.distributed import barrier, in_group, rank_and_world
 from ..parallel.mesh import mesh_from_config, replicated
 from ..utils.async_ckpt import AsyncSaver
 from ..utils.device import compute_autocast, resolve_device
+from ..utils.memory import get_global_memory_manager
 from ..utils.shipping import load_npz, save_params_npz, seg_weights_filename
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
                          save_checkpoint, snapshot)
@@ -429,6 +431,17 @@ def train(cfg, resume_from: Optional[str] = None,
         if cfg.TRAIN.USE_EARLY_STOPPING and early(val_m["loss"]):
             logger.info("early stopping at epoch %d", epoch + 1)
             break
+
+        # the host-memory guard of JAX's loop: collect cycles and log the
+        # pressure, so that a long run fails loudly rather than being
+        # killed for memory
+        mm = get_global_memory_manager()
+        level = mm.check_memory_pressure()
+        if level != "ok":
+            gc.collect()
+            snap = mm.snapshot()
+            logger.warning("host memory %s after epoch %d: %.1f%% used",
+                           level, epoch + 1, snap.host_percent)
 
     saver.flush()  # every checkpoint on disk before the report
     saver.close()

@@ -10,9 +10,9 @@ Phases, each printing its own line:
      the host connected components of utils/native.py;
      all compiler calls started together, before the
      port's imports, phase 0 and the profiler's first session, which run
-     meanwhile, as do 4 host workers writing 3d's, 3f's and 3o's input
-     files and running 3f's plain entropy decodes; ctypes) and report the
-     build time
+     meanwhile, as do 4 host workers writing 3d's, 3f's, 3o's and 3q's
+     input files and running 3f's plain entropy decodes; ctypes) and
+     report the build time
   2  hold each kernel bit-exactly against its plain PyTorch version on the
      card: random masks (p = 0.2, 0.35, 0.5), masks touching all four
      borders, and blob masks, at the main path's shape (BATCH x SIZE²) and
@@ -50,9 +50,10 @@ Phases, each printing its own line:
   3d the repair entry point: `cli.main(["repair", "--input", D, "--output",
      O, "--no-ocr"])` in this process, every other flag at its default
      (the default configuration, bf16, the LaMa engine 3 times), on a
-     folder the port's encoder writes: 12 images of 512² (the last 2 with
-     no logo), 2 of 720 x 1280, 2 of 1080 x 1920 and one 1080 x 1920 file
-     with Paeth rows (its decode time printed). Checks: rc 0, status
+     folder the port's encoder writes: 8 images of 512² (the last 2 with
+     no logo), 1 of 720 x 1280, 1 of 1080 x 1920 and one 1080 x 1920 file
+     with Paeth rows (its decode time printed; each file's decode also
+     timed from a copy with Paeth rows that the host workers write). Checks: rc 0, status
      "success" and no engine failure in repair_summary.json, K1 and K2
      launched by the run, the 512² images' step-1 masks equal to
      predict_artifact_masks on the same decoded batches, every mask at its
@@ -146,6 +147,14 @@ Phases, each printing its own line:
      system monitor, utils.native against ops/components, the
      method comparison report, the text diagnosis, and TrainingOptimizer's
      accumulated steps: unet_watermark_tpu_torch/tools/smoke_library.py
+  3q the dataset tools (scripts/ check, enhance_masks, image_fixer,
+     watermark_filter, batch_repair_optimizer, extract_watermarks,
+     classify_image; car_logo/ logo_process and logo_placement), each
+     through its main(argv) on full-size folders: the planted problems
+     found, the card's files equal to the CPU's, the shipped UNet++'s
+     filter, the chunked repair's masks (K1 and K2 launched), the
+     clusters card against CPU: unet_watermark_tpu_torch/tools/
+     smoke_scripts.py
   4  timings with CUDA events: the main path (img/s) and its stages, each
      kernel per call (median of 5 rounds of 50 back-to-back calls) beside
      its plain version, its bound and (K2) the one PyTorch expression that
@@ -191,6 +200,7 @@ try:  # phases 3h-3o and the helpers they share with this file
     from unet_watermark_tpu_torch.tools.smoke_formats import (formats_phase,
                                                               write_inputs)
     from unet_watermark_tpu_torch.tools.smoke_library import library_phase
+    from unet_watermark_tpu_torch.tools import smoke_scripts
 except ImportError:  # outside a checkout: main() says so and gives no result
     pass
 
@@ -255,10 +265,11 @@ def check_masks(n: int, s: int, seed: int):
     return {k: v.astype(np.float32) for k, v in sets.items()}
 
 
-# phase 3d's folder: (name prefix, count, height, width); the first 12 are
+# phase 3d's folder: (name prefix, count, height, width); the first 8 are
 # 512², the last 2 of them without a logo; the Paeth file is one more
-# 1080 x 1920 image
-CLI_FOLDER = (("a", 12, 512, 512), ("b", 2, 720, 1280), ("c", 2, 1080, 1920))
+# 1080 x 1920 image (a cut from 12 files to 8, b and c from 2 to 1 each
+# to buy phase 3q its time)
+CLI_FOLDER = (("a", 8, 512, 512), ("b", 1, 720, 1280), ("c", 1, 1080, 1920))
 PAETH_SHAPE = (1080, 1920)
 TILED_SHAPE, TILE, OVERLAP = (1536, 2048), 512, 64  # 20 tiles
 STAGES = ("predictor_init", "decode", "upload_resize", "step1_device",
@@ -286,14 +297,19 @@ def cropped_images(n: int, h: int, w: int, seed: int, clean: int = 0):
 
 
 def write_cli_folder(folder: Path, seed: int, spec=CLI_FOLDER,
-                     paeth_shape=PAETH_SHAPE) -> dict:
+                     paeth_shape=PAETH_SHAPE, paeth_copies: Path = None
+                     ) -> dict:
     """Phase 3d's input folder, written by the port's encoder; returns
     {stem: (h, w)}. Every file has Sub rows (filter 1), as cv2.imwrite
     writes them by default, but p0.png, which has Paeth rows (filter 4)
-    only, as an adaptive writer's files mostly do."""
+    only, as an adaptive writer's files mostly do. paeth_copies: a folder
+    for a copy of every file with Paeth rows only (3d times their
+    decodes)."""
     from unet_watermark_tpu_torch.utils import image_io
 
     folder.mkdir(parents=True)
+    if paeth_copies is not None:
+        paeth_copies.mkdir(parents=True)
     sizes = {}
     for k, (prefix, count, h, w) in enumerate(spec):
         imgs = cropped_images(count, h, w, seed + k,
@@ -302,8 +318,13 @@ def write_cli_folder(folder: Path, seed: int, spec=CLI_FOLDER,
             sizes[f"{prefix}{i:02d}"] = (h, w)
             image_io.write_png(folder / f"{prefix}{i:02d}.png", img,
                                filters=(1,))
+            if paeth_copies is not None:
+                image_io.write_png(paeth_copies / f"{prefix}{i:02d}.png",
+                                   img, filters=(4,))
     img = cropped_images(1, *paeth_shape, seed + len(spec))[0]
     image_io.write_png(folder / "p0.png", img, filters=(4,))
+    if paeth_copies is not None:
+        shutil.copy(folder / "p0.png", paeth_copies / "p0.png")
     sizes["p0"] = paeth_shape
     return sizes
 
@@ -403,14 +424,16 @@ def repair_cli_phase(work: Path, pred, seed: int, dev, spec=CLI_FOLDER,
     encode_ms = (time.perf_counter() - t0) * 1e3
     # one decode of every file of the folder: as written (Sub rows; p0
     # Paeth), and with every file's rows Paeth, as an adaptive writer's
-    # files mostly are
+    # files mostly are (copies the host workers wrote, else made here)
     folder_decode_s = {"as_written": 0.0, "all_paeth": 0.0}
     for path in sorted(folder.iterdir()):
         data = path.read_bytes()
         t0 = time.perf_counter()
         img = image_io.decode_png(data)
         folder_decode_s["as_written"] += time.perf_counter() - t0
-        data = image_io.encode_png(img, filters=(4,))
+        copy = work / "in_paeth" / path.name
+        data = copy.read_bytes() if copy.is_file() else \
+            image_io.encode_png(img, filters=(4,))
         t0 = time.perf_counter()
         image_io.decode_png(data)
         folder_decode_s["all_paeth"] += time.perf_counter() - t0
@@ -770,15 +793,19 @@ def write_jpeg_folder(folder: Path, seed: int, spec=JPEG_FOLDER,
 
 
 def write_folders(work: Path, seed: int) -> dict:
-    """Phases 3d's, 3f's and 3o's input files, written by host workers while
-    the kernels build (phase 1), and 3f's plain entropy decodes of its
-    files (plain_scans), run there too: {"png": (write_cli_folder's sizes,
-    seconds), "jpeg": (write_jpeg_folder's files, seconds, {name:
-    plain_scans}), "formats": smoke_formats.write_inputs' result}."""
+    """Phases 3d's, 3f's, 3o's and 3q's input files, written by host
+    workers while the kernels build (phase 1), and 3f's plain entropy
+    decodes of its files (plain_scans), run there too: {"png":
+    (write_cli_folder's sizes, seconds), "jpeg": (write_jpeg_folder's
+    files, seconds, {name: plain_scans}), "formats":
+    smoke_formats.write_inputs' result, "scripts":
+    smoke_scripts.write_inputs'}."""
     t0 = time.perf_counter()
     with host_pool(4) as pool:
-        png = pool.submit(write_cli_folder, work / "in", seed)
+        png = pool.submit(write_cli_folder, work / "in", seed,
+                          paeth_copies=work / "in_paeth")
         formats = pool.submit(write_inputs, work, seed)
+        scripts = pool.submit(smoke_scripts.write_inputs, work, seed)
         files = write_jpeg_folder(work / "in_jpeg", seed, pool=pool)
         jpeg_s = time.perf_counter() - t0
         names = sorted(files)
@@ -786,8 +813,10 @@ def write_folders(work: Path, seed: int) -> dict:
                                           [files[n][0] for n in names])))
         sizes = png.result()
         formats = formats.result()
+        scripts = scripts.result()
     return {"png": (sizes, time.perf_counter() - t0),
-            "jpeg": (files, jpeg_s, plains), "formats": formats}
+            "jpeg": (files, jpeg_s, plains), "formats": formats,
+            "scripts": scripts}
 
 
 def jpeg_folder_file(entry, seed: int, no_logo: bool):
@@ -1801,6 +1830,10 @@ def main(argv=None) -> int:
                                     inputs=written["formats"])
             # -- 3p: the library surface ---------------------------------
             surface = library_phase(work, args.seed, dev, pred_d, images_d)
+            # -- 3q: the dataset tools -----------------------------------
+            tools = smoke_scripts.scripts_phase(
+                work, args.seed, dev, pred_d, pred_d.weights_path,
+                written=written["scripts"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1933,6 +1966,7 @@ def main(argv=None) -> int:
     log("timing_zoo", **zoo["timing"], card=card)
     log("timing_formats", **formats["timing"], card=card)
     log("timing_library", **surface["timing"], card=card)
+    log("timing_scripts", **tools["timing"], card=card)
     log("timing_repair_cli_jpeg", **jpeg_timing,
         paeth_1080x1920_decode_ms=cli_timing["paeth_1080x1920_decode_ms"],
         sub_1080x1920_decode_ms=cli_timing["sub_1080x1920_decode_ms"],
@@ -2002,6 +2036,7 @@ def main(argv=None) -> int:
             "library_launches": surface["launches"][fn.__name__],
             "library_predictor_launches":
                 surface["predictor_launches"][fn.__name__],
+            "scripts_launches": tools["launches"][fn.__name__],
             "max_abs_err": err,
             "ms": ms, "device_ms": device_ms, "host_ms": call_host_ms,
             "plain_ms": plain_ms,

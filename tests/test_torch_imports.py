@@ -1,13 +1,15 @@
 """The port and chip_smoke.py import with jax, flax, optax, orbax,
 tensorstore, zstandard, yaml,
 PIL, cv2, matplotlib, tqdm, torchvision, requests, easyocr, diffusers,
-nunchaku, psutil and the JAX package blocked (the GPU machine has none of
+nunchaku, psutil, sklearn, transformers, safetensors, huggingface_hub and
+the JAX package blocked (the GPU machine has none of
 them),
 every module of the port among them (ocr/, ops/imgproc.py, the training
 path, the `auto` loop's modules, the .pth, big-lama and contour modules,
 the zoo's archs, model sizes and text trainer, parallel/, and the WEBP
 and TIFF readers and the formats phase too, and the library surface:
-utils/, method_compare, diagnose and the library phase), and
+utils/, method_compare, diagnose and the library phase, and the dataset
+tools of scripts/ and car_logo/ with their phase), and
 chip_smoke.py gives no result without a card."""
 import os
 import shutil
@@ -21,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ["jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
            "yaml", "PIL", "cv2", "matplotlib", "tqdm", "torchvision",
            "requests", "easyocr", "diffusers", "nunchaku", "psutil",
+           "sklearn", "transformers", "safetensors", "huggingface_hub",
            "unet_watermark_tpu"]
 # modules that must be among those imported
 MUST = ["unet_watermark_tpu_torch.ops.imgproc",
@@ -96,7 +99,21 @@ MUST = ["unet_watermark_tpu_torch.ops.imgproc",
         "unet_watermark_tpu_torch.utils.training_optimizer",
         "unet_watermark_tpu_torch.scripts.method_compare",
         "unet_watermark_tpu_torch.text.diagnose",
-        "unet_watermark_tpu_torch.tools.smoke_library"]
+        "unet_watermark_tpu_torch.tools.smoke_library",
+        "unet_watermark_tpu_torch.scripts.check",
+        "unet_watermark_tpu_torch.scripts.enhance_masks",
+        "unet_watermark_tpu_torch.scripts.image_fixer",
+        "unet_watermark_tpu_torch.scripts.watermark_filter",
+        "unet_watermark_tpu_torch.scripts.batch_repair_optimizer",
+        "unet_watermark_tpu_torch.scripts.extract_watermarks",
+        "unet_watermark_tpu_torch.scripts.classify_image",
+        "unet_watermark_tpu_torch.ops.cluster",
+        "unet_watermark_tpu_torch.models.dinov2",
+        "unet_watermark_tpu_torch.utils.safetensors",
+        "unet_watermark_tpu_torch.car_logo",
+        "unet_watermark_tpu_torch.car_logo.logo_placement",
+        "unet_watermark_tpu_torch.car_logo.logo_process",
+        "unet_watermark_tpu_torch.tools.smoke_scripts"]
 OK_LINE = '{"ok": true'
 
 IMPORT_ALL = """

@@ -268,6 +268,19 @@ def _sobel(gray: torch.Tensor):
     return dx, dy
 
 
+def sobel_f32(gray: torch.Tensor):
+    """cv2.Sobel(gray, CV_32F, 1, 0) and (0, 1) of (H, W) uint8: aperture
+    3 with cv2's default BORDER_REFLECT_101 (not _sobel's replicated
+    border, which is Canny's), as float32."""
+    p = F.pad(gray.to(torch.float32)[None, None], (1, 1, 1, 1),
+              mode="reflect")[0, 0]
+    dx = (p[:-2, 2:] - p[:-2, :-2]) + 2 * (p[1:-1, 2:] - p[1:-1, :-2]) + \
+        (p[2:, 2:] - p[2:, :-2])
+    dy = (p[2:, :-2] - p[:-2, :-2]) + 2 * (p[2:, 1:-1] - p[:-2, 1:-1]) + \
+        (p[2:, 2:] - p[:-2, 2:])
+    return dx, dy
+
+
 def canny(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
     """cv2.Canny(gray, low, high) (aperture 3, L2gradient False): 0/255
     uint8 edges."""

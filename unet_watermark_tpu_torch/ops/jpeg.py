@@ -600,3 +600,19 @@ def encode_coefficients(rgb: torch.Tensor, quality: int = 95
         yb = torch.cat([yb, dummy], 0)
     out[0] = yb
     return out
+
+
+def encode_gray_coefficients(gray: torch.Tensor, quality: int = 95
+                             ) -> torch.Tensor:
+    """(H, W) uint8 → the quantized blocks of a 1-component baseline file
+    (cv2.imwrite of a gray image): (bh, bw, 64) int16 in zigzag order, the
+    plane's last row and column repeated out to whole blocks, the luma
+    table."""
+    if gray.dtype != torch.uint8 or gray.dim() != 2:
+        raise ValueError(f"expected (H, W) uint8, got "
+                         f"{tuple(gray.shape)} {gray.dtype}")
+    h, w = gray.shape
+    plane = _extend(gray.to(torch.int64), 8 * -(-h // 8), 8 * -(-w // 8))
+    coef = quantize(fdct_islow(_blocks(plane) - 128),
+                    quality_tables(quality)[0])
+    return coef[..., _ZIGZAG].to(torch.int16)

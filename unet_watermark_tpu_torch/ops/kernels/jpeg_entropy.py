@@ -113,7 +113,15 @@ def _std_codes():
 def encode_scan(blocks: List[np.ndarray]) -> bytes:
     """The entropy-coded data of a baseline 4:2:0 scan: blocks are Y
     (2m, 2n, 64), Cb and Cr (m, n, 64) int16 in zigzag order; each MCU
-    takes its four Y blocks row by row, then Cb, then Cr."""
+    takes its four Y blocks row by row, then Cb, then Cr. One (bh, bw, 64)
+    array alone is a gray file's scan: its blocks in raster order on the
+    luma tables."""
+    codes, lens = _std_codes()
+    if len(blocks) == 1:
+        order = np.ascontiguousarray(
+            np.asarray(blocks[0], np.int16).reshape(-1, 64))
+        comp = np.zeros(order.shape[0], np.int32)
+        return _encode(order, comp, 1, codes[:1].copy(), lens[:1].copy())
     y, cb, cr = (np.asarray(b, np.int16) for b in blocks)
     m, n = cb.shape[:2]
     yq = y.reshape(m, 2, n, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
@@ -121,15 +129,21 @@ def encode_scan(blocks: List[np.ndarray]) -> bytes:
     order = np.ascontiguousarray(np.concatenate(
         [yq, cb[:, :, None], cr[:, :, None]], axis=2).reshape(-1, 64))
     comp = np.tile(np.array([0, 0, 0, 0, 1, 2], np.int32), m * n)
-    codes, lens = _std_codes()
     # three DC predictors; Cr shares the chroma tables
     codes3 = np.ascontiguousarray(codes[[0, 1, 1]])
     lens3 = np.ascontiguousarray(lens[[0, 1, 1]])
+    return _encode(order, comp, 3, codes3, lens3)
+
+
+def _encode(order: np.ndarray, comp: np.ndarray, ncomp: int,
+            codes: np.ndarray, lens: np.ndarray) -> bytes:
+    """uwt_jpeg_encode_scan over the blocks in coding order; codes and lens
+    hold each component's (DC, AC) tables."""
     cap = order.size * 8 + 1024  # 2 bytes a coefficient and stuffing
     out = np.empty(cap, np.uint8)
     size = _lib().uwt_jpeg_encode_scan(
-        order.ctypes.data, order.shape[0], comp.ctypes.data, 3,
-        codes3.ctypes.data, lens3.ctypes.data, out.ctypes.data, cap)
+        order.ctypes.data, order.shape[0], comp.ctypes.data, ncomp,
+        codes.ctypes.data, lens.ctypes.data, out.ctypes.data, cap)
     if size < 0:
         raise RuntimeError(f"uwt_jpeg_encode_scan failed ({size})")
     encode_scan.calls += 1

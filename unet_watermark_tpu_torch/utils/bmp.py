@@ -49,6 +49,11 @@ reads as PIL reads it, and a bitmap whose runs end before its last pixel
 raises (PIL's "not enough image data").
 
 A file either reader gives None for (or fails to open) raises BMPError.
+
+encode(img) is cv2.imwrite's BmpEncoder: an (H, W) gray image as an 8-bit
+file with the 256-entry gray palette, an (H, W, 3) RGB image as a 24-bit
+B G R file; a BITMAPINFOHEADER with no resolution, size or colour counts,
+bottom-up rows padded to 4 bytes.
 """
 from __future__ import annotations
 
@@ -348,3 +353,27 @@ def _pil_32(px: np.ndarray, info: Info, alpha: np.ndarray) -> np.ndarray:
     out = [px[..., r], px[..., g], px[..., b],
            px[..., a] if a is not None else alpha[..., 0]]
     return np.stack(out, axis=-1)
+
+
+def encode(img: np.ndarray) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 → the BMP bytes cv2.imwrite
+    writes for it (the colour image after RGB2BGR)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"expected (H, W) or (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    gray = img.ndim == 2
+    row = w * (1 if gray else 3)
+    stride = (row + 3) & ~3
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    palette[:, 3] = 0
+    head = palette.tobytes() if gray else b""
+    offset = 14 + 40 + len(head)
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :row] = (img if gray else img[..., ::-1]).reshape(h, row)
+    return (b"BM" + struct.pack("<IHHI", offset + h * stride, 0, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8 if gray else 24,
+                          0, 0, 0, 0, 0, 0)
+            + head + rows[::-1].tobytes())

@@ -40,7 +40,9 @@ RGBA uint8 image as cv2.imwrite stores it (after RGB2BGR for colour):
 row. encode_jpeg(img) / write_jpeg(path, img) give the bytes Pillow's
 save(path, quality=95) writes: libjpeg-turbo's baseline 4:2:0 file, its
 pixel stage on the image's device (ops/jpeg.encode_coefficients), the
-Huffman coding on the host (csrc/jpeg_entropy.c).
+Huffman coding on the host (csrc/jpeg_entropy.c); of a gray image, the
+1-component file. write_image(path, img) is cv2.imwrite by extension
+(PNG, JPEG, BMP).
 
 Decoding undoes the five row filters in one pass over the anti-diagonals
 of the byte grid: every filter reads only the left, upper and upper-left
@@ -546,6 +548,15 @@ def read_rgb_tensor(path, device, part: Callable = _no_part
     return img
 
 
+def read_gray_tensor(path, device) -> torch.Tensor:
+    """cv2.imread(path, IMREAD_GRAYSCALE) as an (H, W) uint8 tensor on
+    `device` (a JPEG's or a WEBP's pixel stage there)."""
+    img = _read(path, device, True)
+    if isinstance(img, np.ndarray):
+        img = torch.from_numpy(img).to(device)
+    return img
+
+
 def read_rgba_tensor(path, device) -> torch.Tensor:
     """(H, W, 4) uint8 on `device`, as PIL's
     Image.open(path).convert("RGBA") gives it: a PNG through
@@ -621,15 +632,19 @@ def encode_png(img: np.ndarray, filters: Sequence[int] = (2,)) -> bytes:
 
 def encode_jpeg(img: torch.Tensor, quality: int = 95) -> bytes:
     """(H, W, 3) RGB uint8 (a tensor on any device, or numpy) → the bytes
-    Pillow's Image.fromarray(img).save(path, quality=quality) writes:
-    libjpeg-turbo's baseline 4:2:0 file (ops/jpeg.encode_coefficients on
-    the tensor's device, the Huffman coding on the host)."""
+    Pillow's Image.fromarray(img).save(path, quality=quality) writes, which
+    are cv2.imwrite's of the BGR image: libjpeg-turbo's baseline 4:2:0 file
+    (ops/jpeg.encode_coefficients on the tensor's device, the Huffman
+    coding on the host). An (H, W) gray image gives the 1-component file
+    both write (ops/jpeg.encode_gray_coefficients)."""
     img = torch.as_tensor(img)
     h, w = img.shape[:2]
-    blocks = jpeg_pixels.encode_coefficients(img, quality)
+    gray = img.dim() == 2
+    blocks = [jpeg_pixels.encode_gray_coefficients(img, quality)] if gray \
+        else jpeg_pixels.encode_coefficients(img, quality)
     data = jpeg_entropy.encode_scan([b.cpu().numpy() for b in blocks])
-    return (jpeg.baseline_headers(w, h, jpeg_pixels.quality_tables(quality))
-            + data + b"\xff\xd9")
+    return (jpeg.baseline_headers(w, h, jpeg_pixels.quality_tables(quality),
+                                  gray) + data + b"\xff\xd9")
 
 
 def write_jpeg(path, img: torch.Tensor, quality: int = 95) -> None:
@@ -643,3 +658,25 @@ def write_png(path, img: np.ndarray, filters: Optional[Sequence[int]] = None
     data = encode_png(img, filters or (2,))
     with open(path, "wb") as f:
         f.write(data)
+
+
+WRITERS = (".png", ".jpg", ".jpeg", ".bmp")
+
+
+def write_image(path, img) -> bool:
+    """cv2.imwrite(path, img) for an (H, W) gray or (H, W, 3) RGB uint8
+    image (numpy or a tensor; the colour one as cv2 writes the BGR image),
+    the format by the name's extension: PNG, JPEG at cv2's quality 95, or
+    BMP (utils/bmp.encode). An (H, W, 4) RGBA image goes to PNG only. Any
+    other extension raises ValueError; the result is True, as cv2's."""
+    ext = str(path)[str(path).rfind("."):].lower()
+    if ext not in WRITERS:
+        raise ValueError(f"{path}: the port writes {WRITERS}, not {ext}")
+    if ext in (".jpg", ".jpeg"):
+        data = encode_jpeg(img, 95)
+    else:
+        arr = np.asarray(img.cpu() if isinstance(img, torch.Tensor) else img)
+        data = encode_png(arr) if ext == ".png" else bmp.encode(arr)
+    with open(path, "wb") as f:
+        f.write(data)
+    return True

@@ -521,25 +521,29 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def baseline_headers(width: int, height: int, qtables) -> bytes:
+def baseline_headers(width: int, height: int, qtables,
+                     gray: bool = False) -> bytes:
     """SOI to SOS of a baseline 4:2:0 YCbCr file as libjpeg-turbo writes
-    it under Pillow's save(quality=q): JFIF 1.01 APP0 (no density unit,
-    1:1), one DQT per table (zigzag order), SOF0 (components 1-3, Y 2x2 on
-    table 0, Cb and Cr 1x1 on table 1), one DHT per standard table (luma
-    DC, AC, chroma DC, AC), SOS over the three components."""
+    it under Pillow's save(quality=q) (and cv2.imwrite): JFIF 1.01 APP0 (no
+    density unit, 1:1), one DQT per table (zigzag order), SOF0 (components
+    1-3, Y 2x2 on table 0, Cb and Cr 1x1 on table 1), one DHT per standard
+    table (luma DC, AC, chroma DC, AC), SOS over the three components.
+    gray: the 1-component file of a gray image, only its luma tables
+    (component 1, 1x1, table 0)."""
     out = [SOI, _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for t, q in enumerate(qtables):
+    for t, q in enumerate(qtables[:1] if gray else qtables):
         out.append(_segment(0xDB, bytes([t]) + bytes(
             q[i] for i in NATURAL[:64])))
-    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
-                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
-    for cls_t, (bits, vals) in ((0x00, STD_DC_LUMA), (0x10, STD_AC_LUMA),
-                                (0x01, STD_DC_CHROMA),
-                                (0x11, STD_AC_CHROMA)):
+    comps = [1, 0x11, 0] if gray else [1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width,
+                                          len(comps) // 3) + bytes(comps)))
+    tables = ((0x00, STD_DC_LUMA), (0x10, STD_AC_LUMA),
+              (0x01, STD_DC_CHROMA), (0x11, STD_AC_CHROMA))
+    for cls_t, (bits, vals) in tables[:2] if gray else tables:
         out.append(_segment(0xC4, bytes([cls_t]) + bytes(bits)
                             + bytes(vals)))
-    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63,
-                                     0])))
+    sos = [1, 1, 0x00] if gray else [3, 1, 0x00, 2, 0x11, 3, 0x11]
+    out.append(_segment(0xDA, bytes(sos + [0, 63, 0])))
     return b"".join(out)
 
 
